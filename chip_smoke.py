@@ -1,0 +1,447 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one CUDA card and hold every
+kernel against its plain PyTorch version.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA Hopper GPU and nvcc (CUDA_HOME, PATH or /usr/local/cuda).
+Exits non-zero, printing no result, without a card.  Phases, one JSON line
+each:
+
+  device   card name, count, nvidia-smi name/power limit, precision flags
+  build    nvcc of every kernel source, in parallel (seconds)
+  setup    GBM-scale fold: N = 15,405 node slots, E ~ 154k edges incl. self
+           loops, cohort topology with the windowed plan, B = 32, bf16 trunk
+  k1 / k2  each kernel at the main path's shapes, bf16 and f32, against its
+           plain version (max abs error, stated tolerance, median ms of the
+           kernel, the plain version and the torch.sparse.mm library call)
+  serve    the main path: predict_patients over 4 batches (123 patients, the
+           last batch padded), launch counts zeroed just before, read just
+           after; ms per batch
+  slice    the forward with kernels against the forward with plain versions
+           on the card (bf16 and f32 trunks; probabilities and the pathway
+           image), and a small fold on the card against the same fold on
+           the CPU
+  profile  device time by kernel over full-batch eval steps;
+           serve_paths: windowed against composed (K1 on all edges) per
+           batch, each path's launch counts, and the share of the windowed
+           eval_step with no kernel running
+
+Kernel cases off the main path (other feature widths, permuted plans,
+empty plans) are in tests/test_torch_cuda_kernels.py.
+
+Then the card's nvidia-smi line, the kernels line and the last line
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup
+from multilevel_gnn_tpu_torch.ops import spmm
+from multilevel_gnn_tpu_torch.ops.kernels import build
+from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
+from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
+from multilevel_gnn_tpu_torch.train.predict import predict_patients
+from multilevel_gnn_tpu_torch.train.step import eval_step
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
+
+N_PATIENTS = 123  # 4 batches of 32, the last one padded
+TOL_BF16 = 2e-3   # per kernel, times max(1, max|plain|): bf16 A entries may
+#                   round differently when their f32 sums differ in order
+TOL_F32 = 1e-4    # per kernel, times max(1, max|plain|): f32 sum order
+# Whole forward, kernels against plain versions on the card.  Readings on
+# an H100 (PERF.md): probabilities 6.0e-8 in both trunks; the pathway image
+# 2.3e-4 (bf16 trunk) and 9.3e-8 (f32 trunk) times max|image|.
+TOL_PROB = 1e-6
+TOL_IMAGE_BF16 = 1e-3  # times max|image|
+TOL_IMAGE_F32 = 1e-6   # times max|image|
+TOL_PROB_CPU = 1e-5    # a small fold on the card against the CPU (read 6.0e-8)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median device time of fn() in ms, CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def bound(bytes_moved: float, flops: float, rate: str):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[rate] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_spmm(rows, cols, vals, n_rows, n_cols, x):
+    """torch.sparse.mm of the same weighted adjacency, as a yardstick only.
+    Returns a callable, or None when torch has no sparse product for x's
+    dtype on this card."""
+    a = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), vals.to(x.dtype), (n_rows, n_cols)
+    ).coalesce().to_sparse_csr()
+    try:
+        torch.sparse.mm(a, x)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return lambda: torch.sparse.mm(a, x)
+
+
+def err_of(out, ref):
+    return float((out - ref).abs().max()), float(ref.abs().max())
+
+
+def check(name, err, ref_max, tol):
+    limit = tol * max(1.0, ref_max)
+    if not (err <= limit):
+        raise AssertionError(f"{name}: max abs err {err} > {limit}")
+    return limit
+
+
+def k1_bytes_flops(plan, F, dsize, accumulate):
+    cols = plan.col.long()
+    rows_read = int(torch.unique(cols).numel())
+    rows_with_edges = int((plan.rowptr[1:] > plan.rowptr[:-1]).sum())
+    out_rows = rows_with_edges * 2 if accumulate else plan.n_rows
+    nnz = plan.nnz
+    b = rows_read * F * dsize + out_rows * F * 4 + (plan.n_rows + 1) * 4
+    b += nnz * 8 + int(torch.unique(plan.eid).numel()) * 4
+    return b, 2.0 * nnz * F
+
+
+def k2_bytes_flops(plan, F, dsize):
+    rows_read = int(torch.unique(plan.ent_src_orig).numel())
+    b = rows_read * F * dsize + plan.num_nodes * F * 4
+    b += 4 * (plan.n_tiles + 1 + 2 * plan.n_blocks + 1
+              + 2 * plan.n_entries + 1 + 2 * plan.n_in)
+    if plan.row_of is not None:
+        b += 4 * plan.num_nodes
+    return b, 2.0 * plan.n_entries * F
+
+
+def kernel_k1(graph, w, F, gen):
+    """K1 over all real edges (the composed path) and over the windowed
+    residual in accumulate mode (the main path's use), bf16 and f32."""
+    res = {}
+    cases = {"all_edges": (graph.csr, False), "residual": (graph.winplan.res, True)}
+    for case, (plan, acc) in cases.items():
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(dt)
+            base = torch.randn(plan.n_rows, F, generator=gen, device="cuda")
+
+            # accumulate mode adds into its output: the check starts both
+            # from copies of one base, the timing adds into one buffer again
+            # and again so that no copy is timed
+            buf = base.clone() if acc else None
+
+            def kern():
+                return k1.segment_spmm_csr(x, w, plan, buf)
+
+            def plain():
+                return k1.segment_spmm_csr_plain(x, w, plan, buf)
+
+            out = k1.segment_spmm_csr(x, w, plan, base.clone() if acc else None)
+            ref = k1.segment_spmm_csr_plain(x, w, plan, base.clone() if acc else None)
+            torch.cuda.synchronize()
+            e, m = err_of(out, ref)
+            tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+            limit = check(f"k1 {case} {dt}", e, m, tol)
+            dsize = 2 if dt == torch.bfloat16 else 4
+            b, fl = k1_bytes_flops(plan, F, dsize, acc)
+            bms, by = bound(b, fl, "f32")
+            vals = w.index_select(0, plan.eid.long())
+            lib = library_spmm(plan.row.long(), plan.col.long(), vals,
+                               plan.n_rows, graph.n_nodes, x)
+            r = dict(
+                case=case, dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=F,
+                max_abs_err=e, ref_max=m, limit=limit,
+                ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(lib) if lib is not None else None,
+                bound_ms=bms, bound_by=by, bytes=b, flops=fl,
+            )
+            emit({"phase": "k1", **r})
+            res[(case, r["dtype"])] = r
+    return res
+
+
+def kernel_k2(graph, w, F, gen):
+    plan = graph.winplan
+    res = {}
+    emit({"phase": "k2_plan", "in_window_frac": plan.in_window_frac,
+          "n_res": plan.n_res, "n_in": plan.n_in, "n_entries": plan.n_entries,
+          "n_blocks": plan.n_blocks, "n_tiles": plan.n_tiles,
+          "permuted": plan.row_of is not None})
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(dt)
+
+        def kern():
+            return k2.windowed_tile_spmm(x, w, plan)
+
+        def plain():
+            return k2.windowed_tile_spmm_plain(x, w, plan)
+
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        e, m = err_of(out, ref)
+        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+        limit = check(f"k2 {dt}", e, m, tol)
+        dsize = 2 if dt == torch.bfloat16 else 4
+        b, fl = k2_bytes_flops(plan, F, dsize)
+        bms, by = bound(b, fl, "bf16_tensor" if dsize == 2 else "f32")
+        vals = torch.zeros(plan.n_entries, device="cuda").index_add_(
+            0, plan.edge_ent.long(), w.index_select(0, plan.edge_eid.long())
+        )
+        lib = library_spmm(plan.ent_dst_orig.long(), plan.ent_src_orig.long(),
+                           vals, plan.num_nodes, plan.num_nodes, x)
+        r = dict(
+            dtype=str(dt).split(".")[-1], F=F, max_abs_err=e, ref_max=m,
+            limit=limit, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+            library_ms=cuda_ms(lib) if lib is not None else None,
+            bound_ms=bms, bound_by=by, bytes=b, flops=fl,
+        )
+        emit({"phase": "k2", **r})
+        res[r["dtype"]] = r
+    return res
+
+
+def launch_counts():
+    return {k.name: k.launches for k in build.REGISTRY.values()}
+
+
+def zero_launches():
+    for k in build.REGISTRY.values():
+        k.launches = 0
+
+
+def profile_serve(model, graph, ctx, batch):
+    """Device time by kernel over 3 eval steps of one full batch, then the
+    windowed path against the composed one (K1 over all edges) end to end,
+    in turns, with each path's kernel launches counted; the gap share is
+    the part of the windowed eval_step (CUDA events) with no kernel
+    running."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        eval_step(model, batch, ctx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eval_step(model, batch, ctx)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        # kernels only: an aten op's self device time repeats its kernels'
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((ev.key[:90], dt / 1e3 / 3, ev.count // 3))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    emit({"phase": "profile", "kernel_ms_per_batch": busy,
+          "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:14]]})
+
+    composed = dataclasses.replace(
+        ctx, graph=dataclasses.replace(graph, winplan=None)
+    )
+
+    def step_ms(c):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        eval_step(model, batch, c)
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e)
+
+    eval_step(model, batch, composed)
+    t = {"windowed": [], "composed": []}
+    launches = {p: {k: 0 for k in launch_counts()} for p in t}
+    for _ in range(5):
+        for name, c in (("windowed", ctx), ("composed", composed),
+                        ("composed", composed), ("windowed", ctx)):
+            zero_launches()
+            t[name].append(step_ms(c))
+            for k, v in launch_counts().items():
+                launches[name][k] += v
+    med = {k: float(np.median(v)) for k, v in t.items()}
+    emit({"phase": "serve_paths", "ms_per_batch_median": med, "turns": 10,
+          "launches": launches, "gap_share": 1 - busy / med["windowed"]})
+    n = len(t["composed"])
+    if (launches["composed"] != {k1.KERNEL.name: 2 * n, k2.KERNEL.name: 0}
+            or launches["windowed"] != {k1.KERNEL.name: 2 * n, k2.KERNEL.name: 2 * n}):
+        raise AssertionError(f"serve_paths launch counts {launches}")
+
+
+def patients(n_nodes, seed=1):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(N_PATIENTS, n_nodes).astype(np.float32)
+    Y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, N_PATIENTS)]
+    ages = (rng.rand(N_PATIENTS) * 80).astype(np.float32)
+    return X, Y, ages
+
+
+def slice_checks(model, graph, ctx, batch):
+    """Kernels vs plain versions through the whole forward on the card."""
+    from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
+
+    f32_model = MultilevelGNN(
+        model.cfg.replace(compute_dtype=None, spmm_bf16=False),
+        graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0,
+    )
+    for name, m, tol_img in (
+        ("bf16", model, TOL_IMAGE_BF16),
+        ("f32", f32_model, TOL_IMAGE_F32),
+    ):
+        with torch.no_grad():
+            m.eval()
+            pk, ik = m(batch, ctx)
+            with spmm.plain_versions():
+                pp, ip = m(batch, ctx)
+        torch.cuda.synchronize()
+        e = float((pk - pp).abs().max())
+        ie, im = err_of(ik, ip)
+        finite = bool(torch.isfinite(pk).all() and torch.isfinite(ik).all())
+        sums = float((pk.sum(-1) - 1).abs().max())
+        ok = (finite and sums < 1e-5 and e <= TOL_PROB and im > 0
+              and ie <= tol_img * im)
+        emit({"phase": "slice", "trunk": name, "max_abs_err_prob": e,
+              "tol_prob": TOL_PROB, "max_abs_err_image": ie, "image_max": im,
+              "tol_image": tol_img, "finite": finite,
+              "max_row_sum_err": sums, "shape": list(pk.shape), "ok": ok})
+        if not ok:
+            raise AssertionError(f"slice {name} mismatch")
+    # a small fold on the card (kernels) against the same fold on the CPU
+    # (plain versions), f32 trunk
+    res = {}
+    for dev in ("cuda", "cpu"):
+        _, m, _, c, b = make_gbm_scale_setup(
+            node_num=300, n_pathways=12, batch=8, gene_rows=900,
+            topology="cohort", windowed=True, device=dev,
+        )
+        res[dev] = [t.float().cpu() for t in eval_step(m, b, c)]
+    e = float((res["cuda"][0] - res["cpu"][0]).abs().max())
+    ok = e <= TOL_PROB_CPU and bool(torch.isfinite(res["cuda"][0]).all())
+    emit({"phase": "slice_small_vs_cpu", "max_abs_err_prob": e,
+          "tol": TOL_PROB_CPU, "ok": ok})
+    if not ok:
+        raise AssertionError("small fold: card vs CPU mismatch")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "matmul_tf32": False, "cudnn_tf32": False})
+
+    t0 = time.perf_counter()
+    times = build.build_all()
+    regs = {
+        k.name: [ln.strip() for ln in k.ptxas_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        for k in build.REGISTRY.values()
+    }
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_kernel_s": times, "ptxas": regs})
+
+    t0 = time.perf_counter()
+    cfg, model, graph, ctx, batch = make_gbm_scale_setup(
+        topology="cohort", windowed=True, batch=32,
+        compute_dtype="bfloat16", spmm_bf16=True, device="cuda",
+    )
+    torch.cuda.synchronize()
+    F = cfg.batch_size * cfg.node_embedding_dim  # B*C at the SpMMs
+    emit({"phase": "setup", "seconds": time.perf_counter() - t0,
+          "n_nodes": graph.n_nodes, "n_edges": graph.n_edges, "F": F,
+          "batch": cfg.batch_size, "windowed": graph.winplan is not None})
+    if graph.winplan is None:
+        raise AssertionError("the GBM cohort fold did not engage the windowed path")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = spmm.edge_weights(graph, "mean", graph.edge_attr)
+    r1 = kernel_k1(graph, w, F, gen)
+    r2 = kernel_k2(graph, w, F, gen)
+
+    X, Y, ages = patients(graph.n_nodes)
+    idx = np.arange(N_PATIENTS)
+    predict_patients(model, ctx, X, Y, ages, idx)  # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = predict_patients(model, ctx, X, Y, ages, idx)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    n_batches = -(-N_PATIENTS // cfg.batch_size)
+    prob = np.asarray(res["prob"])
+    ok = (
+        len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
+        and bool(((prob >= 0) & (prob <= 1)).all())
+        and np.isfinite(res["loss"]) and all(v > 0 for v in launches.values())
+    )
+    emit({"phase": "serve", "batches": n_batches, "patients": N_PATIENTS,
+          "ms_per_batch": dt * 1e3 / n_batches, "launches": launches,
+          "auc": res["auc"], "acc": res["acc"], "loss": res["loss"], "ok": ok})
+    if not ok:
+        raise AssertionError("serve phase failed")
+
+    slice_checks(model, graph, ctx, batch)
+    profile_serve(model, graph, ctx, batch)
+
+    main_k1 = r1[("residual", "bfloat16")]
+    main_k2 = r2["bfloat16"]
+    kernels = []
+    for k, r in ((k1.KERNEL, main_k1), (k2.KERNEL, main_k2)):
+        kernels.append({
+            "name": k.name, "route": k.route, "source": k.source_rel,
+            "replaces": k.replaces, "launches": launches[k.name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test skips (with its reason) where torch sees no CUDA
+device, as on a CPU-only machine.  On a GPU host:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q --noconftest
+
+(--noconftest: the repo's conftest configures JAX, which a GPU host for
+the port need not have.)  Cases: random graphs with empty rows and
+duplicate (dst, src) pairs, padded/masked edges, permuted window plans,
+feature widths on and off the vector path, accumulate mode, bf16 and f32.
+
+Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
+f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
+its f32 sum is taken in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
+from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _close(out, ref, dtype):
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    lim = TOL[dtype] * max(1.0, float(ref.abs().max()) if ref.numel() else 0.0)
+    assert err <= lim, (err, lim)
+
+
+def _graph(seed, n, e, hub=False):
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, n, e)
+    dst = np.clip(src + rng.randint(-60, 61, e), 0, n - 20)  # last rows empty
+    if hub:
+        k = e // 10
+        src[:k] = rng.randint(0, 5, k)  # hub sources
+        dst[:k] = rng.randint(0, n - 20, k)
+        dst[k : 2 * k] = rng.randint(0, 2, k)  # rows with > 256 in-edges
+    dup = rng.randint(0, e, e // 20)
+    src = np.concatenate([src, src[dup]])  # repeated (dst, src) pairs
+    dst = np.concatenate([dst, dst[dup]])
+    return src.astype(np.int64), dst.astype(np.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 20, 64, 2048, 2056])
+def test_k1_matches_plain(dev, dtype, F):
+    n = 900
+    s, d = _graph(1, n, 7000, hub=True)
+    mask = np.random.RandomState(2).rand(len(s)) > 0.1
+    eid = np.flatnonzero(mask)
+    plan = k1.CSRPlan.build(d[eid], s[eid], eid, n).to(dev)
+    g = torch.Generator(device=dev).manual_seed(F)
+    x = torch.randn(n, F, generator=g, device=dev).to(dtype)
+    w = torch.randn(len(s), generator=g, device=dev)
+    _close(k1.segment_spmm_csr(x, w, plan), k1.segment_spmm_csr_plain(x, w, plan), dtype)
+    base = torch.randn(n, F, generator=g, device=dev)
+    out = k1.segment_spmm_csr(x, w, plan, out=base.clone())
+    _close(out, k1.segment_spmm_csr_plain(x, w, plan, out=base.clone()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,Wb,nwin,hub", [
+    (128, 128, 2, False), (20, 256, 1, True), (136, 128, 1, True),
+    (2048, 512, 2, True),
+])
+def test_k2_matches_plain(dev, dtype, F, Wb, nwin, hub):
+    n = 1000
+    s, d = _graph(3, n, 8000, hub=hub)
+    plan = k2.build_plan(s, d, n, Wb=Wb, nwin=nwin).to(dev)
+    g = torch.Generator(device=dev).manual_seed(F + Wb)
+    x = torch.randn(n, F, generator=g, device=dev).to(dtype)
+    w = torch.randn(len(s), generator=g, device=dev)
+    _close(k2.windowed_tile_spmm(x, w, plan), k2.windowed_tile_spmm_plain(x, w, plan), dtype)
+    full = k2.windowed_spmm(x, w, plan)
+    _close(full, k2.windowed_spmm_plain(x, w, plan), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_permuted_plan_matches_plain(dev, dtype):
+    rng = np.random.RandomState(4)
+    n, e = 600, 4000
+    comm = rng.randint(0, 2, n)
+    order = np.argsort(rng.rand(n))
+    members = [order[comm[order] == c] for c in (0, 1)]
+    cs = rng.randint(0, 2, e)
+    s = np.array([members[c][rng.randint(len(members[c]))] for c in cs])
+    d = np.array([members[c][rng.randint(len(members[c]))] for c in cs])
+    mask = rng.rand(e) > 0.1
+    perm, _, _ = k2.choose_node_perm(s[mask], d[mask], n, Wb=128, nwin=2)
+    assert perm is not None
+    plan = k2.build_plan(s, d, n, mask=mask, perm=perm, Wb=128, nwin=2).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(n, 96, generator=g, device=dev).to(dtype)
+    w = torch.randn(e, generator=g, device=dev)
+    _close(k2.windowed_spmm(x, w, plan), k2.windowed_spmm_plain(x, w, plan), dtype)
+
+
+def test_empty_plans(dev):
+    n = 300
+    plan = k2.build_plan(np.zeros(0, int), np.zeros(0, int), n).to(dev)
+    x = torch.randn(n, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(0, device=dev)
+    assert torch.count_nonzero(k2.windowed_spmm(x, w, plan)) == 0
+    csr = k1.CSRPlan.build(np.zeros(0), np.zeros(0), np.zeros(0), n).to(dev)
+    assert torch.count_nonzero(k1.segment_spmm_csr(x, w, csr)) == 0

@@ -1,0 +1,74 @@
+"""Print the PyTorch port's measured parity errors against the JAX package.
+
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py
+
+Runs the same inputs as tests/test_torch_{segment_sum,windowed,slice}.py
+(CPU, plain versions on the port side, Pallas interpret mode on the JAX
+side) and prints one JSON line per module with the max abs error and, for
+bf16, the bound the tests hold it to.  Not collected by pytest.
+"""
+import json
+import os
+import sys
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_default_matmul_precision", "highest")
+
+import numpy as np  # noqa: E402
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [_HERE, os.path.dirname(_HERE)]
+import test_torch_segment_sum as T1  # noqa: E402
+import test_torch_slice as TS  # noqa: E402
+import test_torch_windowed as T2  # noqa: E402
+
+
+def _emit(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def main():
+    for case in T1.CASES:
+        seed, n, e, pad, tail = case
+        ei, attr, n, pad_to = T1._graph(seed, n, e, pad, tail)
+        x = np.random.RandomState(seed + 10).randn(3, n, 16).astype(np.float32)
+        j32 = T1._jax_spmm(ei, attr, n, pad_to, x, "mean", False)
+        p32 = T1._port_spmm(ei, attr, n, pad_to, x, "mean", False)
+        j16 = T1._jax_spmm(ei, attr, n, pad_to, x, "mean", True)
+        p16 = T1._port_spmm(ei, attr, n, pad_to, x, "mean", True)
+        _emit(module="K1 spmm_mean", case=list(case),
+              f32_max_abs_err=float(np.abs(p32 - j32).max()),
+              bf16_max_abs_err_vs_jax_f32=float(np.abs(p16 - j32).max()),
+              bf16_bound=float(1.5 * np.abs(j16 - j32).max() + 1e-3))
+    for case in T2.CASES:
+        name, s, d, w, mask, Wb, nwin, group = case
+        n, jp, pp = T2._plans(case)
+        x = np.random.RandomState(5).randn(n, 48).astype(np.float32)
+        j32 = T2._jax_fwd(x, w, s, d, jp, mask, False)
+        p32 = T2._port_fwd(x, w, pp, False)
+        j16 = T2._jax_fwd(x, w, s, d, jp, mask, True)
+        p16 = T2._port_fwd(x, w, pp, True)
+        _emit(module="K2 windowed_spmm", case=name, n_res=pp.n_res,
+              in_window_frac=pp.in_window_frac,
+              f32_max_abs_err=float(np.abs(p32 - j32).max()),
+              bf16_max_abs_err_vs_jax_f32=float(np.abs(p16 - j32).max()),
+              bf16_bound=float(1.5 * np.abs(j16 - j32).max() + 1e-3))
+    fold = TS.fold.__wrapped__()
+    f, h = TS._run(fold, False), TS._run(fold, True)
+    _emit(module="slice MultilevelGNN eval", n_res=fold["pctx"].graph.winplan.n_res,
+          f32_prob_max_abs_err=float(np.abs(f["pp"] - f["jp"]).max()),
+          f32_loss_max_abs_err=float(np.abs(f["pl"] - f["jl"]).max()),
+          bf16_prob_max_abs_err_vs_jax_f32=float(np.abs(h["pp"] - f["jp"]).max()),
+          bf16_prob_bound=float(1.5 * np.abs(h["jp"] - f["jp"]).max() + 1e-3),
+          auc_equal=f["pev"][0] == f["jev"][0], acc_equal=f["pev"][1] == f["jev"][1])
+    r = TS._run(fold, False, reorder=True)
+    _emit(module="slice MultilevelGNN eval, pathway reorder",
+          f32_prob_max_abs_err=float(np.abs(r["pp"] - r["jp"]).max()),
+          f32_loss_max_abs_err=float(np.abs(r["pl"] - r["jl"]).max()))
+
+
+if __name__ == "__main__":
+    main()
