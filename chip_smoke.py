@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and hold every
-kernel against its plain PyTorch version.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+hold every kernel, forward and backward, against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -26,15 +26,33 @@ each:
            serve_paths: windowed against composed (K1 on all edges) per
            batch, each path's launch counts, and the share of the windowed
            eval_step with no kernel running
+  k1_bwd / k2_bwd  the backward forms at the training path's shapes, bf16
+           and f32, against their plain versions: K1 over csc (all edges),
+           over tres and over res_csc (accumulating), K1 as the gather_rows
+           backward (F = B*32), K2 on the transpose side; with the
+           transpose plan's sub-block, entry and tres counts
+  train_grad  one train step's gradients with kernels against the same
+           step with plain versions, per parameter max|diff| / max|grad|,
+           bf16 and f32 trunks
+  train    the training path: run_fold on a GBM-scale fold (gbm.yaml's
+           optimizer and dropouts, 3 epochs), launch counts zeroed just
+           before and read just after; ms per train step, host wall per
+           epoch, launches per step, losses, parameter movement, valid and
+           test AUC; then epoch 1 again from the same seeds, its first
+           steps' losses against the first run's
+  profile_train  device time by kernel per train step, and the share of
+           the step with no kernel running
 
 Kernel cases off the main path (other feature widths, permuted plans,
 empty plans) are in tests/test_torch_cuda_kernels.py.
 
-Then the card's nvidia-smi line, the kernels line and the last line
-{"ok": true, "device": {...}}.
+Then the card's nvidia-smi line, the kernels line (per kernel: its serving
+numbers, its launches per train step and its backward forms' numbers) and
+the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,12 +62,20 @@ import numpy as np
 import torch
 
 from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup
+from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 from multilevel_gnn_tpu_torch.ops import spmm
 from multilevel_gnn_tpu_torch.ops.kernels import build
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
+from multilevel_gnn_tpu_torch.train import metrics as M
+from multilevel_gnn_tpu_torch.train.driver import class_weight, iter_batches, run_fold
 from multilevel_gnn_tpu_torch.train.predict import predict_patients
-from multilevel_gnn_tpu_torch.train.step import eval_step
+from multilevel_gnn_tpu_torch.train.step import (
+    eval_step,
+    make_loss_fn,
+    make_optimizer,
+    train_step,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -66,6 +92,13 @@ TOL_PROB = 1e-6
 TOL_IMAGE_BF16 = 1e-3  # times max|image|
 TOL_IMAGE_F32 = 1e-6   # times max|image|
 TOL_PROB_CPU = 1e-5    # a small fold on the card against the CPU (read 6.0e-8)
+# One train step's gradients, kernels against plain versions, per parameter
+# max|diff| / max|grad| (worst parameter).  Readings on an H100 (PERF.md):
+# 7.2e-3 in the bf16 trunk (bf16 casts of f32 sums taken in another order
+# can round one ulp apart), 6.3e-7 in the f32 trunk; limits about ten times.
+TOL_GRAD = {"bf16": 7e-2, "f32": 6e-6}
+TOL_REPLAY = 1e-5  # epoch 1 replayed from the same seeds: max |loss diff|
+N_TRAIN_PATIENTS = 256  # 192 train (6 steps an epoch), 32 valid, 32 test
 
 
 def emit(obj) -> None:
@@ -132,56 +165,94 @@ def k1_bytes_flops(plan, F, dsize, accumulate):
     return b, 2.0 * nnz * F
 
 
-def k2_bytes_flops(plan, F, dsize):
-    rows_read = int(torch.unique(plan.ent_src_orig).numel())
+def k2_bytes_flops(plan, side, F, dsize):
+    rows_read = int(torch.unique(side.ent_src_orig).numel())
     b = rows_read * F * dsize + plan.num_nodes * F * 4
-    b += 4 * (plan.n_tiles + 1 + 2 * plan.n_blocks + 1
-              + 2 * plan.n_entries + 1 + 2 * plan.n_in)
+    b += 4 * (side.n_tiles + 1 + 2 * side.n_blocks + 1
+              + 2 * side.n_entries + 1 + 2 * side.n_in)
     if plan.row_of is not None:
         b += 4 * plan.num_nodes
-    return b, 2.0 * plan.n_entries * F
+    return b, 2.0 * side.n_entries * F
+
+
+def time_k1(name, plan, x, w, acc, gen, library=None):
+    """K1 on one plan against its plain version (accumulating into a random
+    base when acc), with its ms, plain ms, bound and library ms."""
+    dt = x.dtype
+    base = torch.randn(plan.n_rows, x.shape[1], generator=gen, device="cuda")
+    # accumulate mode adds into its output: the check starts both from
+    # copies of one base, the timing adds into one buffer again and again
+    # so that no copy is timed
+    buf = base.clone() if acc else None
+
+    def kern():
+        return k1.segment_spmm_csr(x, w, plan, buf)
+
+    def plain():
+        return k1.segment_spmm_csr_plain(x, w, plan, buf)
+
+    out = k1.segment_spmm_csr(x, w, plan, base.clone() if acc else None)
+    ref = k1.segment_spmm_csr_plain(x, w, plan, base.clone() if acc else None)
+    torch.cuda.synchronize()
+    e, m = err_of(out, ref)
+    tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+    limit = check(f"k1 {name} {dt}", e, m, tol)
+    dsize = 2 if dt == torch.bfloat16 else 4
+    b, fl = k1_bytes_flops(plan, x.shape[1], dsize, acc)
+    bms, by = bound(b, fl, "f32")
+    if library is None:
+        vals = w.index_select(0, plan.eid.long())
+        library = library_spmm(plan.row.long(), plan.col.long(), vals,
+                               plan.n_rows, x.shape[0], x)
+    return dict(
+        case=name, dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=x.shape[1],
+        max_abs_err=e, ref_max=m, limit=limit,
+        ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+        library_ms=cuda_ms(library) if library is not None else None,
+        bound_ms=bms, bound_by=by, bytes=b, flops=fl,
+    )
+
+
+def time_k2(name, plan, x, w, transpose):
+    dt = x.dtype
+    side = plan.bwd if transpose else plan.fwd
+
+    def kern():
+        return k2.windowed_tile_spmm(x, w, plan, transpose)
+
+    def plain():
+        return k2.windowed_tile_spmm_plain(x, w, plan, transpose)
+
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    e, m = err_of(out, ref)
+    tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+    limit = check(f"k2 {name} {dt}", e, m, tol)
+    dsize = 2 if dt == torch.bfloat16 else 4
+    b, fl = k2_bytes_flops(plan, side, x.shape[1], dsize)
+    bms, by = bound(b, fl, "bf16_tensor" if dsize == 2 else "f32")
+    vals = torch.zeros(side.n_entries, device="cuda").index_add_(
+        0, side.edge_ent.long(), w.index_select(0, side.edge_eid.long())
+    )
+    lib = library_spmm(side.ent_dst_orig.long(), side.ent_src_orig.long(),
+                       vals, plan.num_nodes, plan.num_nodes, x)
+    return dict(
+        case=name, dtype=str(dt).split(".")[-1], F=x.shape[1], max_abs_err=e,
+        ref_max=m, limit=limit, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+        library_ms=cuda_ms(lib) if lib is not None else None,
+        bound_ms=bms, bound_by=by, bytes=b, flops=fl,
+    )
 
 
 def kernel_k1(graph, w, F, gen):
     """K1 over all real edges (the composed path) and over the windowed
-    residual in accumulate mode (the main path's use), bf16 and f32."""
+    residual in accumulate mode (the serving path's use), bf16 and f32."""
     res = {}
     cases = {"all_edges": (graph.csr, False), "residual": (graph.winplan.res, True)}
     for case, (plan, acc) in cases.items():
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(dt)
-            base = torch.randn(plan.n_rows, F, generator=gen, device="cuda")
-
-            # accumulate mode adds into its output: the check starts both
-            # from copies of one base, the timing adds into one buffer again
-            # and again so that no copy is timed
-            buf = base.clone() if acc else None
-
-            def kern():
-                return k1.segment_spmm_csr(x, w, plan, buf)
-
-            def plain():
-                return k1.segment_spmm_csr_plain(x, w, plan, buf)
-
-            out = k1.segment_spmm_csr(x, w, plan, base.clone() if acc else None)
-            ref = k1.segment_spmm_csr_plain(x, w, plan, base.clone() if acc else None)
-            torch.cuda.synchronize()
-            e, m = err_of(out, ref)
-            tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
-            limit = check(f"k1 {case} {dt}", e, m, tol)
-            dsize = 2 if dt == torch.bfloat16 else 4
-            b, fl = k1_bytes_flops(plan, F, dsize, acc)
-            bms, by = bound(b, fl, "f32")
-            vals = w.index_select(0, plan.eid.long())
-            lib = library_spmm(plan.row.long(), plan.col.long(), vals,
-                               plan.n_rows, graph.n_nodes, x)
-            r = dict(
-                case=case, dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=F,
-                max_abs_err=e, ref_max=m, limit=limit,
-                ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                library_ms=cuda_ms(lib) if lib is not None else None,
-                bound_ms=bms, bound_by=by, bytes=b, flops=fl,
-            )
+            r = time_k1(case, plan, x, w, acc, gen)
             emit({"phase": "k1", **r})
             res[(case, r["dtype"])] = r
     return res
@@ -191,40 +262,50 @@ def kernel_k2(graph, w, F, gen):
     plan = graph.winplan
     res = {}
     emit({"phase": "k2_plan", "in_window_frac": plan.in_window_frac,
-          "n_res": plan.n_res, "n_in": plan.n_in, "n_entries": plan.n_entries,
-          "n_blocks": plan.n_blocks, "n_tiles": plan.n_tiles,
-          "permuted": plan.row_of is not None})
+          "n_res": plan.n_res, "n_in": plan.fwd.n_in,
+          "n_entries": plan.fwd.n_entries, "n_blocks": plan.fwd.n_blocks,
+          "n_tiles": plan.fwd.n_tiles, "permuted": plan.row_of is not None})
     for dt in (torch.bfloat16, torch.float32):
         x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(dt)
-
-        def kern():
-            return k2.windowed_tile_spmm(x, w, plan)
-
-        def plain():
-            return k2.windowed_tile_spmm_plain(x, w, plan)
-
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        e, m = err_of(out, ref)
-        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
-        limit = check(f"k2 {dt}", e, m, tol)
-        dsize = 2 if dt == torch.bfloat16 else 4
-        b, fl = k2_bytes_flops(plan, F, dsize)
-        bms, by = bound(b, fl, "bf16_tensor" if dsize == 2 else "f32")
-        vals = torch.zeros(plan.n_entries, device="cuda").index_add_(
-            0, plan.edge_ent.long(), w.index_select(0, plan.edge_eid.long())
-        )
-        lib = library_spmm(plan.ent_dst_orig.long(), plan.ent_src_orig.long(),
-                           vals, plan.num_nodes, plan.num_nodes, x)
-        r = dict(
-            dtype=str(dt).split(".")[-1], F=F, max_abs_err=e, ref_max=m,
-            limit=limit, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-            library_ms=cuda_ms(lib) if lib is not None else None,
-            bound_ms=bms, bound_by=by, bytes=b, flops=fl,
-        )
+        r = time_k2("forward", plan, x, w, transpose=False)
         emit({"phase": "k2", **r})
         res[r["dtype"]] = r
     return res
+
+
+def kernel_bwd(graph, ctx, w, F, F_gather, gen):
+    """The backward forms at the training path's shapes: K1 over csc (the
+    composed backward, all edges), over tres and res_csc (accumulating into
+    K2's output), K1 as the gather_rows backward (unit weights, F_gather
+    wide), and K2 on the transpose side; bf16 and f32."""
+    plan = graph.winplan
+    emit({"phase": "k2_bwd_plan", "n_in": plan.bwd.n_in,
+          "n_entries": plan.bwd.n_entries, "n_blocks": plan.bwd.n_blocks,
+          "n_tiles": plan.bwd.n_tiles,
+          "blocks_per_tile": plan.bwd.n_blocks / plan.bwd.n_tiles,
+          "n_tres": plan.n_tres, "n_res": plan.n_res})
+    r1, r2 = {}, {}
+    G = ctx.num_pca_rows
+    ones = torch.ones(G, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        d = str(dt).split(".")[-1]
+        for case, p, acc in (("csc", graph.csc, False), ("tres", plan.tres, True),
+                             ("res_csc", plan.res_csc, True)):
+            x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(dt)
+            r1[(case, d)] = time_k1(case, p, x, w, acc, gen)
+            emit({"phase": "k1_bwd", **r1[(case, d)]})
+        g = torch.randn(G, F_gather, generator=gen, device="cuda").to(dt)
+        idx = ctx.pca_rows
+        dst = torch.zeros(graph.n_nodes, F_gather, device="cuda", dtype=dt)
+        r1[("gather_rows_bwd", d)] = time_k1(
+            "gather_rows_bwd", ctx.pca_gather, g, ones, False, gen,
+            library=lambda: dst.zero_().index_add_(0, idx, g),
+        )
+        emit({"phase": "k1_bwd", **r1[("gather_rows_bwd", d)]})
+        x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(dt)
+        r2[d] = time_k2("transpose", plan, x, w, transpose=True)
+        emit({"phase": "k2_bwd", **r2[d]})
+    return r1, r2
 
 
 def launch_counts():
@@ -236,15 +317,31 @@ def zero_launches():
         k.launches = 0
 
 
+def kernel_rows(prof, n):
+    """(name, device ms, calls) per kernel and per one of the n profiled
+    iterations, largest first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        # kernels only: an aten op's self device time repeats its kernels',
+        # and a user annotation's (Optimizer.step) spans them
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((ev.key[:90], dt / 1e3 / n, ev.count // n))
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def profile_serve(model, graph, ctx, batch):
     """Device time by kernel over 3 eval steps of one full batch, then the
     windowed path against the composed one (K1 over all edges) end to end,
     in turns, with each path's kernel launches counted; the gap share is
     the part of the windowed eval_step (CUDA events) with no kernel
     running."""
-    import dataclasses
-
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -254,17 +351,7 @@ def profile_serve(model, graph, ctx, batch):
         for _ in range(3):
             eval_step(model, batch, ctx)
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        # kernels only: an aten op's self device time repeats its kernels'
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dt = getattr(ev, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            rows.append((ev.key[:90], dt / 1e3 / 3, ev.count // 3))
-    rows.sort(key=lambda r: -r[1])
+    rows = kernel_rows(prof, 3)
     busy = sum(r[1] for r in rows)
     emit({"phase": "profile", "kernel_ms_per_batch": busy,
           "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:14]]})
@@ -301,18 +388,16 @@ def profile_serve(model, graph, ctx, batch):
         raise AssertionError(f"serve_paths launch counts {launches}")
 
 
-def patients(n_nodes, seed=1):
+def patients(n_nodes, n=N_PATIENTS, seed=1):
     rng = np.random.RandomState(seed)
-    X = rng.randn(N_PATIENTS, n_nodes).astype(np.float32)
-    Y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, N_PATIENTS)]
-    ages = (rng.rand(N_PATIENTS) * 80).astype(np.float32)
+    X = rng.randn(n, n_nodes).astype(np.float32)
+    Y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, n)]
+    ages = (rng.rand(n) * 80).astype(np.float32)
     return X, Y, ages
 
 
 def slice_checks(model, graph, ctx, batch):
     """Kernels vs plain versions through the whole forward on the card."""
-    from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
-
     f32_model = MultilevelGNN(
         model.cfg.replace(compute_dtype=None, spmm_bf16=False),
         graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0,
@@ -354,6 +439,139 @@ def slice_checks(model, graph, ctx, batch):
           "tol": TOL_PROB_CPU, "ok": ok})
     if not ok:
         raise AssertionError("small fold: card vs CPU mismatch")
+
+
+def grads_of(model, batch, ctx, cw, seed):
+    """One training-mode loss's gradients, dropout masks from ``seed``."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    loss, _ = make_loss_fn(model.cfg)(model, batch, ctx, cw, gen)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def train_grad_checks(model, f32_model, ctx, batch, cw):
+    """One step's gradients with kernels against the same step with plain
+    versions (forward and backward), same params, same dropout masks."""
+    for name, m in (("bf16", model), ("f32", f32_model)):
+        lk, gk = grads_of(m, batch, ctx, cw, seed=5)
+        with spmm.plain_versions():
+            lp, gp = grads_of(m, batch, ctx, cw, seed=5)
+        torch.cuda.synchronize()
+        rel = {}
+        for n in gk:
+            gmax = float(gp[n].abs().max())
+            rel[n] = float((gk[n] - gp[n]).abs().max()) / max(gmax, 1e-30)
+        worst = max(rel.values())
+        finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+        ok = finite and worst <= TOL_GRAD[name]
+        emit({"phase": "train_grad", "trunk": name, "loss": lk,
+              "loss_plain": lp, "max_rel_err": worst, "tol": TOL_GRAD[name],
+              "rel_err_by_param": rel, "finite": finite, "ok": ok})
+        if not ok:
+            raise AssertionError(f"train_grad {name}: kernels vs plain {worst}")
+        m.zero_grad(set_to_none=True)
+
+
+def train_phase(cfg, ctx, model_seed_state):
+    """The training path at GBM scale: run_fold for 3 epochs, counted."""
+    X, Y, ages = patients(ctx.graph.n_nodes, n=N_TRAIN_PATIENTS, seed=2)
+    tr, va, te = np.arange(192), np.arange(192, 224), np.arange(224, 256)
+    cw = class_weight(Y, tr, cfg.weight_power)
+    plan = ctx.graph.winplan
+
+    def fold_model():
+        m = MultilevelGNN(cfg, ctx.graph.n_nodes, ctx.num_pca_rows,
+                          device="cuda", seed=0)
+        m.load_state_dict(model_seed_state)
+        return m
+
+    model = fold_model()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    zero_launches()
+    res = run_fold(cfg, ctx, X, Y, ages, tr, va, te, cw, [1, 2, 3], model=model)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    n_steps = len(res.step_losses)
+    n_eval = 3 * 2  # valid + test, one batch each, per epoch
+    k1_step = 2 * (plan.n_res > 0) + 2 * ((plan.n_tres > 0) + (plan.n_res > 0)) + 1
+    want = {k1.KERNEL.name: n_steps * k1_step + n_eval * 2 * (plan.n_res > 0),
+            k2.KERNEL.name: n_steps * 4 + n_eval * 2}
+    moved = max(float((p.detach() - before[n]).abs().max())
+                for n, p in model.named_parameters())
+    valid_auc = [v[0] for v in res.epoch_valid]
+    step_ms = float(np.median(res.step_ms))
+    # epoch 1 again from the same seeds
+    again = run_fold(cfg.replace(epochs=1), ctx, X, Y, ages, tr, va, te, cw,
+                     [1], model=fold_model())
+    replay = float(np.max(np.abs(np.array(again.step_losses[:3])
+                                 - np.array(res.step_losses[:3]))))
+    ok = (launches == want and n_steps == 18
+          and bool(np.isfinite(res.step_losses).all()) and moved > 0
+          and replay <= TOL_REPLAY)
+    emit({"phase": "train", "epochs": 3, "steps": n_steps,
+          "ms_per_step_median": step_ms, "step_ms": res.step_ms,
+          "host_s_per_epoch": res.epoch_times, "launches": launches,
+          "launches_expected": want,
+          "launches_per_step_expected": {k1.KERNEL.name: k1_step, k2.KERNEL.name: 4},
+          "losses": res.step_losses, "max_param_move": moved,
+          "valid_auc": valid_auc, "valid_loss": [v[2] for v in res.epoch_valid],
+          "test_auc_at_check": {
+              e: float(M.roc_auc(res.y_true, s))
+              for e, s in res.epoch_pred_by_epoch.items()},
+          "replay_max_abs_loss_diff": replay, "replay_tol": TOL_REPLAY,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("train phase failed")
+    return dict(per_step={k1.KERNEL.name: k1_step, k2.KERNEL.name: 4},
+                batch=next(iter_batches(X, Y, ages, tr, cfg.batch_size, "cuda")),
+                model=model, cw=torch.as_tensor(cw, dtype=torch.float32, device="cuda"))
+
+
+def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3):
+    """One batch and one optimizer: n_timed train steps timed with CUDA
+    events and their kernel launches counted (per step), then n_prof steps
+    under the profiler for device time by kernel.  The gap share is the
+    part of the median timed step with no kernel running."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = make_optimizer(model, model.cfg, 6)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for _ in range(2):
+        train_step(model, opt, batch, ctx, cw, gen)
+    torch.cuda.synchronize()
+    zero_launches()
+    events = []
+    for _ in range(n_timed):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        train_step(model, opt, batch, ctx, cw, gen)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    per_step = {k: v / n_timed for k, v in launch_counts().items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            train_step(model, opt, batch, ctx, cw, gen)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, n_prof)
+    busy = sum(r[1] for r in rows)
+    step_ms = float(np.median(ms))
+    ok = per_step == want_per_step
+    emit({"phase": "profile_train", "kernel_ms_per_step": busy,
+          "kernels_per_step": sum(r[2] for r in rows),
+          "step_ms": ms, "step_ms_median": step_ms,
+          "gap_share": 1 - busy / step_ms,
+          "launches_per_step": per_step, "launches_per_step_expected": want_per_step,
+          "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:16]],
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"train launches per step {per_step}, want {want_per_step}")
+    return per_step
 
 
 def main() -> int:
@@ -423,11 +641,35 @@ def main() -> int:
     if not ok:
         raise AssertionError("serve phase failed")
 
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
     slice_checks(model, graph, ctx, batch)
     profile_serve(model, graph, ctx, batch)
 
+    # ---- the training path
+    b1, b2 = kernel_bwd(graph, ctx, w, F, cfg.batch_size * cfg.final_channels, gen)
+    rng = np.random.RandomState(3)
+    pca_seed = (rng.randn(ctx.num_pca_rows, cfg.pca_dim) * 0.05).astype(np.float32)
+    ctx = dataclasses.replace(ctx, pca_seed=torch.as_tensor(pca_seed, device="cuda"))
+    # gbm.yaml's optimizer (Adam, lr 1e-4, no clip, no StepLR, no wd) and
+    # dropouts (feature_drop 0.25, head dropout 0.5), 3 epochs
+    tcfg = cfg.replace(epochs=3, init_with_pca=True)
+    f32_model = MultilevelGNN(
+        tcfg.replace(compute_dtype=None, spmm_bf16=False),
+        graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0,
+    )
+    train_grad_checks(model, f32_model, ctx, batch,
+                      torch.tensor([1.0, 1.5], device="cuda"))
+    tr = train_phase(tcfg, ctx, init_state)
+    train_per_step = profile_train(tr["model"], ctx, tr["batch"], tr["cw"],
+                                   tr["per_step"])
+
     main_k1 = r1[("residual", "bfloat16")]
     main_k2 = r2["bfloat16"]
+    backward = {
+        k1.KERNEL.name: [b1[(c, "bfloat16")] for c in
+                         ("csc", "tres", "res_csc", "gather_rows_bwd")],
+        k2.KERNEL.name: [b2["bfloat16"]],
+    }
     kernels = []
     for k, r in ((k1.KERNEL, main_k1), (k2.KERNEL, main_k2)):
         kernels.append({
@@ -436,6 +678,12 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "train_launches_per_step": train_per_step[k.name],
+            "backward": [
+                {key: b[key] for key in ("case", "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")}
+                for b in backward[k.name]
+            ],
         })
     print(smi, flush=True)
     emit({"kernels": kernels})

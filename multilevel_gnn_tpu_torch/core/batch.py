@@ -9,6 +9,7 @@ import torch
 
 from multilevel_gnn_tpu_torch.core.device import resolve_device
 from multilevel_gnn_tpu_torch.core.graph import Graph
+from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +35,10 @@ class FoldContext:
     last node slot on the host (torch negative-index meaning; index_select
     takes no negative index).  raw_indice: (G,) pathway-slot id per PCA
     row.  info_mask: (G, 1) float32 MI mask.  reorder_idxs: (P,) pathway
-    display permutation."""
+    display permutation.  pca_gather: the gather_rows backward plan over
+    pca_rows (K1: rows = node slots, columns = PCA rows).  pca_seed:
+    optional (G, pca_dim) float32 PCA-seeded initial value of the
+    learnable PCA params (init_with_pca)."""
 
     graph: Graph
     gene_pca_match: torch.Tensor
@@ -42,6 +46,8 @@ class FoldContext:
     raw_indice: torch.Tensor
     info_mask: torch.Tensor
     reorder_idxs: torch.Tensor
+    pca_gather: CSRPlan
+    pca_seed: Optional[torch.Tensor] = None
 
     @property
     def num_pca_rows(self) -> int:
@@ -58,11 +64,13 @@ def make_fold_context(
     raw_indice: np.ndarray,
     info_mask: Optional[np.ndarray] = None,
     reorder_idxs: Optional[np.ndarray] = None,
+    pca_seed: Optional[np.ndarray] = None,
     n_pathways: int = 146,
     device: Union[str, torch.device] = "cuda",
 ) -> FoldContext:
-    """Fold context on ``device`` (batch.py:82).  graph must already be on
-    that device (Graph.with_sorted_meta)."""
+    """Fold context on ``device`` (batch.py:82), with the gather_rows
+    backward plan built once per fold.  graph must already be on that
+    device (Graph.with_sorted_meta)."""
     dev = resolve_device(device)
     g = np.asarray(gene_pca_match, np.int64)
     if info_mask is None:
@@ -75,7 +83,7 @@ def make_fold_context(
         raise ValueError("gene_pca_match out of range")
 
     def t(a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+        return torch.as_tensor(np.array(a), dtype=dtype).to(dev)
 
     return FoldContext(
         graph=graph,
@@ -84,4 +92,10 @@ def make_fold_context(
         raw_indice=t(np.asarray(raw_indice), torch.int64),
         info_mask=t(info_mask, torch.float32),
         reorder_idxs=t(np.asarray(reorder_idxs), torch.int64),
+        pca_gather=CSRPlan.gather(resolved, graph.n_nodes).to(dev),
+        pca_seed=(
+            t(np.asarray(pca_seed, np.float32), torch.float32)
+            if pca_seed is not None
+            else None
+        ),
     )

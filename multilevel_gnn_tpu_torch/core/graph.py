@@ -40,9 +40,10 @@ class Graph:
     senders / receivers: (E,) source / destination node per edge (receivers
     sorted).  edge_attr: (E, A) float32 or None.  edge_mask: (E,) bool,
     False on padding edges.  n_nodes / n_edges: real node / edge counts.
-    csr: K1 plan over the real edges (receiver-sorted), in_deg: (n_nodes,)
-    float32 real in-degree, winplan: K2 plan or None; all three are set by
-    with_sorted_meta / with_window_meta."""
+    csr: K1 plan over the real edges (receiver-sorted), csc: its transpose
+    (sender-sorted, for the backward), in_deg: (n_nodes,) float32 real
+    in-degree, winplan: K2 plan or None; all are set by with_sorted_meta /
+    with_window_meta."""
 
     senders: Array
     receivers: Array
@@ -51,6 +52,7 @@ class Graph:
     n_nodes: int
     n_edges: int
     csr: Optional[object] = None
+    csc: Optional[object] = None
     in_deg: Optional[torch.Tensor] = None
     winplan: Optional[object] = None
 
@@ -162,8 +164,10 @@ class Graph:
         return dataclasses.replace(self, winplan=plan)
 
     def with_sorted_meta(self, device: Union[str, torch.device] = "cuda") -> "Graph":
-        """Build the K1 plan over the real edges and the real in-degree,
-        and move the graph (and any window plan) to ``device``."""
+        """Build the K1 plans over the real edges (receiver-sorted csr and
+        its sender-sorted transpose csc, graph.py:190-191's SortedSegments pair)
+        and the real in-degree, and move the graph (and any window plan) to
+        ``device``."""
         from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
 
         dev = resolve_device(device)
@@ -174,10 +178,11 @@ class Graph:
         )
         eid = np.flatnonzero(ok)
         csr = CSRPlan.build(recv[eid], send[eid], eid, self.n_nodes)
+        csc = CSRPlan.build(send[eid], recv[eid], eid, self.n_nodes)
         deg = np.bincount(recv[mask], minlength=self.n_nodes).astype(np.float32)
 
         def t(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+            return torch.as_tensor(np.array(a), dtype=dtype).to(dev)
 
         return dataclasses.replace(
             self,
@@ -190,6 +195,7 @@ class Graph:
             ),
             edge_mask=t(mask, torch.bool),
             csr=csr.to(dev),
+            csc=csc.to(dev),
             in_deg=t(deg, torch.float32),
             winplan=self.winplan.to(dev) if self.winplan is not None else None,
         )

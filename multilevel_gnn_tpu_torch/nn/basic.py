@@ -1,10 +1,11 @@
 """Basic NN primitives (port of multilevel_gnn_tpu/nn/basic.py: act :32,
-Linear :116, MLP :197).
+Linear :116, MLP :197) and flax's Dropout.
 
 Initialisers follow the JAX package's: torch's nn.Linear default
 (U(+-1/sqrt(fan_in)) for weight and bias) or Xavier-uniform weights.  Random
 init draws from an explicit torch.Generator; parameters are created on the
-CPU and moved with the module.
+CPU and moved with the module.  Dropout masks, too, come from a generator
+the caller passes in, never from the global RNG.
 """
 from __future__ import annotations
 
@@ -45,6 +46,28 @@ def uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]
 
 def xavier_bound(fan_in: int, fan_out: int) -> float:
     return math.sqrt(6.0 / (fan_in + fan_out))
+
+
+class Dropout(nn.Module):
+    """flax.linen.Dropout: in training mode each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate); rate 1 drops all.
+    The mask is drawn from ``generator``, a torch.Generator on x's device;
+    in eval mode, or at rate 0, x passes through and nothing is drawn."""
+
+    def __init__(self, rate: Optional[float]):
+        super().__init__()
+        self.rate = float(rate or 0.0)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("training-mode dropout needs a torch.Generator")
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Linear(nn.Module):
@@ -113,12 +136,13 @@ class MLP(nn.Module):
                     generator=generator,
                 ),
             )
-        self.drop = nn.Dropout(drop) if drop > 0 else None
+        self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         for i in range(1, self.n):
             x = getattr(self, f"Linear_{i - 1}")(x)
             x = act(x, self.act_type)
-            if self.drop is not None:
-                x = self.drop(x)
+            x = self.drop(x, generator)
         return x

@@ -60,6 +60,7 @@ class RSAGEConv(nn.Module):
         x: torch.Tensor,
         graph: Graph,
         edge_attr: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         mean_j = spmm.spmm_mean(
             x, graph, edge_weight=edge_attr, dtype=self.spmm_dtype
@@ -70,7 +71,7 @@ class RSAGEConv(nn.Module):
             mean_j = mean_j - x
         aggr = self.lin_r(mean_j)
         h = torch.cat([x.to(aggr.dtype), aggr], dim=-1)
-        out = self.nn(h)
+        out = self.nn(h, generator)
         if self.normalize:
             o32 = out.float()
             n2 = torch.linalg.vector_norm(o32, dim=-1, keepdim=True)
@@ -105,5 +106,5 @@ class GraphConvLayer(nn.Module):
             use_bias, c == "rsage", drop, dtype, spmm_dtype, generator,
         )
 
-    def forward(self, x, graph, edge_attr=None):
-        return self.gconv(x, graph, edge_attr)
+    def forward(self, x, graph, edge_attr=None, generator=None):
+        return self.gconv(x, graph, edge_attr, generator)

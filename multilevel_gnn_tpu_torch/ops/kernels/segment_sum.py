@@ -91,6 +91,15 @@ class CSRPlan:
             max_eid=int(eids.max()) if len(eids) else -1,
         )
 
+    @staticmethod
+    def gather(idx: np.ndarray, n_rows: int) -> "CSRPlan":
+        """The gather_rows backward plan: rows = the node slots idx points
+        at, columns = the gathered rows (counterpart of the SortedSegments
+        built over the resolved gene_pca_match, core/batch.py:110)."""
+        idx = np.asarray(idx, np.int64)
+        rows = np.arange(len(idx))
+        return CSRPlan.build(idx, rows, rows, n_rows)
+
     @property
     def nnz(self) -> int:
         return int(self.col.shape[0])

@@ -1,10 +1,11 @@
-"""K2: windowed (locality-blocked) SpMM, forward side.
+"""K2: windowed (locality-blocked) SpMM, forward and transpose sides.
 
 Counterpart of multilevel_gnn_tpu/ops/pallas/windowed.py: the host plan
 (``choose_node_perm`` :297, ``_best_window`` :141, ``_build_side`` :160,
 ``build_plan`` :371), the kernel binding (``windowed_tile_spmm``, for
-``windowed_exec`` :574) and the composed forward (``windowed_spmm``, for
-``windowed_spmm_2d`` :711).
+``windowed_exec`` :574, either side) and the composed product
+(``windowed_spmm``, for ``windowed_spmm_2d`` :711 and its backward
+``_wspmm_bwd`` :755).
 
 The window choice, the node permutation and the in-window / residual split
 are the JAX package's, unchanged: each 128-row destination tile (in the
@@ -13,7 +14,9 @@ holds most of its edges; the other edges are the residual, summed by K1.
 The layout differs: instead of te-edge chunks for one-hot matmuls, the
 plan lists, per tile, the non-empty 128-row source sub-blocks of its
 window, and per sub-block the distinct (dst, src) entries with their edges
-(grouped so one thread sums each entry in a fixed order).
+(grouped so one thread sums each entry in a fixed order).  The transpose
+side is the same layout built with senders and receivers swapped, over
+the forward's in-window edges; the kernel is the same.
 """
 from __future__ import annotations
 
@@ -196,17 +199,19 @@ def _build_side(
     return layout, residual
 
 
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+
 @dataclasses.dataclass(frozen=True)
-class WindowPlan:
-    """Host-built windowed-SpMM plan for a static edge list (forward side).
+class WinSide:
+    """The sub-block/entry layout of one direction of the plan.
 
     Kernel arrays (int32): tile_blk_ptr (n_tiles+1), blk_src (n_blk),
     blk_ent_ptr (n_blk+1), ent_pos (n_ent), ent_edge_ptr (n_ent+1),
-    edge_eid (n_in).  row_of: (N,) permuted row -> original row, or None
-    for the identity order.  ent_dst_orig / ent_src_orig / edge_ent serve
-    the plain version.  res: CSR plan of the residual edges in the original
-    order (K1).  perm: old -> new node relabeling or None.  The transpose
-    side (training) comes with the backward pass."""
+    edge_eid (n_in).  ent_dst_orig / ent_src_orig (original row ids) and
+    edge_ent serve the plain version.  On the forward side dst is the
+    receiver and src the sender; on the transpose side the other way round."""
 
     tile_blk_ptr: torch.Tensor
     blk_src: torch.Tensor
@@ -214,20 +219,25 @@ class WindowPlan:
     ent_pos: torch.Tensor
     ent_edge_ptr: torch.Tensor
     edge_eid: torch.Tensor
-    row_of: Optional[torch.Tensor]
     ent_dst_orig: torch.Tensor
     ent_src_orig: torch.Tensor
     edge_ent: torch.Tensor
-    res: CSRPlan
-    res_eid: np.ndarray
-    perm: Optional[np.ndarray]
-    num_nodes: int
-    n_edges: int
     n_tiles: int
-    n_res: int
-    in_window_frac: float
-    Wb: int
-    nwin: int
+
+    @staticmethod
+    def from_layout(lay: dict, orig) -> "WinSide":
+        return WinSide(
+            tile_blk_ptr=_t(lay["tile_blk_ptr"]),
+            blk_src=_t(lay["blk_src"]),
+            blk_ent_ptr=_t(lay["blk_ent_ptr"]),
+            ent_pos=_t(lay["ent_pos"]),
+            ent_edge_ptr=_t(lay["ent_edge_ptr"]),
+            edge_eid=_t(lay["edge_eid"]),
+            ent_dst_orig=_t(orig(lay["ent_dst"])),
+            ent_src_orig=_t(orig(lay["ent_src"])),
+            edge_ent=_t(lay["edge_ent"]),
+            n_tiles=int(lay["n_tiles"]),
+        )
 
     @property
     def n_blocks(self) -> int:
@@ -241,13 +251,57 @@ class WindowPlan:
     def n_in(self) -> int:
         return int(self.edge_eid.shape[0])
 
-    def to(self, device) -> "WindowPlan":
-        mv = {
+    def to(self, device) -> "WinSide":
+        return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
-        }
-        return dataclasses.replace(self, res=self.res.to(device), **mv)
+        })
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowPlan:
+    """Host-built windowed-SpMM plan for a static edge list.
+
+    fwd: layout of the forward side (out[recv] += w * x[send]); bwd: the
+    transpose side over exactly the forward's in-window edges (dx[send] +=
+    w * g[recv]).  row_of: (N,) permuted row -> original row, or None for
+    the identity order; both sides use it for reads and writes.  res: K1
+    plan of the residual edges, rows = receivers, in the original order;
+    res_csc: the same edges with rows = senders (its transpose); tres: the
+    in-window edges whose transpose fell out of the transpose side's
+    windows, rows = senders, columns = receivers, original order.  The
+    kernels write in the original row order, so the JAX package's
+    permuted-space tres plan becomes an original-order one here.  perm:
+    old -> new node relabeling or None."""
+
+    fwd: WinSide
+    bwd: WinSide
+    row_of: Optional[torch.Tensor]
+    res: CSRPlan
+    res_csc: CSRPlan
+    tres: CSRPlan
+    res_eid: np.ndarray
+    tres_eid: np.ndarray
+    perm: Optional[np.ndarray]
+    num_nodes: int
+    n_edges: int
+    n_res: int
+    n_tres: int
+    in_window_frac: float
+    Wb: int
+    nwin: int
+
+    def to(self, device) -> "WindowPlan":
+        return dataclasses.replace(
+            self,
+            fwd=self.fwd.to(device),
+            bwd=self.bwd.to(device),
+            row_of=self.row_of.to(device) if self.row_of is not None else None,
+            res=self.res.to(device),
+            res_csc=self.res_csc.to(device),
+            tres=self.tres.to(device),
+        )
 
 
 def build_plan(
@@ -259,7 +313,7 @@ def build_plan(
     Wb: int = 512,
     nwin: int = 2,
 ) -> WindowPlan:
-    """Build the forward windowed plan (windowed.py:371's forward side).
+    """Build the windowed plan, forward and transpose sides (windowed.py:371).
 
     senders/receivers: (E,) host arrays in original node ids and original
     edge order (weights are indexed by original edge id).  mask False and
@@ -286,7 +340,13 @@ def build_plan(
         src, dst = senders, receivers
 
     n_row_blocks = _round_up(num_nodes, Wb) // Wb + nwin
-    lay, res = _build_side(src, dst, edge_id, num_nodes, Wb, nwin, n_row_blocks)
+    fwd, res = _build_side(src, dst, edge_id, num_nodes, Wb, nwin, n_row_blocks)
+    # transpose side over exactly the in-window edges (windowed.py:417-424)
+    in_win = ~np.isin(edge_id, res)
+    bwd, tres = _build_side(
+        dst[in_win], src[in_win], edge_id[in_win], num_nodes, Wb, nwin,
+        n_row_blocks,
+    )
 
     inv = None
     if perm is not None:
@@ -296,35 +356,31 @@ def build_plan(
     def orig(rows):
         return inv[rows] if inv is not None else rows
 
-    # residual edges, original row order: out[recv] += w * x[send]
-    res_sorted = np.sort(res)
-    pos = np.searchsorted(edge_id, res_sorted)
-    res_plan = CSRPlan.build(
-        receivers[pos], senders[pos], res_sorted, num_nodes
-    )
+    def by_edge(ids):
+        """Sorted edge ids and their positions in the kept edge arrays."""
+        ids = np.sort(ids)
+        return ids, np.searchsorted(edge_id, ids)
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32))
-
+    res_sorted, pos = by_edge(res)
+    tres_sorted, tpos = by_edge(tres)
     n_valid = len(edge_id)
     return WindowPlan(
-        tile_blk_ptr=t(lay["tile_blk_ptr"]),
-        blk_src=t(lay["blk_src"]),
-        blk_ent_ptr=t(lay["blk_ent_ptr"]),
-        ent_pos=t(lay["ent_pos"]),
-        ent_edge_ptr=t(lay["ent_edge_ptr"]),
-        edge_eid=t(lay["edge_eid"]),
-        row_of=t(inv) if inv is not None else None,
-        ent_dst_orig=t(orig(lay["ent_dst"])),
-        ent_src_orig=t(orig(lay["ent_src"])),
-        edge_ent=t(lay["edge_ent"]),
-        res=res_plan,
+        fwd=WinSide.from_layout(fwd, orig),
+        bwd=WinSide.from_layout(bwd, orig),
+        row_of=_t(inv) if inv is not None else None,
+        # out[recv] += w * x[send]; its transpose dx[send] += w * g[recv]
+        res=CSRPlan.build(receivers[pos], senders[pos], res_sorted, num_nodes),
+        res_csc=CSRPlan.build(senders[pos], receivers[pos], res_sorted, num_nodes),
+        tres=CSRPlan.build(
+            senders[tpos], receivers[tpos], tres_sorted, num_nodes
+        ),
         res_eid=res_sorted,
+        tres_eid=tres_sorted,
         perm=np.asarray(perm, np.int32) if perm is not None else None,
         num_nodes=int(num_nodes),
         n_edges=E,
-        n_tiles=int(lay["n_tiles"]),
         n_res=int(len(res)),
+        n_tres=int(len(tres)),
         in_window_frac=float(
             np.float32((n_valid - len(res)) / max(n_valid, 1))
         ),
@@ -334,31 +390,35 @@ def build_plan(
 
 
 def windowed_tile_spmm_plain(
-    x: torch.Tensor, w: torch.Tensor, plan: WindowPlan
+    x: torch.Tensor, w: torch.Tensor, plan: WindowPlan, transpose: bool = False
 ) -> torch.Tensor:
     """Plain PyTorch version of windowed_tile_spmm: the same entry sums
     (rounded to bf16 when x is bf16, as the kernel's A sub-tile is), then
     the weighted row sums, in f32."""
+    side = plan.bwd if transpose else plan.fwd
     a = segment_sum(
-        w.index_select(0, plan.edge_eid.long()).float(),
-        plan.edge_ent,
-        plan.n_entries,
+        w.index_select(0, side.edge_eid.long()).float(),
+        side.edge_ent,
+        side.n_entries,
     )
     if x.dtype == torch.bfloat16:
         a = a.to(torch.bfloat16).float()
-    msg = x.index_select(0, plan.ent_src_orig.long()).float() * a[:, None]
-    return segment_sum(msg, plan.ent_dst_orig, plan.num_nodes)
+    msg = x.index_select(0, side.ent_src_orig.long()).float() * a[:, None]
+    return segment_sum(msg, side.ent_dst_orig, plan.num_nodes)
 
 
 def windowed_tile_spmm(
-    x: torch.Tensor, w: torch.Tensor, plan: WindowPlan
+    x: torch.Tensor, w: torch.Tensor, plan: WindowPlan, transpose: bool = False
 ) -> torch.Tensor:
     """In-window part of the windowed SpMM: out (N, F) f32 in the original
-    row order, out[n] = sum over n's in-window edges of w[e] * x[src(e)].
+    row order.  Forward side: out[n] = sum over n's in-window in-edges of
+    w[e] * x[send(e)]; transpose side (transpose=True, the backward):
+    out[n] = sum over n's in-window out-edges of w[e] * x[recv(e)].
 
     x: (N, F) bf16 or f32, original row order; w: (E,) f32 per original
     edge.  A CPU tensor takes the plain version; a CUDA tensor launches
     the kernel."""
+    side = plan.bwd if transpose else plan.fwd
     if x.dim() != 2 or not x.is_contiguous() or x.shape[0] != plan.num_nodes:
         raise ValueError("x must be a contiguous (num_nodes, F) tensor")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -368,10 +428,10 @@ def windowed_tile_spmm(
         or w.shape[0] != plan.n_edges
     ):
         raise ValueError("w must be a contiguous (E,) float32 tensor")
-    if w.device != x.device or plan.tile_blk_ptr.device != x.device:
+    if w.device != x.device or side.tile_blk_ptr.device != x.device:
         raise ValueError("x, w and the plan must be on one device")
     if x.device.type == "cpu":
-        return windowed_tile_spmm_plain(x, w, plan)
+        return windowed_tile_spmm_plain(x, w, plan, transpose)
     N, F = x.shape
     out = torch.empty((N, F), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -379,13 +439,13 @@ def windowed_tile_spmm(
     vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     fn = KERNEL.fn()
     err = fn(
-        plan.tile_blk_ptr.data_ptr(), plan.blk_src.data_ptr(),
-        plan.blk_ent_ptr.data_ptr(), plan.ent_pos.data_ptr(),
-        plan.ent_edge_ptr.data_ptr(), plan.edge_eid.data_ptr(),
+        side.tile_blk_ptr.data_ptr(), side.blk_src.data_ptr(),
+        side.blk_ent_ptr.data_ptr(), side.ent_pos.data_ptr(),
+        side.ent_edge_ptr.data_ptr(), side.edge_eid.data_ptr(),
         w.data_ptr(),
         plan.row_of.data_ptr() if plan.row_of is not None else None,
         x.data_ptr(), out.data_ptr(),
-        plan.n_tiles, N, F, int(x.dtype == torch.bfloat16), int(vector),
+        side.n_tiles, N, F, int(x.dtype == torch.bfloat16), int(vector),
         stream_handle(x),
     )
     KERNEL.launches += 1
@@ -393,22 +453,33 @@ def windowed_tile_spmm(
     return out
 
 
+def _residual_plans(plan: WindowPlan, transpose: bool):
+    """K1 plans added onto K2's output: the residual edges forward; the
+    transpose residual and the residual's transpose backward
+    (windowed.py:764-790, in that order)."""
+    plans = (plan.tres, plan.res_csc) if transpose else (plan.res,)
+    return [p for p in plans if p.nnz]
+
+
 def windowed_spmm_plain(
-    x: torch.Tensor, w: torch.Tensor, plan: WindowPlan
+    x: torch.Tensor, w: torch.Tensor, plan: WindowPlan, transpose: bool = False
 ) -> torch.Tensor:
     """windowed_spmm through both kernels' plain versions, on any device."""
-    out = windowed_tile_spmm_plain(x, w, plan)
-    if plan.res.nnz:
-        out = segment_spmm_csr_plain(x, w, plan.res, out=out)
+    out = windowed_tile_spmm_plain(x, w, plan, transpose)
+    for p in _residual_plans(plan, transpose):
+        out = segment_spmm_csr_plain(x, w, p, out=out)
     return out
 
 
 def windowed_spmm(
-    x: torch.Tensor, w: torch.Tensor, plan: WindowPlan
+    x: torch.Tensor, w: torch.Tensor, plan: WindowPlan, transpose: bool = False
 ) -> torch.Tensor:
-    """Forward of windowed_spmm_2d (windowed.py:711): in-window edges
-    through K2, residual edges added through K1, (N, F) f32."""
-    out = windowed_tile_spmm(x, w, plan)
-    if plan.res.nnz:
-        segment_spmm_csr(x, w, plan.res, out=out)
+    """windowed_spmm_2d (windowed.py:711), (N, F) f32.  Forward: in-window
+    edges through K2, residual edges added through K1.  transpose=True is
+    its backward (windowed.py:755-790): K2 on the transpose side, then K1
+    over the transpose residual and over the residual's transpose, added
+    in place."""
+    out = windowed_tile_spmm(x, w, plan, transpose)
+    for p in _residual_plans(plan, transpose):
+        segment_spmm_csr(x, w, p, out=out)
     return out

@@ -1,15 +1,31 @@
-"""Batched sparse aggregation (SpMM) over a static edge list, forward.
+"""Batched sparse aggregation (SpMM) over a static edge list, with the
+kernels' backwards.
 
-Port of the forward parts of multilevel_gnn_tpu/ops/spmm.py: the sum/mean
-branches of ``gather_scatter`` (:381-447) and the ``gather_rows`` forward
-(:302-313).
+Port of multilevel_gnn_tpu/ops/spmm.py: the sum/mean branches of
+``gather_scatter`` (:381-447) with the custom VJPs they reach (the composed
+``_fused_spmm_sum`` :137-192 and ``windowed_spmm_2d``,
+ops/pallas/windowed.py:710-810), and ``gather_rows`` (:302-334).  Each
+custom VJP is a ``torch.autograd.Function`` whose backward is the same
+hand-written kernel on a transposed plan:
+
+  composed SpMM   forward K1 over csr; backward K1 over csc
+  windowed SpMM   forward K2 (forward side) + K1 over the residual;
+                  backward K2 (transpose side) + K1 over tres + K1 over
+                  res_csc, added in place
+  gather_rows     forward index_select; backward K1 over a CSR whose rows
+                  are node slots and whose columns are the gathered rows,
+                  unit weights (no atomics, unlike index_select's backward)
+
+As in the JAX package, the cotangent is cast to the forward's SpMM data
+type before the kernel (its "dtype witness"), the gradient comes back in
+the primal dtype, and edge weights and plans get no gradient (they are
+data, spmm.py:10-17).
 
 Layout: the port keeps the trunk node-major, (N, B, C), so the SpMM reads
 it as (N, B*C) rows without the transpose the JAX package's
 ``_to_2d``/``_from_2d`` (:121-134) do around it; the values are the same.
-Dispatch: a graph with a window plan goes through the windowed path (K2
-over in-window edges, K1 over the residual), otherwise K1 over all real
-edges.  Accumulation is f32; the result is f32.
+Dispatch: a graph with a window plan goes through the windowed path,
+otherwise K1 over all real edges.  Accumulation is f32; the result is f32.
 """
 from __future__ import annotations
 
@@ -20,10 +36,12 @@ import torch
 
 from multilevel_gnn_tpu_torch.core.graph import Graph
 from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import (
+    CSRPlan,
     segment_spmm_csr,
     segment_spmm_csr_plain,
 )
 from multilevel_gnn_tpu_torch.ops.kernels.windowed import (
+    WindowPlan,
     windowed_spmm,
     windowed_spmm_plain,
 )
@@ -33,15 +51,81 @@ _PLAIN = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside this block gather_scatter calls the kernels' plain PyTorch
-    versions on any device, to hold a whole forward with kernels against
-    the same forward without them on the card."""
+    """Inside this block the SpMMs and gather_rows call the kernels' plain
+    PyTorch versions on any device, forward and backward, to hold a whole
+    step with kernels against the same step without them on the card.  A
+    backward runs the way its forward did, wherever it is called."""
     global _PLAIN
     prev, _PLAIN = _PLAIN, True
     try:
         yield
     finally:
         _PLAIN = prev
+
+
+def _k1(plain: bool):
+    return segment_spmm_csr_plain if plain else segment_spmm_csr
+
+
+def _k2(plain: bool):
+    return windowed_spmm_plain if plain else windowed_spmm
+
+
+class _ComposedSpMM(torch.autograd.Function):
+    """_fused_spmm_sum (spmm.py:137-192).  The cast to the SpMM dtype
+    happens inside, so the gradient goes straight back to x's dtype
+    (spmm.py:179-181)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, csr: CSRPlan, csc: CSRPlan, dtype, plain: bool):
+        xd = (x2 if dtype is None else x2.to(dtype)).contiguous()
+        ctx.save_for_backward(w)
+        ctx.csc, ctx.plain = csc, plain
+        ctx.data_dtype, ctx.x_dtype = xd.dtype, x2.dtype
+        return _k1(plain)(xd, w, csr)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        dx = _k1(ctx.plain)(g.to(ctx.data_dtype).contiguous(), w, ctx.csc)
+        return dx.to(ctx.x_dtype), None, None, None, None, None
+
+
+class _WindowedSpMM(torch.autograd.Function):
+    """windowed_spmm_2d (windowed.py:710-810): x2 arrives already in the
+    SpMM dtype, so the gradient is in that dtype too (:791-792)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, plan: WindowPlan, plain: bool):
+        ctx.save_for_backward(w)
+        ctx.plan, ctx.plain, ctx.x_dtype = plan, plain, x2.dtype
+        return _k2(plain)(x2, w, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        gd = g.to(ctx.x_dtype).contiguous()
+        dx = _k2(ctx.plain)(gd, w, ctx.plan, transpose=True)
+        return dx.to(ctx.x_dtype), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """gather_rows (spmm.py:302-334) on the node axis of a node-major
+    tensor; the backward sums the gathered rows' cotangents into their
+    node slots with K1 (unit weights) and returns them in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, idx, seg: CSRPlan, plain: bool):
+        ctx.seg, ctx.plain, ctx.x_dtype = seg, plain, x.dtype
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        seg = ctx.seg
+        g2 = g.reshape(g.shape[0], -1).contiguous()
+        ones = torch.ones(g.shape[0], dtype=torch.float32, device=g.device)
+        dx = _k1(ctx.plain)(g2, ones, seg)
+        return dx.reshape((seg.n_rows,) + g.shape[1:]).to(ctx.x_dtype), None, None, None
 
 
 def edge_weights(
@@ -74,7 +158,7 @@ def gather_scatter(
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """out[dst] = reduce_{e: recv[e]=dst} x[src[e]] * w[e], reduce in
-    {sum, add, mean}.
+    {sum, add, mean}, differentiable in x.
 
     x: node-major (N, ...) features; returns float32 of the same shape.
     dtype: SpMM data type (bf16 halves the bytes read; f32 accumulate)."""
@@ -84,16 +168,13 @@ def gather_scatter(
         raise ValueError("graph needs with_sorted_meta() before aggregation")
     shape = x.shape
     x2 = x.reshape(shape[0], -1)
-    if dtype is not None:
-        x2 = x2.to(dtype)
-    x2 = x2.contiguous()
     w = edge_weights(graph, reduce, edge_weight)
     if graph.winplan is not None:
-        fn = windowed_spmm_plain if _PLAIN else windowed_spmm
-        out = fn(x2, w, graph.winplan)
+        # the cast sits outside the windowed op, as at spmm.py:437-443
+        x2 = (x2 if dtype is None else x2.to(dtype)).contiguous()
+        out = _WindowedSpMM.apply(x2, w, graph.winplan, _PLAIN)
     else:
-        fn = segment_spmm_csr_plain if _PLAIN else segment_spmm_csr
-        out = fn(x2, w, graph.csr)
+        out = _ComposedSpMM.apply(x2, w, graph.csr, graph.csc, dtype, _PLAIN)
     return out.reshape(shape)
 
 
@@ -105,7 +186,8 @@ def spmm_mean(x, graph, edge_weight=None, dtype=None):
     return gather_scatter(x, graph, "mean", edge_weight, dtype)
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather x[idx] on the node axis of a node-major tensor
-    (spmm.py:302-313 forward).  idx must be resolved (non-negative)."""
-    return x.index_select(0, idx)
+def gather_rows(x: torch.Tensor, idx: torch.Tensor, seg: CSRPlan) -> torch.Tensor:
+    """Row gather x[idx] on the node axis of a node-major tensor, with K1
+    as its backward.  idx must be resolved (non-negative); seg is
+    CSRPlan.gather(idx, x.shape[0]) on x's device."""
+    return _GatherRows.apply(x, idx, seg, _PLAIN)

@@ -8,7 +8,10 @@ device, as on a CPU-only machine.  On a GPU host:
 (--noconftest: the repo's conftest configures JAX, which a GPU host for
 the port need not have.)  Cases: random graphs with empty rows and
 duplicate (dst, src) pairs, padded/masked edges, permuted window plans,
-feature widths on and off the vector path, accumulate mode, bf16 and f32.
+feature widths on and off the vector path, accumulate mode, bf16 and f32;
+the backward forms: K2 on the transpose side (banded, permuted,
+residual-heavy) with K1 over tres and res_csc, K1 over a graph's csc, and
+K1 as the gather_rows backward.
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -106,6 +109,75 @@ def test_k2_permuted_plan_matches_plain(dev, dtype):
     x = torch.randn(n, 96, generator=g, device=dev).to(dtype)
     w = torch.randn(e, generator=g, device=dev)
     _close(k2.windowed_spmm(x, w, plan), k2.windowed_spmm_plain(x, w, plan), dtype)
+
+
+def _perm_graph(rng, n, e):
+    comm = rng.randint(0, 2, n)
+    order = np.argsort(rng.rand(n))
+    members = [order[comm[order] == c] for c in (0, 1)]
+    cs = rng.randint(0, 2, e)
+    s = np.array([members[c][rng.randint(len(members[c]))] for c in cs])
+    d = np.array([members[c][rng.randint(len(members[c]))] for c in cs])
+    return s.astype(np.int64), d.astype(np.int64)
+
+
+def _transpose_plan(case):
+    rng = np.random.RandomState(7)
+    if case == "banded":
+        n = 1000
+        s = rng.randint(0, n, 8000)
+        d = np.clip(s + rng.randint(-100, 101, 8000), 0, n - 1)
+        return n, k2.build_plan(s, d, n, Wb=128, nwin=2)
+    if case == "residual_heavy":
+        n = 1000
+        s, d = _graph(8, n, 8000, hub=True)
+        d[:400] = rng.randint(0, 3, 400)  # hub receivers: transposes leave windows
+        return n, k2.build_plan(s, d, n, Wb=128, nwin=2)
+    n = 600
+    s, d = _perm_graph(rng, n, 4000)
+    mask = rng.rand(len(s)) > 0.1
+    perm, _, _ = k2.choose_node_perm(s[mask], d[mask], n, Wb=128, nwin=2)
+    assert perm is not None
+    return n, k2.build_plan(s, d, n, mask=mask, perm=perm, Wb=128, nwin=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["banded", "permuted", "residual_heavy"])
+def test_k2_transpose_side_matches_plain(dev, dtype, case):
+    n, plan = _transpose_plan(case)
+    if case == "residual_heavy":
+        assert plan.n_tres > 0 and plan.n_res > 0
+    plan = plan.to(dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(n, 264, generator=g, device=dev).to(dtype)
+    w = torch.randn(plan.n_edges, generator=g, device=dev)
+    _close(k2.windowed_tile_spmm(x, w, plan, transpose=True),
+           k2.windowed_tile_spmm_plain(x, w, plan, transpose=True), dtype)
+    _close(k2.windowed_spmm(x, w, plan, transpose=True),
+           k2.windowed_spmm_plain(x, w, plan, transpose=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [64, 1024, 2048])
+def test_k1_csc_and_gather_backward_match_plain(dev, dtype, F):
+    from multilevel_gnn_tpu_torch.core.graph import Graph
+
+    n = 900
+    s, d = _graph(9, n, 7000, hub=True)
+    graph = Graph.from_edges(np.stack([s, d]), None, n).with_sorted_meta(dev)
+    g = torch.Generator(device=dev).manual_seed(F)
+    x = torch.randn(n, F, generator=g, device=dev).to(dtype)
+    w = torch.randn(graph.num_padded_edges, generator=g, device=dev)
+    _close(k1.segment_spmm_csr(x, w, graph.csc),
+           k1.segment_spmm_csr_plain(x, w, graph.csc), dtype)
+    rng = np.random.RandomState(F)
+    idx = rng.randint(0, n, 2500)
+    idx[:300] = n - 1  # many rows resolved from -1 to the last slot
+    plan = k1.CSRPlan.gather(idx, n).to(dev)
+    gx = torch.randn(len(idx), F, generator=g, device=dev).to(dtype)
+    ones = torch.ones(len(idx), device=dev)
+    _close(k1.segment_spmm_csr(gx, ones, plan),
+           k1.segment_spmm_csr_plain(gx, ones, plan), dtype)
 
 
 def test_empty_plans(dev):

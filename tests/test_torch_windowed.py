@@ -100,11 +100,11 @@ def test_plan_matches_jax(case):
         assert pp.perm is not None and pp.row_of is not None
     # every kept edge is either in a window entry or residual, once
     kept = np.arange(len(s)) if mask is None else np.flatnonzero(mask)
-    both = np.concatenate([pp.edge_eid.numpy(), pp.res_eid])
+    both = np.concatenate([pp.fwd.edge_eid.numpy(), pp.res_eid])
     np.testing.assert_array_equal(np.sort(both), kept)
-    assert pp.tile_blk_ptr.numpy()[-1] == pp.n_blocks
-    assert pp.blk_ent_ptr.numpy()[-1] == pp.n_entries
-    assert pp.ent_edge_ptr.numpy()[-1] == pp.n_in
+    assert pp.fwd.tile_blk_ptr.numpy()[-1] == pp.fwd.n_blocks
+    assert pp.fwd.blk_ent_ptr.numpy()[-1] == pp.fwd.n_entries
+    assert pp.fwd.ent_edge_ptr.numpy()[-1] == pp.fwd.n_in
 
 
 def _jax_fwd(x, w, s, d, jp, mask, bf16):

@@ -2,10 +2,11 @@
 
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py
 
-Runs the same inputs as tests/test_torch_{segment_sum,windowed,slice}.py
-(CPU, plain versions on the port side, Pallas interpret mode on the JAX
-side) and prints one JSON line per module with the max abs error and, for
-bf16, the bound the tests hold it to.  Not collected by pytest.
+Runs the same inputs as tests/test_torch_{segment_sum,windowed,slice,
+backward,train,driver}.py (CPU, plain versions on the port side, Pallas
+interpret mode on the JAX side) and prints one JSON line per module with
+the max abs error and, for bf16, the bound the tests hold it to.  Not
+collected by pytest.
 """
 import json
 import os
@@ -21,8 +22,12 @@ import numpy as np  # noqa: E402
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [_HERE, os.path.dirname(_HERE)]
+import pytest  # noqa: E402
+import test_torch_backward as TB  # noqa: E402
+import test_torch_driver as TD  # noqa: E402
 import test_torch_segment_sum as T1  # noqa: E402
 import test_torch_slice as TS  # noqa: E402
+import test_torch_train as TT  # noqa: E402
 import test_torch_windowed as T2  # noqa: E402
 
 
@@ -68,6 +73,78 @@ def main():
     _emit(module="slice MultilevelGNN eval, pathway reorder",
           f32_prob_max_abs_err=float(np.abs(r["pp"] - r["jp"]).max()),
           f32_loss_max_abs_err=float(np.abs(r["pl"] - r["jl"]).max()))
+    backward()
+    training(fold)
+
+
+def backward():
+    for case in TB.CASES:
+        name, s, d, w, mask, Wb, nwin, group = case
+        n, jp, pp = T2._plans(case)
+        rng = np.random.RandomState(21)
+        x = rng.randn(n, 40).astype(np.float32)
+        g = rng.randn(n, 40).astype(np.float32)
+        j32 = TB._jax_bwd(x, g, w, s, d, jp, mask, False)
+        p32 = TB._port_bwd(g, w, pp, False)
+        j16 = TB._jax_bwd(x, g, w, s, d, jp, mask, True)
+        p16 = TB._port_bwd(g, w, pp, True)
+        _emit(module="K2+K1 windowed backward", case=name, n_tres=pp.n_tres,
+              n_res=pp.n_res, bwd_n_in=pp.bwd.n_in,
+              f32_max_abs_err=float(np.abs(p32 - j32).max()) if p32.size else 0.0,
+              bf16_max_abs_err_vs_jax_f32=float(np.abs(p16 - j32).max()) if p16.size else 0.0,
+              bf16_bound=float(1.5 * np.abs(j16 - j32).max() + 1e-3) if j16.size else 1e-3)
+    for windowed in (False, True):
+        n, jg, pg = TB._graphs(windowed)
+        rng = np.random.RandomState(41)
+        x = rng.randn(3, n, 12).astype(np.float32)
+        g = rng.randn(3, n, 12).astype(np.float32)
+        j32 = TB._jax_spmm_grad(jg, x, g, False)
+        j16 = TB._jax_spmm_grad(jg, x, g, True)
+        _emit(module="spmm_mean autograd", path="windowed" if windowed else "composed",
+              f32_max_abs_err=float(np.abs(TB._port_spmm_grad(pg, x, g, False) - j32).max()),
+              bf16_max_abs_err_vs_jax_f32=float(
+                  np.abs(TB._port_spmm_grad(pg, x, g, True) - j32).max()),
+              bf16_bound=float(1.5 * np.abs(j16 - j32).max() + 1e-3))
+    dx, ref = TB.gather_rows_grads()
+    _emit(module="gather_rows backward", f32_max_abs_err=float(np.abs(dx - ref).max()))
+
+
+def training(fold):
+    for windowed in (True, False):
+        jl, pl, model, ref, _, grad0 = TT._train(fold, bf16=False, windowed=windowed)
+        want = dict(ref.named_parameters())
+        dp = dc = 0.0
+        for k, p in model.named_parameters():
+            diff = (p - want[k]).abs().detach()
+            dp = max(dp, float(diff.max()))
+            g = grad0[k].abs()
+            clear = g > 1e-3 * float(g.max())
+            if bool(clear.any()):
+                dc = max(dc, float(diff[clear].max()))
+        _emit(module="five train steps, f32", path="windowed" if windowed else "composed",
+              loss_max_abs_err=float(np.abs(pl - jl).max()),
+              param_max_abs_err=dp, param_bound=2 * TT.LR * TT.STEPS,
+              param_max_abs_err_clear_grad=dc, param_bound_clear_grad=1e-5)
+    j32, _, _, _, _, _ = TT._train(fold, bf16=False, windowed=True)
+    j16, p16, _, _, _, _ = TT._train(fold, bf16=True, windowed=True)
+    _emit(module="five train steps, bf16 trunk",
+          loss_max_abs_err_vs_jax_f32=float(np.abs(p16 - j32).max()),
+          bound=float(1.5 * np.abs(j16 - j32).max() + 1e-3))
+    mp = pytest.MonkeyPatch()
+    try:
+        jf = TD.run_jax_fold(mp)
+    finally:
+        mp.undo()
+    res = TD.run_port_fold(jf)
+    jr = jf["res"]
+    _emit(module="run_fold, 3 epochs, f32",
+          valid_loss_max_abs_err=max(abs(p[2] - j[4])
+                                     for p, j in zip(res.epoch_valid, jf["valid"])),
+          valid_auc_equal=all(p[0] == j[0] for p, j in zip(res.epoch_valid, jf["valid"])),
+          test_score_max_abs_err=max(
+              float(np.abs(getattr(res, k)[e] - getattr(jr, k)[e]).max())
+              for k in ("epoch_pred", "epoch_pred_by_loss", "epoch_pred_by_epoch")
+              for e in TD.CHECK))
 
 
 if __name__ == "__main__":
