@@ -42,13 +42,35 @@ each:
            steps' losses against the first run's
   profile_train  device time by kernel per train step, and the share of
            the step with no kernel running
+  k3       K3 (segment max) at the max-aggregation convs' shapes, F = B*C =
+           2048 and B*32 = 1024, bf16 and f32, against its plain version
+           (max abs error must be 0), with its ms, plain ms, bound and the
+           scatter_reduce amax library call; k1_bwd also times K1 as the
+           backward of the two edge gathers (src_gather, dst_gather)
+
+Then, for each of gnn_name mr (MRConv) and edge (EdgeConv) on the same fold,
+with a model of the same widths:
+
+  serve_<conv>  predict_patients over the 123 patients, launch counts
+           zeroed just before and read just after: K3 2, K1 0, K2 0 a batch
+  profile_<conv>  device time by kernel per eval step of one full batch,
+           and the share of the CUDA-event-timed eval step with no kernel
+  slice_<conv>  the forward with kernels against plain versions (bf16 and
+           f32 trunks; probabilities and the pathway image)
+  train_grad_<conv>  one train step's gradients, kernels against plain
+           versions, per parameter max|diff| / max|grad|
+  train_<conv>  run_fold for 2 epochs (gbm.yaml's optimizer and dropouts),
+           launches counted over it; ms per step
+  profile_train_<conv>  as profile_train, on one batch: launches per step
+           from the counters, K3 2, K1 5 (the two edge-gather backwards of
+           each layer and the PCA gather's), K2 0
 
 Kernel cases off the main path (other feature widths, permuted plans,
 empty plans) are in tests/test_torch_cuda_kernels.py.
 
 Then the card's nvidia-smi line, the kernels line (per kernel: its serving
-numbers, its launches per train step and its backward forms' numbers) and
-the last line {"ok": true, "device": {...}}.
+numbers, its launches on each path and per train step and its backward
+forms' numbers) and the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -65,6 +87,7 @@ from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 from multilevel_gnn_tpu_torch.ops import spmm
 from multilevel_gnn_tpu_torch.ops.kernels import build
+from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
 from multilevel_gnn_tpu_torch.train import metrics as M
@@ -99,6 +122,15 @@ TOL_PROB_CPU = 1e-5    # a small fold on the card against the CPU (read 6.0e-8)
 TOL_GRAD = {"bf16": 7e-2, "f32": 6e-6}
 TOL_REPLAY = 1e-5  # epoch 1 replayed from the same seeds: max |loss diff|
 N_TRAIN_PATIENTS = 256  # 192 train (6 steps an epoch), 32 valid, 32 test
+# The max-aggregation convs.  K3 selects one of its inputs, so its forward
+# equals the plain version's exactly (limit 0), and so does a forward that
+# differs from the plain one only in K3: slice_mr and slice_edge read 0.0 in
+# both trunks on an H100 (PERF.md), held to TOL_PROB and TOL_IMAGE_F32 in
+# both.  A step's gradients also run K1 (the edge gathers' backwards)
+# against index_add_'s atomics.  Readings on an H100 (PERF.md): 1.4e-3 (bf16, edge), 4.0e-7 (f32); limits
+# about ten times.
+TOL_GRAD_MAX = {"bf16": 1.4e-2, "f32": 4e-6}
+CONV_EPOCHS = 2
 
 
 def emit(obj) -> None:
@@ -273,11 +305,69 @@ def kernel_k2(graph, w, F, gen):
     return res
 
 
+def time_k3(graph, msg):
+    """K3 over the graph's csr against its plain version (equal), with its
+    ms, plain ms, bound and the scatter_reduce amax library call on the
+    same rows."""
+    plan = graph.csr
+    F, dt = msg.shape[1], msg.dtype
+    out = k3.segment_max_csr(msg, plan)
+    ref = k3.segment_max_csr_plain(msg, plan)
+    torch.cuda.synchronize()
+    e, m = err_of(out, ref)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"k3 F={F} {dt}: max abs err {e}, want equal")
+    dsize = 2 if dt == torch.bfloat16 else 4
+    rows_read = int(torch.unique(plan.eid).numel())
+    b = rows_read * F * dsize + plan.n_rows * F * 4 + (plan.n_rows + 1 + plan.nnz) * 4
+    bms, by = bound(b, float(plan.nnz) * F, "f32")
+    rows = msg.index_select(0, plan.eid.long())
+    idx = plan.row.long()[:, None].expand(-1, F)
+    dst = torch.zeros(plan.n_rows, F, device="cuda", dtype=dt)
+
+    def library():
+        return dst.zero_().scatter_reduce_(0, idx, rows, "amax", include_self=False)
+
+    try:
+        library()
+        torch.cuda.synchronize()
+        lib_ms = cuda_ms(library)
+    except (RuntimeError, NotImplementedError):
+        lib_ms = None
+    del rows, idx, dst
+    return dict(
+        case=f"csr F={F}", dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=F,
+        max_abs_err=e, ref_max=m, limit=0.0,
+        ms=cuda_ms(lambda: k3.segment_max_csr(msg, plan)),
+        plain_ms=cuda_ms(lambda: k3.segment_max_csr_plain(msg, plan)),
+        library_ms=lib_ms, bound_ms=bms, bound_by=by, bytes=b,
+        flops=float(plan.nnz) * F,
+    )
+
+
+def kernel_k3(graph, F_wide, F_narrow, gen):
+    """K3 at the max-aggregation convs' shapes: F_wide = B*C (MRConv's
+    layers, EdgeConv's layer 0), F_narrow = B*final (EdgeConv's layer 1);
+    bf16 and f32 edge rows."""
+    res = {}
+    for F in (F_wide, F_narrow):
+        for dt in (torch.bfloat16, torch.float32):
+            msg = torch.randn(graph.num_padded_edges, F, generator=gen,
+                              device="cuda").to(dt)
+            r = time_k3(graph, msg)
+            emit({"phase": "k3", **r})
+            res[(F, r["dtype"])] = r
+            del msg
+    return res
+
+
 def kernel_bwd(graph, ctx, w, F, F_gather, gen):
     """The backward forms at the training path's shapes: K1 over csc (the
     composed backward, all edges), over tres and res_csc (accumulating into
     K2's output), K1 as the gather_rows backward (unit weights, F_gather
-    wide), and K2 on the transpose side; bf16 and f32."""
+    wide), K1 as the backward of the edge gathers x[senders] and
+    x[receivers] (unit weights, F wide, the max-aggregation convs' path),
+    and K2 on the transpose side; bf16 and f32."""
     plan = graph.winplan
     emit({"phase": "k2_bwd_plan", "n_in": plan.bwd.n_in,
           "n_entries": plan.bwd.n_entries, "n_blocks": plan.bwd.n_blocks,
@@ -302,6 +392,18 @@ def kernel_bwd(graph, ctx, w, F, F_gather, gen):
             library=lambda: dst.zero_().index_add_(0, idx, g),
         )
         emit({"phase": "k1_bwd", **r1[("gather_rows_bwd", d)]})
+        E = graph.num_padded_edges
+        g = torch.randn(E, F, generator=gen, device="cuda").to(dt)
+        ones_e = torch.ones(E, device="cuda")
+        dst = torch.zeros(graph.n_nodes, F, device="cuda", dtype=dt)
+        for case, p, ids in (("src_gather", graph.src_gather, graph.senders),
+                             ("dst_gather", graph.dst_gather, graph.receivers)):
+            r1[(case, d)] = time_k1(
+                case, p, g, ones_e, False, gen,
+                library=lambda ids=ids: dst.zero_().index_add_(0, ids, g),
+            )
+            emit({"phase": "k1_bwd", **r1[(case, d)]})
+        del g, dst
         x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(dt)
         r2[d] = time_k2("transpose", plan, x, w, transpose=True)
         emit({"phase": "k2_bwd", **r2[d]})
@@ -337,24 +439,11 @@ def kernel_rows(prof, n):
 
 
 def profile_serve(model, graph, ctx, batch):
-    """Device time by kernel over 3 eval steps of one full batch, then the
-    windowed path against the composed one (K1 over all edges) end to end,
-    in turns, with each path's kernel launches counted; the gap share is
-    the part of the windowed eval_step (CUDA events) with no kernel
-    running."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        eval_step(model, batch, ctx)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            eval_step(model, batch, ctx)
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof, 3)
-    busy = sum(r[1] for r in rows)
-    emit({"phase": "profile", "kernel_ms_per_batch": busy,
-          "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:14]]})
+    """profile_eval on one full batch, then the windowed path against the
+    composed one (K1 over all edges) end to end, in turns, with each
+    path's kernel launches counted; serve_paths' gap share is the part of
+    the windowed eval_step (CUDA events) with no kernel running."""
+    busy = profile_eval(model, ctx, batch, "profile")
 
     composed = dataclasses.replace(
         ctx, graph=dataclasses.replace(graph, winplan=None)
@@ -383,8 +472,10 @@ def profile_serve(model, graph, ctx, batch):
     emit({"phase": "serve_paths", "ms_per_batch_median": med, "turns": 10,
           "launches": launches, "gap_share": 1 - busy / med["windowed"]})
     n = len(t["composed"])
-    if (launches["composed"] != {k1.KERNEL.name: 2 * n, k2.KERNEL.name: 0}
-            or launches["windowed"] != {k1.KERNEL.name: 2 * n, k2.KERNEL.name: 2 * n}):
+    k3_none = {k3.KERNEL.name: 0}
+    if (launches["composed"] != {k1.KERNEL.name: 2 * n, k2.KERNEL.name: 0, **k3_none}
+            or launches["windowed"] != {k1.KERNEL.name: 2 * n,
+                                        k2.KERNEL.name: 2 * n, **k3_none}):
         raise AssertionError(f"serve_paths launch counts {launches}")
 
 
@@ -396,16 +487,12 @@ def patients(n_nodes, n=N_PATIENTS, seed=1):
     return X, Y, ages
 
 
-def slice_checks(model, graph, ctx, batch):
-    """Kernels vs plain versions through the whole forward on the card."""
-    f32_model = MultilevelGNN(
-        model.cfg.replace(compute_dtype=None, spmm_bf16=False),
-        graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0,
-    )
-    for name, m, tol_img in (
-        ("bf16", model, TOL_IMAGE_BF16),
-        ("f32", f32_model, TOL_IMAGE_F32),
-    ):
+def forward_vs_plain(phase, models, ctx, batch):
+    """Kernels vs plain versions through the whole forward on the card, for
+    each (trunk name, image tolerance, model factory) in turn, one model
+    alive at a time."""
+    for name, tol_img, make in models:
+        m = make()
         with torch.no_grad():
             m.eval()
             pk, ik = m(batch, ctx)
@@ -418,12 +505,24 @@ def slice_checks(model, graph, ctx, batch):
         sums = float((pk.sum(-1) - 1).abs().max())
         ok = (finite and sums < 1e-5 and e <= TOL_PROB and im > 0
               and ie <= tol_img * im)
-        emit({"phase": "slice", "trunk": name, "max_abs_err_prob": e,
+        emit({"phase": phase, "trunk": name, "max_abs_err_prob": e,
               "tol_prob": TOL_PROB, "max_abs_err_image": ie, "image_max": im,
               "tol_image": tol_img, "finite": finite,
               "max_row_sum_err": sums, "shape": list(pk.shape), "ok": ok})
         if not ok:
-            raise AssertionError(f"slice {name} mismatch")
+            raise AssertionError(f"{phase} {name} mismatch")
+        del m, pk, ik, pp, ip
+
+
+def slice_checks(model, graph, ctx, batch):
+    """The sage forward with kernels against plain versions on the card,
+    and a small fold on the card against the CPU."""
+    f32 = model.cfg.replace(compute_dtype=None, spmm_bf16=False)
+    forward_vs_plain("slice", (
+        ("bf16", TOL_IMAGE_BF16, lambda: model),
+        ("f32", TOL_IMAGE_F32, lambda: MultilevelGNN(
+            f32, graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0)),
+    ), ctx, batch)
     # a small fold on the card (kernels) against the same fold on the CPU
     # (plain versions), f32 trunk
     res = {}
@@ -452,10 +551,11 @@ def grads_of(model, batch, ctx, cw, seed):
                          for n, p in model.named_parameters()}
 
 
-def train_grad_checks(model, f32_model, ctx, batch, cw):
+def train_grad_checks(models, ctx, batch, cw, phase="train_grad", tol=TOL_GRAD):
     """One step's gradients with kernels against the same step with plain
-    versions (forward and backward), same params, same dropout masks."""
-    for name, m in (("bf16", model), ("f32", f32_model)):
+    versions (forward and backward), same params, same dropout masks.
+    models: (trunk name, model) pairs."""
+    for name, m in models:
         lk, gk = grads_of(m, batch, ctx, cw, seed=5)
         with spmm.plain_versions():
             lp, gp = grads_of(m, batch, ctx, cw, seed=5)
@@ -466,12 +566,12 @@ def train_grad_checks(model, f32_model, ctx, batch, cw):
             rel[n] = float((gk[n] - gp[n]).abs().max()) / max(gmax, 1e-30)
         worst = max(rel.values())
         finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
-        ok = finite and worst <= TOL_GRAD[name]
-        emit({"phase": "train_grad", "trunk": name, "loss": lk,
-              "loss_plain": lp, "max_rel_err": worst, "tol": TOL_GRAD[name],
+        ok = finite and worst <= tol[name]
+        emit({"phase": phase, "trunk": name, "loss": lk,
+              "loss_plain": lp, "max_rel_err": worst, "tol": tol[name],
               "rel_err_by_param": rel, "finite": finite, "ok": ok})
         if not ok:
-            raise AssertionError(f"train_grad {name}: kernels vs plain {worst}")
+            raise AssertionError(f"{phase} {name}: kernels vs plain {worst}")
         m.zero_grad(set_to_none=True)
 
 
@@ -499,7 +599,7 @@ def train_phase(cfg, ctx, model_seed_state):
     n_eval = 3 * 2  # valid + test, one batch each, per epoch
     k1_step = 2 * (plan.n_res > 0) + 2 * ((plan.n_tres > 0) + (plan.n_res > 0)) + 1
     want = {k1.KERNEL.name: n_steps * k1_step + n_eval * 2 * (plan.n_res > 0),
-            k2.KERNEL.name: n_steps * 4 + n_eval * 2}
+            k2.KERNEL.name: n_steps * 4 + n_eval * 2, k3.KERNEL.name: 0}
     moved = max(float((p.detach() - before[n]).abs().max())
                 for n, p in model.named_parameters())
     valid_auc = [v[0] for v in res.epoch_valid]
@@ -516,7 +616,8 @@ def train_phase(cfg, ctx, model_seed_state):
           "ms_per_step_median": step_ms, "step_ms": res.step_ms,
           "host_s_per_epoch": res.epoch_times, "launches": launches,
           "launches_expected": want,
-          "launches_per_step_expected": {k1.KERNEL.name: k1_step, k2.KERNEL.name: 4},
+          "launches_per_step_expected": {k1.KERNEL.name: k1_step, k2.KERNEL.name: 4,
+                                         k3.KERNEL.name: 0},
           "losses": res.step_losses, "max_param_move": moved,
           "valid_auc": valid_auc, "valid_loss": [v[2] for v in res.epoch_valid],
           "test_auc_at_check": {
@@ -526,12 +627,14 @@ def train_phase(cfg, ctx, model_seed_state):
           "ok": ok})
     if not ok:
         raise AssertionError("train phase failed")
-    return dict(per_step={k1.KERNEL.name: k1_step, k2.KERNEL.name: 4},
+    return dict(per_step={k1.KERNEL.name: k1_step, k2.KERNEL.name: 4,
+                          k3.KERNEL.name: 0},
                 batch=next(iter_batches(X, Y, ages, tr, cfg.batch_size, "cuda")),
                 model=model, cw=torch.as_tensor(cw, dtype=torch.float32, device="cuda"))
 
 
-def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3):
+def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3,
+                  phase="profile_train"):
     """One batch and one optimizer: n_timed train steps timed with CUDA
     events and their kernel launches counted (per step), then n_prof steps
     under the profiler for device time by kernel.  The gap share is the
@@ -562,7 +665,7 @@ def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3):
     busy = sum(r[1] for r in rows)
     step_ms = float(np.median(ms))
     ok = per_step == want_per_step
-    emit({"phase": "profile_train", "kernel_ms_per_step": busy,
+    emit({"phase": phase, "kernel_ms_per_step": busy,
           "kernels_per_step": sum(r[2] for r in rows),
           "step_ms": ms, "step_ms_median": step_ms,
           "gap_share": 1 - busy / step_ms,
@@ -570,8 +673,138 @@ def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3):
           "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:16]],
           "ok": ok})
     if not ok:
-        raise AssertionError(f"train launches per step {per_step}, want {want_per_step}")
+        raise AssertionError(f"{phase}: launches per step {per_step}, want {want_per_step}")
     return per_step
+
+
+def profile_eval(model, ctx, batch, phase, n_timed=10, n_prof=3):
+    """Device time by kernel over n_prof eval steps of one full batch, and
+    the share of the median CUDA-event-timed eval step (n_timed of them)
+    with no kernel running."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        eval_step(model, batch, ctx)
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(n_timed):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        eval_step(model, batch, ctx)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    step_ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            eval_step(model, batch, ctx)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, n_prof)
+    busy = sum(r[1] for r in rows)
+    emit({"phase": phase, "kernel_ms_per_batch": busy,
+          "kernels_per_batch": sum(r[2] for r in rows),
+          "eval_step_ms_median": step_ms, "gap_share": 1 - busy / step_ms,
+          "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:14]]})
+    return busy
+
+
+def serve_conv(conv, model, ctx, n_batches):
+    """The max-aggregation serving path: predict_patients over N_PATIENTS,
+    counted: K3 twice a batch (one per layer), no K1 or K2."""
+    X, Y, ages = patients(ctx.graph.n_nodes)
+    idx = np.arange(N_PATIENTS)
+    predict_patients(model, ctx, X, Y, ages, idx)  # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = predict_patients(model, ctx, X, Y, ages, idx)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: 2 * n_batches}
+    prob = np.asarray(res["prob"])
+    ok = (len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
+          and bool(((prob >= 0) & (prob <= 1)).all())
+          and np.isfinite(res["loss"]) and launches == want)
+    emit({"phase": f"serve_{conv}", "batches": n_batches, "patients": N_PATIENTS,
+          "ms_per_batch": dt * 1e3 / n_batches, "launches": launches,
+          "launches_expected": want, "auc": res["auc"], "acc": res["acc"],
+          "loss": res["loss"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"serve_{conv} phase failed")
+    return launches
+
+
+def train_conv(conv, cfg, ctx):
+    """run_fold with a max-aggregation conv for CONV_EPOCHS epochs, counted;
+    then profile_train on one batch, which reads the launches per step from
+    the counters: K3 2, K1 5, K2 0."""
+    X, Y, ages = patients(ctx.graph.n_nodes, n=N_TRAIN_PATIENTS, seed=2)
+    tr, va, te = np.arange(192), np.arange(192, 224), np.arange(224, 256)
+    cw = class_weight(Y, tr, cfg.weight_power)
+    model = MultilevelGNN(cfg, ctx.graph.n_nodes, ctx.num_pca_rows,
+                          device="cuda", seed=0)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    res = run_fold(cfg, ctx, X, Y, ages, tr, va, te, cw,
+                   list(range(1, CONV_EPOCHS + 1)), model=model)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    n_steps = len(res.step_losses)
+    bs = cfg.batch_size
+    n_eval = CONV_EPOCHS * (-(-len(va) // bs) + -(-len(te) // bs))
+    want = {k1.KERNEL.name: 5 * n_steps, k2.KERNEL.name: 0,
+            k3.KERNEL.name: 2 * (n_steps + n_eval)}
+    moved = max(float((p.detach() - before[n]).abs().max())
+                for n, p in model.named_parameters())
+    losses = np.asarray(res.step_losses)
+    ok = (launches == want and n_steps == len(tr) // bs * CONV_EPOCHS
+          and bool(np.isfinite(losses).all()) and len(set(res.step_losses)) > 1
+          and moved > 0)
+    emit({"phase": f"train_{conv}", "epochs": CONV_EPOCHS, "steps": n_steps,
+          "ms_per_step_median": float(np.median(res.step_ms)),
+          "step_ms": res.step_ms, "host_s_per_epoch": res.epoch_times,
+          "launches": launches, "launches_expected": want,
+          "losses": res.step_losses, "max_param_move": moved,
+          "valid_auc": [v[0] for v in res.epoch_valid],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": ok})
+    if not ok:
+        raise AssertionError(f"train_{conv} phase failed")
+    batch = next(iter_batches(X, Y, ages, tr, cfg.batch_size, "cuda"))
+    cwt = torch.as_tensor(cw, dtype=torch.float32, device="cuda")
+    want_step = {k1.KERNEL.name: 5, k2.KERNEL.name: 0, k3.KERNEL.name: 2}
+    return profile_train(model, ctx, batch, cwt, want_step,
+                         phase=f"profile_train_{conv}")
+
+
+def conv_paths(conv, cfg, ctx, batch, n_batches):
+    """Every phase of one max-aggregation conv on the GBM fold; cfg is the
+    training config (gbm.yaml's optimizer and dropouts, bf16 trunk)."""
+    ccfg = cfg.replace(gnn_name=conv)
+    n, G = ctx.graph.n_nodes, ctx.num_pca_rows
+
+    def make(c):
+        return lambda: MultilevelGNN(c, n, G, device="cuda", seed=0)
+
+    f32 = ccfg.replace(compute_dtype=None, spmm_bf16=False)
+    model = make(ccfg)()
+    serve = serve_conv(conv, model, ctx, n_batches)
+    profile_eval(model, ctx, batch, f"profile_{conv}")
+    forward_vs_plain(f"slice_{conv}", (("bf16", TOL_IMAGE_F32, lambda: model),
+                                       ("f32", TOL_IMAGE_F32, make(f32))), ctx, batch)
+    cw = torch.tensor([1.0, 1.5], device="cuda")
+    train_grad_checks((("bf16", model),), ctx, batch, cw,
+                      phase=f"train_grad_{conv}", tol=TOL_GRAD_MAX)
+    del model
+    m32 = make(f32)()
+    train_grad_checks((("f32", m32),), ctx, batch, cw,
+                      phase=f"train_grad_{conv}", tol=TOL_GRAD_MAX)
+    del m32
+    per_step = train_conv(conv, ccfg.replace(epochs=CONV_EPOCHS), ctx)
+    torch.cuda.empty_cache()
+    return serve, per_step
 
 
 def main() -> int:
@@ -617,6 +850,7 @@ def main() -> int:
     w = spmm.edge_weights(graph, "mean", graph.edge_attr)
     r1 = kernel_k1(graph, w, F, gen)
     r2 = kernel_k2(graph, w, F, gen)
+    r3 = kernel_k3(graph, F, cfg.batch_size * cfg.final_channels, gen)
 
     X, Y, ages = patients(graph.n_nodes)
     idx = np.arange(N_PATIENTS)
@@ -633,7 +867,8 @@ def main() -> int:
     ok = (
         len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
         and bool(((prob >= 0) & (prob <= 1)).all())
-        and np.isfinite(res["loss"]) and all(v > 0 for v in launches.values())
+        and np.isfinite(res["loss"]) and launches[k1.KERNEL.name] > 0
+        and launches[k2.KERNEL.name] > 0 and launches[k3.KERNEL.name] == 0
     )
     emit({"phase": "serve", "batches": n_batches, "patients": N_PATIENTS,
           "ms_per_batch": dt * 1e3 / n_batches, "launches": launches,
@@ -657,28 +892,49 @@ def main() -> int:
         tcfg.replace(compute_dtype=None, spmm_bf16=False),
         graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0,
     )
-    train_grad_checks(model, f32_model, ctx, batch,
+    train_grad_checks((("bf16", model), ("f32", f32_model)), ctx, batch,
                       torch.tensor([1.0, 1.5], device="cuda"))
+    del f32_model
     tr = train_phase(tcfg, ctx, init_state)
     train_per_step = profile_train(tr["model"], ctx, tr["batch"], tr["cw"],
                                    tr["per_step"])
+    del tr
+    torch.cuda.empty_cache()
+
+    # ---- the max-aggregation convs (MRConv, EdgeConv) on the same fold
+    paths = {"serve_sage": launches}
+    per_step = {"sage": train_per_step}
+    for conv in ("mr", "edge"):
+        paths[f"serve_{conv}"], per_step[conv] = conv_paths(
+            conv, tcfg, ctx, batch, n_batches)
 
     main_k1 = r1[("residual", "bfloat16")]
     main_k2 = r2["bfloat16"]
+    main_k3 = r3[(F, "bfloat16")]
     backward = {
         k1.KERNEL.name: [b1[(c, "bfloat16")] for c in
-                         ("csc", "tres", "res_csc", "gather_rows_bwd")],
+                         ("csc", "tres", "res_csc", "gather_rows_bwd",
+                          "src_gather", "dst_gather")],
         k2.KERNEL.name: [b2["bfloat16"]],
+        k3.KERNEL.name: [],  # its backward is torch's compare and where
     }
+    # launches: the count on the kernel's first serving path (sage for K1
+    # and K2, mr for K3); every path's count is in launches_by_path
+    first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",
+             k3.KERNEL.name: "serve_mr"}
     kernels = []
-    for k, r in ((k1.KERNEL, main_k1), (k2.KERNEL, main_k2)):
+    for k, r in ((k1.KERNEL, main_k1), (k2.KERNEL, main_k2), (k3.KERNEL, main_k3)):
         kernels.append({
             "name": k.name, "route": k.route, "source": k.source_rel,
-            "replaces": k.replaces, "launches": launches[k.name],
+            "replaces": k.replaces, "launches": paths[first[k.name]][k.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "train_launches_per_step": train_per_step[k.name],
+            "train_launches_per_step": per_step[
+                "sage" if first[k.name] == "serve_sage" else "mr"][k.name],
+            "launches_by_path": {p: c[k.name] for p, c in paths.items()},
+            "train_launches_per_step_by_path": {
+                p: c[k.name] for p, c in per_step.items()},
             "backward": [
                 {key: b[key] for key in ("case", "max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")}

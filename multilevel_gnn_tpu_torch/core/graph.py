@@ -40,10 +40,13 @@ class Graph:
     senders / receivers: (E,) source / destination node per edge (receivers
     sorted).  edge_attr: (E, A) float32 or None.  edge_mask: (E,) bool,
     False on padding edges.  n_nodes / n_edges: real node / edge counts.
-    csr: K1 plan over the real edges (receiver-sorted), csc: its transpose
-    (sender-sorted, for the backward), in_deg: (n_nodes,) float32 real
-    in-degree, winplan: K2 plan or None; all are set by with_sorted_meta /
-    with_window_meta."""
+    csr: K1 plan over the real edges (receiver-sorted; K3 reads its rowptr
+    and eid), csc: its transpose (sender-sorted, for the backward),
+    src_gather / dst_gather: K1 plans whose rows are the senders /
+    receivers and whose columns are the edge rows (the backward of the
+    edge gathers x[senders] / x[receivers]), in_deg: (n_nodes,) float32
+    real in-degree, winplan: K2 plan or None; all are set by
+    with_sorted_meta / with_window_meta."""
 
     senders: Array
     receivers: Array
@@ -53,6 +56,8 @@ class Graph:
     n_edges: int
     csr: Optional[object] = None
     csc: Optional[object] = None
+    src_gather: Optional[object] = None
+    dst_gather: Optional[object] = None
     in_deg: Optional[torch.Tensor] = None
     winplan: Optional[object] = None
 
@@ -165,7 +170,9 @@ class Graph:
 
     def with_sorted_meta(self, device: Union[str, torch.device] = "cuda") -> "Graph":
         """Build the K1 plans over the real edges (receiver-sorted csr and
-        its sender-sorted transpose csc, graph.py:190-191's SortedSegments pair)
+        its sender-sorted transpose csc, graph.py:190-191's SortedSegments
+        pair; src_gather and dst_gather, the same row partitions over edge
+        rows, which gather_rows's backward uses with them, spmm.py:364-378)
         and the real in-degree, and move the graph (and any window plan) to
         ``device``."""
         from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
@@ -179,6 +186,8 @@ class Graph:
         eid = np.flatnonzero(ok)
         csr = CSRPlan.build(recv[eid], send[eid], eid, self.n_nodes)
         csc = CSRPlan.build(send[eid], recv[eid], eid, self.n_nodes)
+        src_gather = CSRPlan.build(send[eid], eid, eid, self.n_nodes)
+        dst_gather = CSRPlan.build(recv[eid], eid, eid, self.n_nodes)
         deg = np.bincount(recv[mask], minlength=self.n_nodes).astype(np.float32)
 
         def t(a, dtype):
@@ -196,6 +205,8 @@ class Graph:
             edge_mask=t(mask, torch.bool),
             csr=csr.to(dev),
             csc=csc.to(dev),
+            src_gather=src_gather.to(dev),
+            dst_gather=dst_gather.to(dev),
             in_deg=t(deg, torch.float32),
             winplan=self.winplan.to(dev) if self.winplan is not None else None,
         )

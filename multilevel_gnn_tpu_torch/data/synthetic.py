@@ -69,6 +69,7 @@ def make_gbm_scale_setup(
     device="cuda",
     compute_dtype: Optional[str] = None,
     spmm_bf16: bool = False,
+    gnn_name: str = "sage",
 ):
     """GBM-production-scale flagship inputs built directly: N = 3*node_num
     node slots, self-looped edges, B patients, C = 64.  Returns (cfg, model,
@@ -78,7 +79,8 @@ def make_gbm_scale_setup(
     topology: 'random' (uniform edges) or 'cohort' (make_cohort_topology).
     windowed=True attaches the windowed-SpMM plan (perm_group=3).
     compute_dtype / spmm_bf16 set the trunk's precision as in the shipped
-    configs ('bfloat16', True)."""
+    configs ('bfloat16', True).  gnn_name picks the conv (sage, rsage,
+    mr or edge); nothing else, the arrays included, depends on it."""
     from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 
     dev = resolve_device(device)
@@ -87,7 +89,7 @@ def make_gbm_scale_setup(
     K = 2
     nodes = 3 * node_num
     cfg = Config(
-        model="multilevel_gnn", gnn_name="sage", gnn_act="leakyrelu",
+        model="multilevel_gnn", gnn_name=gnn_name, gnn_act="leakyrelu",
         num_layers=2, hidden_channels=64, final_channels=32,
         node_embedding=True, node_embedding_dim=64, node_num=node_num,
         pathway_num=n_pathways, pca_dim=K, pca_sim_dim=K, pathway_pool_dim=4,

@@ -3,7 +3,8 @@ multilevel_gnn_tpu/models/multilevel_gnn.py: ConvHead :64-134,
 MultilevelGNN encode / gnn_stack / gather_pca_rows / learnable_pca_image
 :137-321, get_feature_loss :359-404, seed_pca_params :457-470).
 
-  node embedding outer product -> SAGE stack -> value-attention mask ->
+  node embedding outer product -> GNN stack (gnn_name sage, rsage, mr or
+  edge) -> value-attention mask ->
   gene -> PCA-row gather -> learnable-PCA pathway contraction -> optional
   pathway reorder -> ConvHead (1x1 convs, MaxPool, flatten, age, MLP,
   softmax).
@@ -14,8 +15,8 @@ module paths (gnn_0.gconv.lin_r, conv_head.Conv_0, ...) so interop.py maps
 one onto the other.  In ``model.train()`` the dropouts the shipped configs
 reach (input_drop, input_emb_drop, the SAGE MLP's gnn_dropout, the head's
 feature_drop and head_drop_rate) draw their masks from the generator
-passed to forward.  Branches outside the shipped configs' path raise
-NotImplementedError.
+passed to forward; mr and edge take no gnn_dropout, as in JAX.  Branches
+outside the ported paths raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -49,7 +50,9 @@ def _check_supported(cfg: Config) -> None:
         "used_omics!='012'": cfg.used_omics != "012",
         "reduction_method!='linear_projection'":
             cfg.reduction_method != "linear_projection",
-        "gnn_mlp_norm": str(cfg.gnn_mlp_norm).lower() != "none",
+        # mr and edge ignore gnn_mlp_norm, as GraphConvLayer does in JAX
+        "gnn_mlp_norm": str(cfg.gnn_mlp_norm).lower() != "none"
+        and cfg.gnn_name.lower() in ("sage", "rsage"),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

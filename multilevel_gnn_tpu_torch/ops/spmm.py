@@ -1,12 +1,13 @@
 """Batched sparse aggregation (SpMM) over a static edge list, with the
 kernels' backwards.
 
-Port of multilevel_gnn_tpu/ops/spmm.py: the sum/mean branches of
-``gather_scatter`` (:381-447) with the custom VJPs they reach (the composed
-``_fused_spmm_sum`` :137-192 and ``windowed_spmm_2d``,
-ops/pallas/windowed.py:710-810), and ``gather_rows`` (:302-334).  Each
-custom VJP is a ``torch.autograd.Function`` whose backward is the same
-hand-written kernel on a transposed plan:
+Port of multilevel_gnn_tpu/ops/spmm.py: ``gather_scatter`` (:381-458) with
+the custom VJPs it reaches (the composed ``_fused_spmm_sum`` :137-192,
+``windowed_spmm_2d``, ops/pallas/windowed.py:710-810, and
+``edge_segment_max`` :235-274), ``edge_segment_min`` (:277),
+``gather_rows`` (:302-334) and the edge gathers ``gather_src`` /
+``gather_dst`` (:364-378).  Each custom VJP is a
+``torch.autograd.Function``:
 
   composed SpMM   forward K1 over csr; backward K1 over csc
   windowed SpMM   forward K2 (forward side) + K1 over the residual;
@@ -14,7 +15,12 @@ hand-written kernel on a transposed plan:
                   res_csc, added in place
   gather_rows     forward index_select; backward K1 over a CSR whose rows
                   are node slots and whose columns are the gathered rows,
-                  unit weights (no atomics, unlike index_select's backward)
+                  unit weights (no atomics, unlike index_select's backward);
+                  the edge gathers use the graph's src_gather / dst_gather
+  segment max     forward K3 over csr; backward JAX's gather-only form in
+                  torch ops: the full cotangent to every real edge equal to
+                  its segment's max (ties each get all of it, where
+                  scatter_reduce's autograd would split it)
 
 As in the JAX package, the cotangent is cast to the forward's SpMM data
 type before the kernel (its "dtype witness"), the gradient comes back in
@@ -35,6 +41,10 @@ from typing import Optional
 import torch
 
 from multilevel_gnn_tpu_torch.core.graph import Graph
+from multilevel_gnn_tpu_torch.ops.kernels.segment_max import (
+    segment_max_csr,
+    segment_max_csr_plain,
+)
 from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import (
     CSRPlan,
     segment_spmm_csr,
@@ -51,10 +61,11 @@ _PLAIN = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside this block the SpMMs and gather_rows call the kernels' plain
-    PyTorch versions on any device, forward and backward, to hold a whole
-    step with kernels against the same step without them on the card.  A
-    backward runs the way its forward did, wherever it is called."""
+    """Inside this block the SpMMs, the segment max and gather_rows call
+    the kernels' plain PyTorch versions on any device, forward and
+    backward, to hold a whole step with kernels against the same step
+    without them on the card.  A backward runs the way its forward did,
+    wherever it is called."""
     global _PLAIN
     prev, _PLAIN = _PLAIN, True
     try:
@@ -69,6 +80,10 @@ def _k1(plain: bool):
 
 def _k2(plain: bool):
     return windowed_spmm_plain if plain else windowed_spmm
+
+
+def _k3(plain: bool):
+    return segment_max_csr_plain if plain else segment_max_csr
 
 
 class _ComposedSpMM(torch.autograd.Function):
@@ -128,6 +143,50 @@ class _GatherRows(torch.autograd.Function):
         return dx.reshape((seg.n_rows,) + g.shape[1:]).to(ctx.x_dtype), None, None, None
 
 
+class _EdgeSegmentMax(torch.autograd.Function):
+    """edge_segment_max (spmm.py:235-274) on (E, F) edge rows: K3 forward
+    (f32 out); the backward sends the cotangent to every real edge whose
+    value equals its segment's max and returns it in the rows' dtype."""
+
+    @staticmethod
+    def forward(ctx, m2, receivers, mask, csr: CSRPlan, plain: bool):
+        out = _k3(plain)(m2, csr)
+        ctx.save_for_backward(m2, out, receivers, mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        m2, out, receivers, mask = ctx.saved_tensors
+        # out holds elements of m2 (or 0), so its cast to m2's dtype is
+        # exact, and casting g before the select gives what JAX's select
+        # then cast gives; both casts run on node rows, so the edge-row
+        # passes below move m2's dtype, not f32
+        o = out.to(m2.dtype).index_select(0, receivers)
+        sel = (m2 == o) & mask[:, None]
+        d = torch.where(sel, g.to(m2.dtype).index_select(0, receivers), 0.0)
+        return d, None, None, None, None
+
+
+def edge_segment_max(
+    msg: torch.Tensor, receivers: torch.Tensor, mask: torch.Tensor, csr: CSRPlan
+) -> torch.Tensor:
+    """Segment-max of edge values into receivers, differentiable in msg.
+
+    msg: (E, ...) edge-major values, bf16 or f32, over all E edge slots
+    (padding included); returns (N, ...) float32 with N = csr.n_rows.  An
+    empty segment gives 0; padding edges (mask False) take no part and get
+    no gradient."""
+    shape = msg.shape
+    m2 = msg.reshape(shape[0], -1).contiguous()
+    out = _EdgeSegmentMax.apply(m2, receivers, mask, csr, _PLAIN)
+    return out.reshape((csr.n_rows,) + tuple(shape[1:]))
+
+
+def edge_segment_min(msg, receivers, mask, csr) -> torch.Tensor:
+    """min(x) = -max(-x), with the same empty -> 0 fill (spmm.py:277)."""
+    return -edge_segment_max(-msg, receivers, mask, csr)
+
+
 def edge_weights(
     graph: Graph, reduce: str, edge_weight: Optional[torch.Tensor]
 ) -> torch.Tensor:
@@ -158,14 +217,27 @@ def gather_scatter(
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """out[dst] = reduce_{e: recv[e]=dst} x[src[e]] * w[e], reduce in
-    {sum, add, mean}, differentiable in x.
+    {sum, add, mean, max, min}, differentiable in x.
 
     x: node-major (N, ...) features; returns float32 of the same shape.
-    dtype: SpMM data type (bf16 halves the bytes read; f32 accumulate)."""
-    if reduce not in ("sum", "add", "mean"):
+    dtype: SpMM data type of sum and mean (bf16 halves the bytes read; f32
+    accumulate).  max and min gather the messages in x's dtype (times the
+    weights, if any) and reduce them with K3 (spmm.py:448-458); an empty
+    segment gives 0."""
+    if reduce not in ("sum", "add", "mean", "max", "min"):
         raise NotImplementedError(f"reduce={reduce!r} is not ported yet")
     if graph.csr is None:
         raise ValueError("graph needs with_sorted_meta() before aggregation")
+    if reduce in ("max", "min"):
+        msg = gather_src(x, graph)
+        if edge_weight is not None:
+            w = edge_weight.reshape(
+                (msg.shape[0],) + (1,) * (msg.dim() - edge_weight.dim())
+                + tuple(edge_weight.shape[1:])
+            )
+            msg = msg * w
+        fn = edge_segment_max if reduce == "max" else edge_segment_min
+        return fn(msg, graph.receivers, graph.edge_mask, graph.csr)
     shape = x.shape
     x2 = x.reshape(shape[0], -1)
     w = edge_weights(graph, reduce, edge_weight)
@@ -191,3 +263,15 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor, seg: CSRPlan) -> torch.Tenso
     as its backward.  idx must be resolved (non-negative); seg is
     CSRPlan.gather(idx, x.shape[0]) on x's device."""
     return _GatherRows.apply(x, idx, seg, _PLAIN)
+
+
+def gather_src(x: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """x[senders] on the node axis (E, ...), K1 over src_gather as its
+    backward (spmm.py:364-370)."""
+    return _GatherRows.apply(x, graph.senders, graph.src_gather, _PLAIN)
+
+
+def gather_dst(x: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """x[receivers] on the node axis (E, ...), K1 over dst_gather as its
+    backward (spmm.py:373-378)."""
+    return _GatherRows.apply(x, graph.receivers, graph.dst_gather, _PLAIN)

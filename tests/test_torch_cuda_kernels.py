@@ -11,16 +11,22 @@ duplicate (dst, src) pairs, padded/masked edges, permuted window plans,
 feature widths on and off the vector path, accumulate mode, bf16 and f32;
 the backward forms: K2 on the transpose side (banded, permuted,
 residual-heavy) with K1 over tres and res_csc, K1 over a graph's csc, and
-K1 as the gather_rows backward.
+K1 as the gather_rows backward.  K3 (segment max): widths on and off the
+vector path, rows that do not start on a 16-byte boundary, rows with more
+than 256 entries, empty rows and an empty plan, exact ties, and
+edge_segment_max's gradient with K3 against the same with the plain
+version.
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
-its f32 sum is taken in another order).
+its f32 sum is taken in another order).  K3 is held to equality: a max
+selects one of its inputs.
 """
 import numpy as np
 import pytest
 import torch
 
+from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
 
@@ -188,3 +194,63 @@ def test_empty_plans(dev):
     assert torch.count_nonzero(k2.windowed_spmm(x, w, plan)) == 0
     csr = k1.CSRPlan.build(np.zeros(0), np.zeros(0), np.zeros(0), n).to(dev)
     assert torch.count_nonzero(k1.segment_spmm_csr(x, w, csr)) == 0
+
+
+def _k3_plan(dev, n=900):
+    s, d = _graph(5, n, 7000, hub=True)  # hub rows > 256 entries, empty rows
+    mask = np.random.RandomState(6).rand(len(s)) > 0.1
+    eid = np.flatnonzero(mask)
+    return len(s), k1.CSRPlan.build(d[eid], s[eid], eid, n).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 20, 64, 1024, 2048, 2056])
+def test_k3_equals_plain(dev, dtype, F):
+    E, plan = _k3_plan(dev)
+    g = torch.Generator(device=dev).manual_seed(F)
+    msg = torch.randn(E, F, generator=g, device=dev).to(dtype)
+    out = k3.segment_max_csr(msg, plan)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, k3.segment_max_csr_plain(msg, plan))
+    empty = plan.rowptr[1:] == plan.rowptr[:-1]
+    assert bool(empty.any()) and not bool(out[empty].any())
+    # rows off the 16-byte boundary take the scalar path
+    buf = torch.randn(E * F + 1, generator=g, device=dev).to(dtype)
+    shifted = buf[1:].view(E, F)
+    assert torch.equal(k3.segment_max_csr(shifted, plan),
+                       k3.segment_max_csr_plain(shifted, plan))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_ties_and_gradient_equal_plain(dev, dtype):
+    from multilevel_gnn_tpu_torch.ops import spmm
+
+    E, plan = _k3_plan(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    msg0 = (torch.randint(-2, 3, (E, 2, 24), generator=g, device=dev) * 0.5).to(dtype)
+    recv = torch.zeros(E, dtype=torch.long, device=dev)
+    recv[plan.eid.long()] = plan.row.long()
+    mask = torch.zeros(E, dtype=torch.bool, device=dev)
+    mask[plan.eid.long()] = True
+    cot = torch.randn(plan.n_rows, 2, 24, generator=g, device=dev)
+    res = []
+    for plain in (False, True):
+        m = msg0.clone().requires_grad_(True)
+        if plain:
+            with spmm.plain_versions():
+                out = spmm.edge_segment_max(m, recv, mask, plan)
+        else:
+            out = spmm.edge_segment_max(m, recv, mask, plan)
+        out.backward(cot)
+        res.append((out.detach(), m.grad))
+    assert torch.equal(res[0][0], res[1][0]) and torch.equal(res[0][1], res[1][1])
+    assert int(torch.count_nonzero(res[0][1])) > int(torch.count_nonzero(res[0][0]))
+
+
+def test_k3_empty_plan(dev):
+    n = 300
+    plan = k1.CSRPlan.build(np.zeros(0), np.zeros(0), np.zeros(0), n).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        msg = torch.randn(0, 64, device=dev, dtype=dtype)
+        out = k3.segment_max_csr(msg, plan)
+        assert out.shape == (n, 64) and not bool(out.any())

@@ -64,9 +64,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_kernel_sources_shipped():
     from multilevel_gnn_tpu_torch.ops.kernels import build
-    from multilevel_gnn_tpu_torch.ops.kernels import segment_sum, windowed  # noqa
+    from multilevel_gnn_tpu_torch.ops.kernels import segment_max, segment_sum, windowed  # noqa
 
-    assert set(build.REGISTRY) == {"segment_spmm_csr", "windowed_tile_spmm"}
+    assert set(build.REGISTRY) == {
+        "segment_spmm_csr", "windowed_tile_spmm", "segment_max_csr"}
     for k in build.REGISTRY.values():
         assert k.source.is_file(), k.source
         text = k.source.read_text()

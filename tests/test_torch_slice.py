@@ -87,9 +87,10 @@ def fold():
     return dict(n=n, X=X, Y=Y, ages=ages, jctx=jctx, pctx=pctx)
 
 
-def _run(fold, bf16, reorder=False):
+def _run(fold, bf16, reorder=False, gnn_name="sage"):
     kw = dict(compute_dtype="bfloat16", spmm_bf16=True) if bf16 else {}
     kw["reorder_pathway"] = reorder
+    kw["gnn_name"] = gnn_name
     jcfg = JConfig.from_dict(_cfg_dict(**kw))
     pcfg = Config.from_dict(_cfg_dict(**kw))
     jmodel = JModel(jcfg)

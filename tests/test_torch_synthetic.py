@@ -3,7 +3,8 @@
 make_cohort_topology and make_gbm_scale_setup with the same RandomState
 seed give bit-identical edge arrays, edge attributes, context arrays and
 batch arrays (required equal, no tolerance), at reduced node / pathway /
-row counts, for both topologies, with and without the window plan.
+row counts, for both topologies, with and without the window plan, and
+with gnn_name mr and edge (the arrays do not depend on the conv).
 """
 import numpy as np
 import pytest
@@ -44,3 +45,19 @@ def test_gbm_scale_setup_bit_equal(topology, windowed):
     if windowed:
         assert pg.winplan.n_res == int(jg.winplan.n_res)
     assert model.cfg.batch_size == 4 and cfg.pathway_num == 6
+
+
+@pytest.mark.parametrize("gnn_name", ["mr", "edge"])
+def test_gbm_scale_setup_gnn_name(gnn_name):
+    """gnn_name picks the conv and nothing else: the arrays stay bit-equal
+    to the JAX setup's, which has only sage."""
+    kw = dict(node_num=150, n_pathways=6, n_edges=3000, batch=4,
+              gene_rows=400, seed=3, topology="cohort")
+    _, _, jg, jctx, jb = JS.make_gbm_scale_setup(**kw)
+    cfg, model, pg, pctx, pb = S.make_gbm_scale_setup(device="cpu", gnn_name=gnn_name, **kw)
+    for a, b in ((jg.senders, pg.senders), (jg.receivers, pg.receivers),
+                 (jg.edge_attr, pg.edge_attr), (jctx.gene_pca_match, pctx.gene_pca_match),
+                 (jb.x, pb.x), (jb.y, pb.y)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert cfg.gnn_name == gnn_name
+    assert type(model.gnn_0.gconv).__name__ == {"mr": "MRConv", "edge": "EdgeConv"}[gnn_name]

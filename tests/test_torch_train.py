@@ -153,9 +153,10 @@ def test_optimizer_matches_optax():
             pstep.make_optimizer(module, Config(**kw), spe, name=name)
 
 
-def _train(fold, bf16, windowed):
+def _train(fold, bf16, windowed, gnn_name="sage"):
     kw = dict(feature_drop=False, head_drop_rate=0.0, gnn_dropout=0.0, lr=LR,
-              weight_balance=True, pca_indep_loss=True, pca_loss=True)
+              weight_balance=True, pca_indep_loss=True, pca_loss=True,
+              gnn_name=gnn_name)
     if bf16:
         kw.update(compute_dtype="bfloat16", spmm_bf16=True)
     jcfg = JConfig.from_dict(_cfg_dict(**kw))

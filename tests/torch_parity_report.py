@@ -2,11 +2,10 @@
 
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py
 
-Runs the same inputs as tests/test_torch_{segment_sum,windowed,slice,
-backward,train,driver}.py (CPU, plain versions on the port side, Pallas
-interpret mode on the JAX side) and prints one JSON line per module with
-the max abs error and, for bf16, the bound the tests hold it to.  Not
-collected by pytest.
+Runs the same inputs as the parity tests in tests/test_torch_*.py (CPU,
+plain versions on the port side, Pallas interpret mode on the JAX side)
+and prints one JSON line per module with the max abs error and, for bf16,
+the bound the tests hold it to.  Not collected by pytest.
 """
 import json
 import os
@@ -25,6 +24,8 @@ sys.path[:0] = [_HERE, os.path.dirname(_HERE)]
 import pytest  # noqa: E402
 import test_torch_backward as TB  # noqa: E402
 import test_torch_driver as TD  # noqa: E402
+import test_torch_maxconv as TMC  # noqa: E402
+import test_torch_segment_max as T3  # noqa: E402
 import test_torch_segment_sum as T1  # noqa: E402
 import test_torch_slice as TS  # noqa: E402
 import test_torch_train as TT  # noqa: E402
@@ -75,6 +76,7 @@ def main():
           f32_loss_max_abs_err=float(np.abs(r["pl"] - r["jl"]).max()))
     backward()
     training(fold)
+    max_aggregation(fold)
 
 
 def backward():
@@ -145,6 +147,80 @@ def training(fold):
               float(np.abs(getattr(res, k)[e] - getattr(jr, k)[e]).max())
               for k in ("epoch_pred", "epoch_pred_by_loss", "epoch_pred_by_epoch")
               for e in TD.CHECK))
+
+
+
+def _err(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def max_aggregation(fold):
+    import jax.numpy as jnp
+    import torch
+    from multilevel_gnn_tpu.ops import spmm as jspmm
+    from multilevel_gnn_tpu.ops.pallas import segment_max as pmax
+    from multilevel_gnn_tpu_torch.ops import spmm
+
+    prev = jspmm.get_backend()
+    jspmm.set_backend("pallas")
+    try:
+        for case, name in zip(T3.CASES, T3.IDS):
+            n, jg, pg = T3._graphs(case)
+            data = T3._rows(pg, 20, seed=case[0])
+            errs = {}
+            for dt in ("float32", "bfloat16"):
+                ref = pmax.segment_max_by(jnp.asarray(data, getattr(jnp, dt)), jg.csr)
+                out = T3.segment_max_csr(
+                    torch.from_numpy(data).to(getattr(torch, dt)), pg.csr)
+                errs[dt] = _err(out.numpy(), ref)
+            E = pg.num_padded_edges
+            m = T3._rows(pg, 10, seed=7, ties=True).reshape(E, 2, 5)
+            g = np.random.RandomState(8).randn(n, 2, 5).astype(np.float32)
+            jo, jd = T3._esm_jax(jspmm.edge_segment_max,
+                                 jnp.asarray(m.transpose(1, 0, 2), jnp.bfloat16),
+                                 jnp.asarray(g.transpose(1, 0, 2)), jg)
+            po, pd = T3._esm_port(spmm.edge_segment_max,
+                                  torch.from_numpy(m).to(torch.bfloat16),
+                                  torch.from_numpy(g), pg)
+            _emit(module="K3 segment_max_csr vs segment_max_by", case=name,
+                  f32_max_abs_err=errs["float32"], bf16_max_abs_err=errs["bfloat16"],
+                  edge_segment_max_bf16_ties_fwd_err=_err(po.transpose(1, 0, 2), jo),
+                  edge_segment_max_bf16_ties_grad_err=_err(pd.transpose(1, 0, 2), jd),
+                  tied_edges_with_grad=int(np.count_nonzero(pd)),
+                  rows_x_features_with_max=int(np.count_nonzero(po)))
+    finally:
+        jspmm.set_backend(prev)
+    for conv in TMC.CONVS:
+        (po, pdx, pgr), (jo, jdx, jgr) = TMC._layer_grads(conv, True, False)
+        (p16, pdx16, pgr16), (j16, jdx16, jgr16) = TMC._layer_grads(conv, True, True)
+        _emit(module=f"GraphConvLayer {conv}, f32", out_err=_err(po, jo),
+              dx_err=_err(pdx, jdx), param_grad_err=max(_err(pgr[k], jgr[k]) for k in pgr),
+              bf16_out_err_vs_jax_f32=_err(p16, jo),
+              bf16_out_bound=float(1.5 * np.abs(j16 - jo).max() + 1e-3),
+              bf16_dx_err_vs_jax_f32=_err(pdx16, jdx),
+              bf16_dx_bound=float(1.5 * np.abs(jdx16 - jdx).max() + 1e-3))
+        f, h = TS._run(fold, False, gnn_name=conv), TS._run(fold, True, gnn_name=conv)
+        _emit(module=f"MultilevelGNN {conv} eval",
+              f32_prob_max_abs_err=_err(f["pp"], f["jp"]),
+              f32_loss_max_abs_err=_err(f["pl"], f["jl"]),
+              bf16_prob_max_abs_err_vs_jax_f32=_err(h["pp"], f["jp"]),
+              bf16_prob_bound=float(1.5 * np.abs(h["jp"] - f["jp"]).max() + 1e-3),
+              bf16_loss_max_abs_err_vs_jax_f32=_err(h["pl"], f["jl"]),
+              bf16_loss_bound=float(1.5 * np.abs(h["jl"] - f["jl"]).max() + 1e-3))
+        jl, pl, model, ref, _, grad0 = TT._train(fold, bf16=False, windowed=True,
+                                                 gnn_name=conv)
+        want = dict(ref.named_parameters())
+        dp = dc = 0.0
+        for k, p in model.named_parameters():
+            diff = (p - want[k]).abs().detach()
+            dp = max(dp, float(diff.max()))
+            gg = grad0[k].abs()
+            clear = gg > 1e-3 * float(gg.max())
+            if bool(clear.any()):
+                dc = max(dc, float(diff[clear].max()))
+        _emit(module=f"five train steps, {conv}, f32", loss_max_abs_err=_err(pl, jl),
+              param_max_abs_err=dp, param_bound=2 * TT.LR * TT.STEPS,
+              param_max_abs_err_clear_grad=dc, param_bound_clear_grad=1e-5)
 
 
 if __name__ == "__main__":
