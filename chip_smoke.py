@@ -65,12 +65,31 @@ with a model of the same widths:
            from the counters, K3 2, K1 5 (the two edge-gather backwards of
            each layer and the PCA gather's), K2 0
 
+Then the sorted segment-sum and the protocol from files:
+
+  k4       K4 at the GBM fold's sorted receivers: K4a on (B, E, C) =
+           (32, 153,538, 64) rows, K4b on (E, B*C) rows, bf16 and f32, and
+           segment_sum_by through a non-identity perm with 10% of the rows
+           masked out, each against its plain version (1e-5 x max(1,
+           max|ref|)), with its ms, plain ms, bound and torch.segment_reduce
+  cohort   a reference-scale synthetic cohort (400 patients, 146 pathways)
+           written in the reference's file layout, loaded with gbm.yaml and
+           fold 0 derived; seconds by stage, the MI estimator's seconds at
+           k = 7 and 15, node slots, edges, mask share, whether the
+           windowed plan engaged
+  experiment  the train CLI's main on those files, 1 run x 5 folds x 5
+           epochs at gbm.yaml's widths, bf16, launch counts zeroed just
+           before and read just after (K1 > 0; K2 as the folds' plans say);
+           per-fold derivation s, ms per step, host s per epoch, pooled AUC
+           and ACC; then a small protocol (f32, dropout off, 2 epochs) on
+           the card and on the CPU, fold test scores within 1e-4
+
 Kernel cases off the main path (other feature widths, permuted plans,
 empty plans) are in tests/test_torch_cuda_kernels.py.
 
 Then the card's nvidia-smi line, the kernels line (per kernel: its serving
-numbers, its launches on each path and per train step and its backward
-forms' numbers) and the last line {"ok": true, "device": {...}}.
+numbers, its launches on each path and per train step, its backward forms'
+and other forms' numbers) and the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -78,7 +97,9 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -90,6 +111,7 @@ from multilevel_gnn_tpu_torch.ops.kernels import build
 from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
+from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import SORTED_KERNEL as k4
 from multilevel_gnn_tpu_torch.train import metrics as M
 from multilevel_gnn_tpu_torch.train.driver import class_weight, iter_batches, run_fold
 from multilevel_gnn_tpu_torch.train.predict import predict_patients
@@ -472,7 +494,7 @@ def profile_serve(model, graph, ctx, batch):
     emit({"phase": "serve_paths", "ms_per_batch_median": med, "turns": 10,
           "launches": launches, "gap_share": 1 - busy / med["windowed"]})
     n = len(t["composed"])
-    k3_none = {k3.KERNEL.name: 0}
+    k3_none = {k3.KERNEL.name: 0, k4.name: 0}
     if (launches["composed"] != {k1.KERNEL.name: 2 * n, k2.KERNEL.name: 0, **k3_none}
             or launches["windowed"] != {k1.KERNEL.name: 2 * n,
                                         k2.KERNEL.name: 2 * n, **k3_none}):
@@ -599,7 +621,7 @@ def train_phase(cfg, ctx, model_seed_state):
     n_eval = 3 * 2  # valid + test, one batch each, per epoch
     k1_step = 2 * (plan.n_res > 0) + 2 * ((plan.n_tres > 0) + (plan.n_res > 0)) + 1
     want = {k1.KERNEL.name: n_steps * k1_step + n_eval * 2 * (plan.n_res > 0),
-            k2.KERNEL.name: n_steps * 4 + n_eval * 2, k3.KERNEL.name: 0}
+            k2.KERNEL.name: n_steps * 4 + n_eval * 2, k3.KERNEL.name: 0, k4.name: 0}
     moved = max(float((p.detach() - before[n]).abs().max())
                 for n, p in model.named_parameters())
     valid_auc = [v[0] for v in res.epoch_valid]
@@ -617,7 +639,7 @@ def train_phase(cfg, ctx, model_seed_state):
           "host_s_per_epoch": res.epoch_times, "launches": launches,
           "launches_expected": want,
           "launches_per_step_expected": {k1.KERNEL.name: k1_step, k2.KERNEL.name: 4,
-                                         k3.KERNEL.name: 0},
+                                         k3.KERNEL.name: 0, k4.name: 0},
           "losses": res.step_losses, "max_param_move": moved,
           "valid_auc": valid_auc, "valid_loss": [v[2] for v in res.epoch_valid],
           "test_auc_at_check": {
@@ -628,7 +650,7 @@ def train_phase(cfg, ctx, model_seed_state):
     if not ok:
         raise AssertionError("train phase failed")
     return dict(per_step={k1.KERNEL.name: k1_step, k2.KERNEL.name: 4,
-                          k3.KERNEL.name: 0},
+                          k3.KERNEL.name: 0, k4.name: 0},
                 batch=next(iter_batches(X, Y, ages, tr, cfg.batch_size, "cuda")),
                 model=model, cw=torch.as_tensor(cw, dtype=torch.float32, device="cuda"))
 
@@ -721,7 +743,8 @@ def serve_conv(conv, model, ctx, n_batches):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
-    want = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: 2 * n_batches}
+    want = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: 2 * n_batches,
+            k4.name: 0}
     prob = np.asarray(res["prob"])
     ok = (len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
           and bool(((prob >= 0) & (prob <= 1)).all())
@@ -756,7 +779,7 @@ def train_conv(conv, cfg, ctx):
     bs = cfg.batch_size
     n_eval = CONV_EPOCHS * (-(-len(va) // bs) + -(-len(te) // bs))
     want = {k1.KERNEL.name: 5 * n_steps, k2.KERNEL.name: 0,
-            k3.KERNEL.name: 2 * (n_steps + n_eval)}
+            k3.KERNEL.name: 2 * (n_steps + n_eval), k4.name: 0}
     moved = max(float((p.detach() - before[n]).abs().max())
                 for n, p in model.named_parameters())
     losses = np.asarray(res.step_losses)
@@ -774,7 +797,7 @@ def train_conv(conv, cfg, ctx):
         raise AssertionError(f"train_{conv} phase failed")
     batch = next(iter_batches(X, Y, ages, tr, cfg.batch_size, "cuda"))
     cwt = torch.as_tensor(cw, dtype=torch.float32, device="cuda")
-    want_step = {k1.KERNEL.name: 5, k2.KERNEL.name: 0, k3.KERNEL.name: 2}
+    want_step = {k1.KERNEL.name: 5, k2.KERNEL.name: 0, k3.KERNEL.name: 2, k4.name: 0}
     return profile_train(model, ctx, batch, cwt, want_step,
                          phase=f"profile_train_{conv}")
 
@@ -805,6 +828,226 @@ def conv_paths(conv, cfg, ctx, batch, n_batches):
     per_step = train_conv(conv, ccfg.replace(epochs=CONV_EPOCHS), ctx)
     torch.cuda.empty_cache()
     return serve, per_step
+
+
+TOL_K4 = 1e-5  # times max(1, max|plain|): both sum the same exact values in f32
+TOL_PROTOCOL = 1e-4  # a small protocol's fold test scores, card against CPU
+# The reference-scale cohort written, loaded and trained (bench.py:513-516's
+# shape): 400 patients, 146 pathways of 38 genes sharing 3, 60,000 GRN edges.
+REF_COHORT = dict(n_patients=400, n_pathways=146, genes_per_pathway=38, overlap=3,
+                  n_edges=60000, seed=2)
+SMALL_COHORT = dict(n_patients=60, n_pathways=8, seed=2)
+GBM_YAML = str(Path(__file__).resolve().parent / "configs" / "gbm.yaml")
+
+
+def time_k4(case, data, plan, permuted):
+    """K4 on one plan against its plain version, with its ms, plain ms,
+    bound and torch.segment_reduce over the same kept rows."""
+    dt = data.dtype
+    if permuted:
+        def kern():
+            return k1.segment_sum_by(data, plan)
+    else:
+        def kern():
+            return k1.sorted_segment_sum(data, plan)
+
+    def plain():
+        return k1.sorted_segment_sum_plain(data, plan, permuted=permuted)
+
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    e, m = err_of(out, ref)
+    limit = check(f"k4 {case} {dt}", e, m, TOL_K4)
+    dsize = 2 if dt == torch.bfloat16 else 4
+    B = data.shape[0] if data.dim() == 3 else 1
+    C = data.shape[-1]
+    b = (B * plan.n_kept * C * dsize + B * plan.num_segments * C * 4
+         + (plan.num_segments + 1) * 4 + (plan.n_kept * 4 if permuted else 0))
+    bms, by = bound(b, float(B * plan.n_kept * C), "f32")
+    rows = data
+    if permuted and plan.perm is not None:
+        rows = data.index_select(-2, plan.perm[: plan.n_kept].long())
+    rows = rows.narrow(-2, 0, plan.n_kept).contiguous()
+    lengths = (plan.rowptr[1:] - plan.rowptr[:-1]).long()
+    axis = rows.dim() - 2
+    if axis:
+        lengths = lengths.expand(B, -1).contiguous()
+
+    def library():
+        return torch.segment_reduce(rows, "sum", lengths=lengths, axis=axis)
+
+    try:
+        lib = library()
+        torch.cuda.synchronize()
+        lib_err = float((lib.float() - ref).abs().max())
+        lib_ms = cuda_ms(library)
+    except (RuntimeError, NotImplementedError, TypeError):
+        lib_err, lib_ms = None, None
+    return dict(
+        case=case, dtype=str(dt).split(".")[-1], shape=list(data.shape),
+        n_kept=plan.n_kept, segments=plan.num_segments, max_abs_err=e, ref_max=m,
+        limit=limit, ms=cuda_ms(kern), plain_ms=cuda_ms(plain), library_ms=lib_ms,
+        library_max_abs_err=lib_err, bound_ms=bms, bound_by=by, bytes=b,
+        flops=float(B * plan.n_kept * C),
+    )
+
+
+def kernel_k4(graph, B, C, F, gen):
+    """K4 at the GBM fold's sorted receivers: K4a on (B, E, C) rows, K4b on
+    (E, F) rows, bf16 and f32; then segment_sum_by through a non-identity
+    perm (the senders' order) with 10% of the rows masked out."""
+    recv = graph.receivers.cpu().numpy()
+    mask = graph.edge_mask.cpu().numpy()
+    plan = k1.SortedPlan.build(recv, graph.n_nodes, mask=mask).to("cuda")
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for case, shape in (("K4a", (B, plan.n_ids, C)), ("K4b", (plan.n_ids, F))):
+            data = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+            r = time_k4(case, data, plan, permuted=False)
+            emit({"phase": "k4", **r})
+            res[(case, r["dtype"])] = r
+            del data
+    rng = np.random.RandomState(4)
+    send = graph.senders.cpu().numpy()
+    keep = mask & (rng.rand(len(send)) > 0.1)
+    pplan = k1.SortedPlan.build(send, graph.n_nodes, mask=keep).to("cuda")
+    data = torch.randn(B, pplan.n_ids, C, generator=gen, device="cuda").to(torch.bfloat16)
+    r = time_k4("segment_sum_by", data, pplan, permuted=True)
+    emit({"phase": "k4", "perm": pplan.perm is not None, **r})
+    res[("segment_sum_by", r["dtype"])] = r
+    if pplan.perm is None or pplan.n_kept >= pplan.n_ids:
+        raise AssertionError("k4 segment_sum_by case has no perm or no dropped rows")
+    return res
+
+
+def cohort_phase(root, device="cuda"):
+    """Reference-format files at reference scale, loaded with gbm.yaml, and
+    fold 0's derivation, timed by stage."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.data import native
+    from multilevel_gnn_tpu_torch.data.loaders import load_cohort_from_files
+    from multilevel_gnn_tpu_torch.data.synthetic import write_reference_format
+    from multilevel_gnn_tpu_torch.train.driver import stratified_kfold
+
+    t0 = time.perf_counter()
+    write_reference_format(root, cancer_type="gbm", **REF_COHORT)
+    t_write = time.perf_counter() - t0
+    cfg = Config.from_yaml(GBM_YAML)
+    t0 = time.perf_counter()
+    cohort = load_cohort_from_files(
+        f"{root}/gbm/raw_mrna.csv", f"{root}/gbm/raw_cnv.csv",
+        f"{root}/gbm/raw_methylation.csv", f"{root}/gbm/clinical.pkl",
+        f"{root}/kegg.csv", f"{root}/pathways.txt", f"{root}/gbm/grn_edges.tsv", cfg,
+    )
+    t_load = time.perf_counter() - t0
+    labels = cohort.labels()
+    tune, _ = stratified_kfold(labels, 5, cfg.split_shaffle, cfg.split_seed)[0]
+    tr = tune[stratified_kfold(labels[tune], 5, cfg.split_shaffle, cfg.split_seed)[0][0]]
+    t0 = time.perf_counter()
+    fold = cohort.fold(tr, 0, device=device)
+    sync(device)
+    t_fold = time.perf_counter() - t0
+    # the MI estimator again on the same rows (library built by now), at
+    # gbm.yaml's k = 7 and kirc / lgg's k = 15
+    pos = {p: i for i, p in enumerate(cohort.pca_patients)}
+    x = cohort.raw_datas[[pos[cohort.patients[i]] for i in tr]].astype(np.float32)
+    mi_s = {}
+    for k in (7, 15):
+        t0 = time.perf_counter()
+        native.mi_classif(x, labels[tr], n_neighbors=k, random_state=cfg.random_state)
+        mi_s[k] = time.perf_counter() - t0
+    g = fold.ctx.graph
+    ok = bool(cohort.num_nodes > 15000 and cohort.n_pathways == 146
+              and 0 < fold.info_mask.mean() < 1 and fold.edge_count > cohort.num_nodes
+              and np.isfinite(fold.pca_seed).all() and np.abs(fold.pca_seed).max() > 0)
+    emit({"phase": "cohort", "write_s": t_write, "load_s": t_load, "fold_s": t_fold,
+          "fold_stage_s": fold.seconds, "mi_s_by_k": mi_s,
+          "mi_features": x.shape[1], "patients": len(cohort.patients),
+          "pca_patients": len(cohort.pca_patients), "train_patients": len(tr),
+          "node_slots": cohort.num_nodes, "pathways": cohort.n_pathways,
+          "pca_rows": cohort.num_pca_rows, "mask_on_share": float(fold.info_mask.mean()),
+          "real_edges": fold.edge_count, "padded_edges": g.num_padded_edges,
+          "windowed": g.winplan is not None,
+          "windowed_min_edges": cfg.windowed_min_edges, "ok": ok})
+    if not ok:
+        raise AssertionError("cohort phase failed")
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _spy_folds():
+    """Record each run_fold's FoldResult inside run_experiment."""
+    from multilevel_gnn_tpu_torch.train import driver
+
+    real, out = driver.run_fold, []
+
+    def spy(*a, **k):
+        out.append(real(*a, **k))
+        return out[-1]
+
+    driver.run_fold = spy
+    return out, lambda: setattr(driver, "run_fold", real)
+
+
+def experiment_phase(root, device="cuda"):
+    """The train CLI's main on the reference-scale directory: 1 run x 5
+    folds x 5 epochs at gbm.yaml's widths, bf16 trunk, on the card, counted;
+    then a small protocol (f32, dropout off, 2 epochs) on the card and on the
+    CPU, fold test scores compared."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multilevel_gnn_tpu_torch.train import cli, driver
+
+    sync(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["--config", GBM_YAML, "--data-dir", root, "--device", device,
+                    "--set", "num_run=1", "epochs=5"])
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    folds = res["folds"]
+    want_k2 = any(f["windowed"] for f in folds)
+    auc, acc = res["auc"][5], res["acc"][5]
+    ok = bool(len(folds) == 5 and launches[k1.KERNEL.name] > 0
+          and (launches[k2.KERNEL.name] > 0) == want_k2
+          and launches[k3.KERNEL.name] == 0 and launches[k4.name] == 0
+          and 0.0 <= auc <= 1.0 and 0.0 <= acc <= 1.0)
+    emit({"phase": "experiment", "wall_s": wall, "cli_wall_time_s": res["wall_time_s"],
+          "fold_setup_s": [f["setup_s"] for f in folds],
+          "fold_stage_s": [f["setup_stage_s"] for f in folds],
+          "edges": [f["edges"] for f in folds], "windowed": [f["windowed"] for f in folds],
+          "ms_per_step_median": [f["step_ms_median"] for f in folds],
+          "host_s_per_epoch": [f["epoch_s"] for f in folds],
+          "launches": launches, "pooled_auc_5": auc, "pooled_acc_5": acc, "ok": ok})
+    if not ok:
+        raise AssertionError("experiment phase failed")
+
+    cfg = Config.from_yaml(GBM_YAML).replace(
+        num_run=1, epochs=2, compute_dtype=None, spmm_bf16=False, feature_drop=False,
+        head_drop_rate=0.0, gnn_dropout=0.0)
+    scores = {}
+    for dev in (device, "cpu"):
+        cohort = make_synthetic_cohort(cfg, **SMALL_COHORT)
+        rec, undo = _spy_folds()
+        try:
+            out = driver.run_experiment(cfg, cohort, device=dev)
+        finally:
+            undo()
+        scores[dev] = (rec, out)
+    errs = [max(float(np.abs(a.epoch_pred[2] - b.epoch_pred[2]).max()),
+                float(np.abs(a.epoch_pred_by_epoch[2] - b.epoch_pred_by_epoch[2]).max()))
+            for a, b in zip(scores[device][0], scores["cpu"][0])]
+    ok = len(errs) == 5 and max(errs) <= TOL_PROTOCOL
+    emit({"phase": "experiment_small_vs_cpu", "fold_max_abs_err": errs, "tol": TOL_PROTOCOL,
+          "pooled_auc_cuda": scores[device][1]["auc"][2],
+          "pooled_auc_cpu": scores["cpu"][1]["auc"][2], "ok": ok})
+    if not ok:
+        raise AssertionError("small protocol: card vs CPU mismatch")
+    return launches
 
 
 def main() -> int:
@@ -869,6 +1112,7 @@ def main() -> int:
         and bool(((prob >= 0) & (prob <= 1)).all())
         and np.isfinite(res["loss"]) and launches[k1.KERNEL.name] > 0
         and launches[k2.KERNEL.name] > 0 and launches[k3.KERNEL.name] == 0
+        and launches[k4.name] == 0
     )
     emit({"phase": "serve", "batches": n_batches, "patients": N_PATIENTS,
           "ms_per_batch": dt * 1e3 / n_batches, "launches": launches,
@@ -908,22 +1152,39 @@ def main() -> int:
         paths[f"serve_{conv}"], per_step[conv] = conv_paths(
             conv, tcfg, ctx, batch, n_batches)
 
+    # ---- K4 (sorted segment-sum): no path of the package reaches it
+    r4 = kernel_k4(graph, cfg.batch_size, cfg.node_embedding_dim, F, gen)
+    del model, ctx, batch
+    torch.cuda.empty_cache()
+
+    # ---- the protocol from reference-format files
+    with tempfile.TemporaryDirectory() as root:
+        cohort_phase(root)
+        paths["experiment"] = experiment_phase(root)
+
     main_k1 = r1[("residual", "bfloat16")]
     main_k2 = r2["bfloat16"]
     main_k3 = r3[(F, "bfloat16")]
+    main_k4 = r4[("K4a", "bfloat16")]
     backward = {
         k1.KERNEL.name: [b1[(c, "bfloat16")] for c in
                          ("csc", "tres", "res_csc", "gather_rows_bwd",
                           "src_gather", "dst_gather")],
         k2.KERNEL.name: [b2["bfloat16"]],
         k3.KERNEL.name: [],  # its backward is torch's compare and where
+        k4.name: [],
     }
+    # K4's other forms: K4b, f32, and segment_sum_by through perm
+    forms = {k4.name: [r4[key] for key in (("K4b", "bfloat16"), ("K4a", "float32"),
+                                           ("K4b", "float32"),
+                                           ("segment_sum_by", "bfloat16"))]}
     # launches: the count on the kernel's first serving path (sage for K1
     # and K2, mr for K3); every path's count is in launches_by_path
     first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",
-             k3.KERNEL.name: "serve_mr"}
+             k3.KERNEL.name: "serve_mr", k4.name: "serve_sage"}
     kernels = []
-    for k, r in ((k1.KERNEL, main_k1), (k2.KERNEL, main_k2), (k3.KERNEL, main_k3)):
+    for k, r in ((k1.KERNEL, main_k1), (k2.KERNEL, main_k2), (k3.KERNEL, main_k3),
+                 (k4, main_k4)):
         kernels.append({
             "name": k.name, "route": k.route, "source": k.source_rel,
             "replaces": k.replaces, "launches": paths[first[k.name]][k.name],
@@ -939,6 +1200,11 @@ def main() -> int:
                 {key: b[key] for key in ("case", "max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")}
                 for b in backward[k.name]
+            ],
+            "forms": [
+                {key: b[key] for key in ("case", "dtype", "shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for b in forms.get(k.name, [])
             ],
         })
     print(smi, flush=True)

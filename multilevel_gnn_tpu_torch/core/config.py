@@ -9,14 +9,75 @@ real bools (opt.py's ``type=bool`` CLI flags are truthy-string broken —
 documented quirk, not preserved).
 
 Port copy of multilevel_gnn_tpu/core/config.py: the same fields and
-defaults, so the shipped YAMLs load into either package.  PyYAML is
-imported inside from_yaml only, since a GPU host may not have it.
+defaults, so the shipped YAMLs load into either package.  A GPU host may
+have no PyYAML, so from_yaml reads the flat ``key: value`` files the
+configs are with ``read_flat_yaml``, which resolves scalars as PyYAML's
+safe loader does (YAML 1.1) and raises on anything nested.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+# PyYAML's implicit resolvers (YAML 1.1) for the scalars a config holds
+_BOOL = {"yes": True, "no": False, "true": True, "false": False, "on": True, "off": False}
+_INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"^[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+
+
+def _scalar(text: str):
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "\"'":
+        return t[1:-1]
+    if t in ("", "~", "null", "Null", "NULL"):
+        return None
+    if t.lower() in _BOOL and t in (t.lower(), t.capitalize(), t.upper()):
+        return _BOOL[t.lower()]
+    if _INT.match(t):
+        return int(t.replace("_", ""))
+    if _FLOAT.match(t) and t not in (".", "+.", "-."):
+        return float(t.replace("_", ""))
+    if t.lower() in (".inf", "+.inf", "-.inf"):
+        return float(t.replace(".", ""))
+    if t.lower() == ".nan":
+        return float("nan")
+    return t
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def read_flat_yaml(text: str) -> dict:
+    """A flat YAML mapping of scalars and one-line [a, b] lists."""
+    out = {}
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip() or line.strip() == "---":
+            continue
+        if line[0] in " \t-" or ":" not in line:
+            raise ValueError(f"line {n}: only flat 'key: value' lines are read: {raw!r}")
+        key, _, value = line.partition(":")
+        value = value.strip()
+        if value.startswith("[") and value.endswith("]"):
+            inner = value[1:-1].strip()
+            out[key.strip()] = [_scalar(v) for v in inner.split(",")] if inner else []
+        elif value.startswith(("{", "[", "&", "*", "|", ">", "!")):
+            raise ValueError(f"line {n}: unsupported YAML value {value!r}")
+        else:
+            out[key.strip()] = _scalar(value)
+    return out
 
 
 @dataclass
@@ -305,10 +366,8 @@ class Config:
 
     @staticmethod
     def from_yaml(path: str, **overrides) -> "Config":
-        import yaml
-
         with open(path) as f:
-            data = yaml.safe_load(f) or {}
+            data = read_flat_yaml(f.read())
         return Config.from_dict({**data, **overrides})
 
     @staticmethod

@@ -1,13 +1,17 @@
-"""GBM-scale synthetic flagship inputs (port of
-multilevel_gnn_tpu/data/synthetic.py: make_cohort_topology :157-196,
-make_gbm_scale_setup :199-281).
+"""Synthetic cohorts and GBM-scale flagship inputs (port of
+multilevel_gnn_tpu/data/synthetic.py: make_synthetic_tables :19-70,
+make_synthetic_cohort :73-87, write_reference_format :90-154,
+make_cohort_topology :157-196, make_gbm_scale_setup :199-281).
 
-Numpy only up to the tensors: with the same seed the edge arrays, context
-arrays and batch are bit-identical to the JAX package's.
+Numpy only up to the tensors: with the same seed the tables (the same
+np.random.RandomState draws in the same order), edge arrays, context arrays
+and batch are bit-identical to the JAX package's.
 """
 from __future__ import annotations
 
-from typing import Optional
+import os
+import pickle
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +20,113 @@ from multilevel_gnn_tpu_torch.core.batch import Batch, make_fold_context
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.core.device import resolve_device
 from multilevel_gnn_tpu_torch.core.graph import Graph
+from multilevel_gnn_tpu_torch.data.frame import Frame, KeggTable
+
+
+def make_synthetic_tables(
+    n_patients: int = 60,
+    n_pathways: int = 8,
+    genes_per_pathway: int = 12,
+    overlap: int = 3,
+    n_edges: int = 300,
+    seed: int = 0,
+):
+    """(omics {name: Frame}, clinical {field: {patient: value}}, KeggTable,
+    pathways, edges, edge_attrs): P pathways of genes_per_pathway genes
+    sharing ``overlap`` with the next, three omics with a survival-linked
+    signal in about 40% of the genes, a GRNBoost2-style edge list."""
+    rng = np.random.RandomState(seed)
+    n_genes = n_pathways * (genes_per_pathway - overlap) + overlap
+    entrez = np.arange(1001, 1001 + n_genes)
+    pathways = [f"hsa{100 + i}" for i in range(n_pathways)]
+    kp, ks, ke = [], [], []
+    for pi, p in enumerate(pathways):
+        start = pi * (genes_per_pathway - overlap)
+        for g in entrez[start : start + genes_per_pathway]:
+            kp.append(p)
+            ks.append(f"G{g}")
+            ke.append(int(g))
+    kegg = KeggTable(kp, ks, ke)
+
+    patients = [f"TCGA-{i:04d}" for i in range(n_patients)]
+    risk = rng.randn(n_patients)
+    surv = np.clip(30 + -10 * risk + rng.randn(n_patients) * 6, 1, 120)
+    state = (rng.rand(n_patients) < 0.6).astype(int)
+    age = rng.uniform(30, 85, n_patients).round(1)
+    clinical = {
+        "survive_time": dict(zip(patients, surv.tolist())),
+        "survive_state": dict(zip(patients, state.tolist())),
+        "age": dict(zip(patients, age.tolist())),
+    }
+    omics: Dict[str, Frame] = {}
+    informative = rng.rand(n_genes) < 0.4
+    for name, scale in [("mrna", 1.0), ("cnv", 0.5), ("methylation", 0.8)]:
+        base = rng.randn(n_patients, n_genes) * scale
+        base[:, informative] += np.outer(risk, rng.randn(informative.sum())) * 0.8
+        omics[name] = Frame(base, patients, [str(g) for g in entrez])
+
+    edges: Dict[int, List[Tuple[int, int]]] = {}
+    edge_attrs: Dict[int, List[float]] = {}
+    for _ in range(n_edges):
+        s, d = rng.choice(entrez, 2, replace=False)
+        edges.setdefault(int(s), []).append((int(s), int(d)))
+        edge_attrs.setdefault(int(s), []).append(float(rng.rand() * 0.5 + 0.01))
+    return omics, clinical, kegg, pathways, edges, edge_attrs
+
+
+def make_synthetic_cohort(cfg: Config, seed: int = 0, **kw):
+    """A Cohort of make_synthetic_tables(seed, **kw)."""
+    from multilevel_gnn_tpu_torch.data.cohort import Cohort
+
+    omics, clinical, kegg, pathways, edges, edge_attrs = make_synthetic_tables(
+        seed=seed, **kw
+    )
+    cfg = cfg.replace(pathway_num=len(pathways))
+    return Cohort(omics, clinical, kegg, pathways, edges, edge_attrs, cfg)
+
+
+def _write_csv(path: str, df: Frame) -> None:
+    """The table as pandas' to_csv writes it (an empty first header cell,
+    the row label first), floats with repr so they read back exactly."""
+    with open(path, "w") as f:
+        f.write(",".join([""] + df.columns) + "\n")
+        for label, row in zip(df.index, df.values.tolist()):
+            f.write(label + "," + ",".join(
+                "" if v != v else repr(v) for v in row) + "\n")
+
+
+def write_reference_format(
+    path: str, seed: int = 0, cancer_type: Optional[str] = None, **kw
+) -> None:
+    """Write make_synthetic_tables(seed, **kw) in the reference's file
+    layout: raw_{mrna,cnv,methylation}.csv, clinical.pkl (the dict form),
+    kegg.csv, pathways.txt, pathways.pkl and grn_edges.tsv (TF, target,
+    importance).  With cancer_type, the per-cohort files (omics, clinical,
+    edges) go under path/<cancer_type>/ and the shared ones stay in path,
+    the layout the train CLI's --data-dir resolves."""
+    omics, clinical, kegg, pathways, edges, edge_attrs = make_synthetic_tables(
+        seed=seed, **kw
+    )
+    own = os.path.join(path, cancer_type) if cancer_type else path
+    os.makedirs(own, exist_ok=True)
+    for name in ("mrna", "cnv", "methylation"):
+        _write_csv(os.path.join(own, f"raw_{name}.csv"), omics[name])
+    with open(os.path.join(own, "clinical.pkl"), "wb") as f:
+        pickle.dump(clinical, f)
+    with open(os.path.join(path, "kegg.csv"), "w") as f:
+        f.write("PathwayID,Symbol,Entrezid\n")
+        for p, s, e in zip(kegg.pathway, kegg.symbol, kegg.entrez.tolist()):
+            f.write(f"{p},{s},{e}\n")
+    with open(os.path.join(path, "pathways.txt"), "w") as f:
+        f.write("\n".join(pathways))
+    with open(os.path.join(path, "pathways.pkl"), "wb") as f:
+        pickle.dump(list(pathways), f)
+    id2sym = {int(e): s for s, e in zip(kegg.symbol, kegg.entrez.tolist())}
+    with open(os.path.join(own, "grn_edges.tsv"), "w") as f:
+        f.write("TF\ttarget\timportance\n")
+        for s, lst in edges.items():
+            for (a, b), w in zip(lst, edge_attrs[s]):
+                f.write(f"{id2sym[a]}\t{id2sym[b]}\t{w!r}\n")
 
 
 def make_cohort_topology(

@@ -15,7 +15,11 @@ K1 as the gather_rows backward.  K3 (segment max): widths on and off the
 vector path, rows that do not start on a 16-byte boundary, rows with more
 than 256 entries, empty rows and an empty plan, exact ties, and
 edge_segment_max's gradient with K3 against the same with the plain
-version.
+version.  K4 (sorted segment-sum): B = 1 and 3, the 2-D form, widths on
+and off the vector path (C = 64, 40, 130, 2048), empty segments, a hub
+segment, segment_sum_by through a non-identity perm with dropped rows, and
+an empty plan; held to 1e-5 x max(1, max|plain|) in both dtypes (both sum
+the same exact values in f32, in different orders).
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -254,3 +258,55 @@ def test_k3_empty_plan(dev):
         msg = torch.randn(0, 64, device=dev, dtype=dtype)
         out = k3.segment_max_csr(msg, plan)
         assert out.shape == (n, 64) and not bool(out.any())
+
+
+def _k4_case(seed, E, N, sort=True, hub=False, drop=False):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, N - 10, E)  # the last segments stay empty
+    if hub:
+        ids[: E // 3] = 5
+    if sort:
+        ids = np.sort(ids)
+    mask = rng.rand(E) > 0.2 if drop else None
+    if drop:
+        ids[rng.rand(E) < 0.1] = -1
+    return k1.SortedPlan.build(ids, N, mask=mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C", [(1, 64), (3, 64), (3, 40), (2, 130), (1, 2048)])
+def test_k4_sorted_matches_plain(dev, dtype, B, C):
+    plan = _k4_case(B * 7 + C, 3000, 700, hub=C == 40).to(dev)
+    g = torch.Generator(device=dev).manual_seed(C)
+    x = torch.randn(B, plan.n_ids, C, generator=g, device=dev).to(dtype)
+    out = k1.sorted_segment_sum(x, plan)
+    ref = k1.sorted_segment_sum_plain(x, plan)
+    TOL4 = 1e-5
+    for o, r in ((out, ref), (k1.sorted_segment_sum(x[0], plan),
+                              k1.sorted_segment_sum_plain(x[0], plan))):
+        torch.cuda.synchronize()
+        err = float((o - r).abs().max())
+        assert err <= TOL4 * max(1.0, float(r.abs().max())), err
+    assert float(out[:, -10:].abs().max()) == 0.0  # empty segments
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C", [(1, 64), (3, 24)])
+def test_k4_segment_sum_by_perm_matches_plain(dev, dtype, B, C):
+    plan = _k4_case(B + C, 2500, 400, sort=False, drop=True).to(dev)
+    assert plan.perm is not None and plan.n_kept < plan.n_ids
+    g = torch.Generator(device=dev).manual_seed(B)
+    x = torch.randn(B, plan.n_ids, C, generator=g, device=dev).to(dtype)
+    before = k1.SORTED_KERNEL.launches
+    out = k1.segment_sum_by(x, plan)
+    assert k1.SORTED_KERNEL.launches == before + 1
+    ref = k1.sorted_segment_sum_plain(x, plan, permuted=True)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+def test_k4_empty_plan(dev):
+    plan = k1.SortedPlan.build(np.full(10, -1), 6).to(dev)
+    x = torch.randn(2, 10, 16, device=dev)
+    out = k1.sorted_segment_sum(x, plan)
+    assert out.shape == (2, 6, 16) and float(out.abs().max()) == 0.0

@@ -1,8 +1,10 @@
 """Import hygiene and the device rule of the PyTorch port.
 
 - Every module of multilevel_gnn_tpu_torch, and chip_smoke.py's imports,
-  load in a fresh interpreter where ``jax`` and ``multilevel_gnn_tpu`` are
-  blocked (sys.modules entries set to None, so any import of them raises).
+  load in a fresh interpreter where ``jax``, ``multilevel_gnn_tpu``,
+  ``pandas``, ``sklearn`` and ``yaml`` are blocked (sys.modules entries set
+  to None, so any import of them raises); with them blocked, the shipped
+  configs still load.
 - An entry point called without a device on a machine without CUDA raises
   instead of running on the CPU (torch.cuda.is_available is patched to
   False, so the check holds on any machine).
@@ -21,7 +23,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 _BLOCKED = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "multilevel_gnn_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "multilevel_gnn_tpu", "pandas",
+             "sklearn", "yaml"):
     sys.modules[name] = None
 import importlib, pkgutil
 import multilevel_gnn_tpu_torch as pkg
@@ -29,9 +32,13 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+from multilevel_gnn_tpu_torch.core.config import Config
+for c in ("gbm", "kirc", "lgg"):
+    Config.from_yaml(f"configs/{c}.yaml")
 from multilevel_gnn_tpu_torch.ops.kernels import build
 assert all(k._fn is None for k in build.REGISTRY.values()), "built at import"
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "multilevel_gnn_tpu")
+leaked = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "flax", "multilevel_gnn_tpu", "pandas", "sklearn")
           and sys.modules[m] is not None]
 assert not leaked, leaked
 print(len(names), "modules")
@@ -46,7 +53,7 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[0]) >= 20
+    assert int(r.stdout.split()[0]) >= 26
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -67,7 +74,8 @@ def test_kernel_sources_shipped():
     from multilevel_gnn_tpu_torch.ops.kernels import segment_max, segment_sum, windowed  # noqa
 
     assert set(build.REGISTRY) == {
-        "segment_spmm_csr", "windowed_tile_spmm", "segment_max_csr"}
+        "segment_spmm_csr", "windowed_tile_spmm", "segment_max_csr",
+        "sorted_segment_sum"}
     for k in build.REGISTRY.values():
         assert k.source.is_file(), k.source
         text = k.source.read_text()

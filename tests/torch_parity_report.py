@@ -1,6 +1,6 @@
 """Print the PyTorch port's measured parity errors against the JAX package.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_report.py
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [--protocol-only]
 
 Runs the same inputs as the parity tests in tests/test_torch_*.py (CPU,
 plain versions on the port side, Pallas interpret mode on the JAX side)
@@ -30,6 +30,9 @@ import test_torch_segment_sum as T1  # noqa: E402
 import test_torch_slice as TS  # noqa: E402
 import test_torch_train as TT  # noqa: E402
 import test_torch_windowed as T2  # noqa: E402
+import test_torch_cohort as TC  # noqa: E402
+import test_torch_experiment as TE  # noqa: E402
+import test_torch_sorted_segment as T4  # noqa: E402
 
 
 def _emit(**kw):
@@ -223,5 +226,73 @@ def max_aggregation(fold):
               param_max_abs_err_clear_grad=dc, param_bound_clear_grad=1e-5)
 
 
+def protocol(tmp):
+    """K4's plain version against JAX; the cohort and fold derivation per
+    shipped config; run_experiment (1 x 5 folds x 5 epochs) against JAX."""
+    import jax.numpy as jnp
+    import torch
+    from multilevel_gnn_tpu.ops.pallas import segment_sum as jseg
+    from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as pseg
+    from multilevel_gnn_tpu_torch.data.synthetic import write_reference_format
+    from multilevel_gnn_tpu.train import driver as jdriver
+    from multilevel_gnn_tpu_torch.train import driver as pdriver
+    from multilevel_gnn_tpu_torch.train.driver import stratified_kfold
+
+    rng = np.random.RandomState(0)
+    for E, N, C, B in [(700, 300, 64, 1), (1000, 150, 96, 3), (50, 700, 130, 2)]:
+        ids = rng.randint(-1, N, size=E)
+        seg, plan = jseg.SortedSegments.build(ids, N), pseg.SortedPlan.build(ids, N)
+        row = {}
+        for dt in ("float32", "bfloat16"):
+            t, j = T4._data(rng, (B, E, C), dt)
+            want = np.asarray(jseg.segment_sum_by(j, seg, interpret=True))
+            row[dt] = _err(pseg.segment_sum_by(t, plan).numpy(), want)
+            row[dt + "_2d"] = _err(pseg.segment_sum_by(t[0], plan).numpy(),
+                                   np.asarray(jseg.segment_sum_by(j[0], seg, interpret=True)))
+            row[dt + "_ref_max"] = float(np.abs(want).max())
+        _emit(module=f"K4 segment_sum_by (E,N,C,B)={(E, N, C, B)}", **row)
+    d = os.path.join(tmp, "ref")
+    write_reference_format(d, seed=5, n_patients=60, n_pathways=6)
+    for name in ("gbm", "kirc", "lgg"):
+        jc, pc = TC._load_both(d, name)
+        labels = pc.labels()
+        tune, _ = stratified_kfold(labels, 5, pc.cfg.split_shaffle, pc.cfg.split_seed)[1]
+        tr = tune[stratified_kfold(labels[tune], 5, pc.cfg.split_shaffle,
+                                   pc.cfg.split_seed)[0][0]]
+        jf, pf = jc.fold(tr, 1), pc.fold(tr, 1, device="cpu")
+        _emit(module=f"cohort + fold 1, {name}", features_err=_err(pc.X, jc.X),
+              mi_err=_err(pf.mutual_info, jf.mutual_info),
+              pca_seed_err=_err(pf.pca_seed, jf.pca_seed),
+              mask_equal=bool((pf.info_mask == jf.info_mask).all()),
+              mask_on=float(pf.info_mask.mean()),
+              reorder_equal=bool(np.array_equal(pf.reorder_idxs, jf.reorder_idxs)),
+              edges_equal=bool(np.array_equal(pf.ctx.graph.senders.numpy(),
+                                              np.asarray(jf.ctx.graph.senders))
+                               and np.array_equal(pf.ctx.graph.receivers.numpy(),
+                                                  np.asarray(jf.ctx.graph.receivers))),
+              real_edges=pf.edge_count)
+    setup = TE.build_setup(os.path.join(tmp, "exp"))
+    mp = pytest.MonkeyPatch()
+    try:
+        carrier = TE.InitCarrier(mp)
+        jf = TE._spy_results(mp, jdriver)
+        pf = TE._spy_results(mp, pdriver)
+        jout = jdriver.run_experiment(setup["jcohort"].cfg, setup["jcohort"])
+        pout = pdriver.run_experiment(setup["cfg"], setup["cohort"], device="cpu")
+        assert not carrier.params
+    finally:
+        mp.undo()
+    err = max(_err(getattr(a, k)[5], getattr(b, k)[5]) for a, b in zip(pf, jf)
+              for k in ("epoch_pred", "epoch_pred_by_loss", "epoch_pred_by_epoch"))
+    _emit(module="run_experiment 1 x 5 folds x 5 epochs, f32", fold_test_score_err=err,
+          pooled_auc_port=pout["auc"][5], pooled_auc_jax=jout["auc"][5],
+          pooled_acc_port=pout["acc"][5], pooled_acc_jax=jout["acc"][5])
+
+
 if __name__ == "__main__":
-    main()
+    import tempfile
+
+    if "--protocol-only" not in sys.argv:
+        main()
+    with tempfile.TemporaryDirectory() as tmp:
+        protocol(tmp)
