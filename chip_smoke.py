@@ -13,8 +13,13 @@ each:
   setup    GBM-scale fold: N = 15,405 node slots, E ~ 154k edges incl. self
            loops, cohort topology with the windowed plan, B = 32, bf16 trunk
   k1 / k2  each kernel at the main path's shapes, bf16 and f32, against its
-           plain version (max abs error, stated tolerance, median ms of the
-           kernel, the plain version and the torch.sparse.mm library call)
+           plain version (max abs error, stated tolerance; device ms per
+           call of the kernel, the plain version and the torch.sparse.mm
+           library call, from the profiler, and the kernel's CUDA-event ms
+           around one call, which adds the host's launch time):
+           K1 over all edges (the composed forward) and over the windowed
+           residual, with the rows it visits (warp items, long-row
+           blocks); K2's forward side, with its block and entry counts
   serve    the main path: predict_patients over 4 batches (123 patients, the
            last batch padded), launch counts zeroed just before, read just
            after; ms per batch
@@ -22,7 +27,8 @@ each:
            on the card (bf16 and f32 trunks; probabilities and the pathway
            image), and a small fold on the card against the same fold on
            the CPU
-  profile  device time by kernel over full-batch eval steps;
+  profile  device time by kernel over full-batch eval steps, windowed and
+           composed (profile_composed), with K1's and K2's ms per batch;
            serve_paths: windowed against composed (K1 on all edges) per
            batch, each path's launch counts, and the share of the windowed
            eval_step with no kernel running
@@ -40,8 +46,10 @@ each:
            epoch, launches per step, losses, parameter movement, valid and
            test AUC; then epoch 1 again from the same seeds, its first
            steps' losses against the first run's
-  profile_train  device time by kernel per train step, and the share of
-           the step with no kernel running
+  profile_train  device time by kernel per train step (K1's and K2's ms
+           among them), and the share of the step with no kernel running;
+           then the same on the composed path (profile_train_composed: K1
+           5 launches a step, K2 0)
   k3       K3 (segment max) at the max-aggregation convs' shapes, F = B*C =
            2048 and B*32 = 1024, bf16 and f32, against its plain version
            (max abs error must be 0), with its ms, plain ms, bound and the
@@ -125,6 +133,14 @@ from multilevel_gnn_tpu_torch.train.step import (
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
+# device-side symbols of each hand-written kernel, to read its rows in a
+# profile (K2's launch is its entry pre-pass and its tile kernel)
+SYMBOLS = {
+    "segment_spmm_csr": ("segment_spmm_csr_kernel",),
+    "windowed_tile_spmm": ("win_kernel", "entry_values"),
+    "segment_max_csr": ("segment_max_csr_kernel",),
+    "sorted_segment_sum": ("sorted_segment_sum_kernel",),
+}
 
 N_PATIENTS = 123  # 4 batches of 32, the last one padded
 TOL_BF16 = 2e-3   # per kernel, times max(1, max|plain|): bf16 A entries may
@@ -159,8 +175,31 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3) -> float:
+    """Device time of one fn() call in ms: the time of the kernels it
+    launches, from the profiler's device rows, per call over iters calls;
+    the median of `windows` profiled windows, since a window's record can
+    come back short.  Unlike events around a call, it leaves out the
+    host's launch time, which sets the events' reading where the kernels
+    are short."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    per_window = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per_window.append(sum(r[1] for r in kernel_rows(prof, iters)))
+    return float(np.median(per_window))
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, CUDA events around each call."""
+    """Median time of fn() in ms, CUDA events around each call (the host's
+    launch time included where the device waits for it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -260,9 +299,11 @@ def time_k1(name, plan, x, w, acc, gen, library=None):
                                plan.n_rows, x.shape[0], x)
     return dict(
         case=name, dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=x.shape[1],
+        warp_rows=plan.n_busy if acc else int(plan.items.shape[0]),
+        long_rows=int(plan.long_rows.shape[0]),
         max_abs_err=e, ref_max=m, limit=limit,
-        ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-        library_ms=cuda_ms(library) if library is not None else None,
+        ms=device_ms(kern), event_ms=cuda_ms(kern), plain_ms=device_ms(plain),
+        library_ms=device_ms(library) if library is not None else None,
         bound_ms=bms, bound_by=by, bytes=b, flops=fl,
     )
 
@@ -284,16 +325,18 @@ def time_k2(name, plan, x, w, transpose):
     limit = check(f"k2 {name} {dt}", e, m, tol)
     dsize = 2 if dt == torch.bfloat16 else 4
     b, fl = k2_bytes_flops(plan, side, x.shape[1], dsize)
-    bms, by = bound(b, fl, "bf16_tensor" if dsize == 2 else "f32")
+    # the kernel adds each entry's row with f32 FMAs on the CUDA cores
+    bms, by = bound(b, fl, "f32")
     vals = torch.zeros(side.n_entries, device="cuda").index_add_(
         0, side.edge_ent.long(), w.index_select(0, side.edge_eid.long())
     )
     lib = library_spmm(side.ent_dst_orig.long(), side.ent_src_orig.long(),
                        vals, plan.num_nodes, plan.num_nodes, x)
     return dict(
-        case=name, dtype=str(dt).split(".")[-1], F=x.shape[1], max_abs_err=e,
-        ref_max=m, limit=limit, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-        library_ms=cuda_ms(lib) if lib is not None else None,
+        case=name, dtype=str(dt).split(".")[-1], F=x.shape[1],
+        blocks=side.n_blocks, entries=side.n_entries, max_abs_err=e,
+        ref_max=m, limit=limit, ms=device_ms(kern), event_ms=cuda_ms(kern),
+        plain_ms=device_ms(plain), library_ms=device_ms(lib) if lib is not None else None,
         bound_ms=bms, bound_by=by, bytes=b, flops=fl,
     )
 
@@ -353,15 +396,16 @@ def time_k3(graph, msg):
     try:
         library()
         torch.cuda.synchronize()
-        lib_ms = cuda_ms(library)
+        lib_ms = device_ms(library)
     except (RuntimeError, NotImplementedError):
         lib_ms = None
     del rows, idx, dst
     return dict(
         case=f"csr F={F}", dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=F,
         max_abs_err=e, ref_max=m, limit=0.0,
-        ms=cuda_ms(lambda: k3.segment_max_csr(msg, plan)),
-        plain_ms=cuda_ms(lambda: k3.segment_max_csr_plain(msg, plan)),
+        ms=device_ms(lambda: k3.segment_max_csr(msg, plan)),
+        event_ms=cuda_ms(lambda: k3.segment_max_csr(msg, plan)),
+        plain_ms=device_ms(lambda: k3.segment_max_csr_plain(msg, plan)),
         library_ms=lib_ms, bound_ms=bms, bound_by=by, bytes=b,
         flops=float(plan.nnz) * F,
     )
@@ -441,6 +485,12 @@ def zero_launches():
         k.launches = 0
 
 
+def port_kernel_ms(rows):
+    """Device ms of each hand-written kernel among profiler rows."""
+    return {k: sum(t for n, t, _ in rows if any(sym in n for sym in syms))
+            for k, syms in SYMBOLS.items()}
+
+
 def kernel_rows(prof, n):
     """(name, device ms, calls) per kernel and per one of the n profiled
     iterations, largest first."""
@@ -460,16 +510,14 @@ def kernel_rows(prof, n):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profile_serve(model, graph, ctx, batch):
+def profile_serve(model, ctx, batch):
     """profile_eval on one full batch, then the windowed path against the
     composed one (K1 over all edges) end to end, in turns, with each
     path's kernel launches counted; serve_paths' gap share is the part of
     the windowed eval_step (CUDA events) with no kernel running."""
+    composed = composed_ctx(ctx)
     busy = profile_eval(model, ctx, batch, "profile")
-
-    composed = dataclasses.replace(
-        ctx, graph=dataclasses.replace(graph, winplan=None)
-    )
+    profile_eval(model, composed, batch, "profile_composed")
 
     def step_ms(c):
         s = torch.cuda.Event(enable_timing=True)
@@ -499,6 +547,12 @@ def profile_serve(model, graph, ctx, batch):
             or launches["windowed"] != {k1.KERNEL.name: 2 * n,
                                         k2.KERNEL.name: 2 * n, **k3_none}):
         raise AssertionError(f"serve_paths launch counts {launches}")
+
+
+def composed_ctx(ctx):
+    """The fold's context without its window plan: K1 over all edges."""
+    return dataclasses.replace(
+        ctx, graph=dataclasses.replace(ctx.graph, winplan=None))
 
 
 def patients(n_nodes, n=N_PATIENTS, seed=1):
@@ -691,6 +745,7 @@ def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3,
           "kernels_per_step": sum(r[2] for r in rows),
           "step_ms": ms, "step_ms_median": step_ms,
           "gap_share": 1 - busy / step_ms,
+          "port_kernel_ms_per_step": port_kernel_ms(rows),
           "launches_per_step": per_step, "launches_per_step_expected": want_per_step,
           "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:16]],
           "ok": ok})
@@ -725,6 +780,7 @@ def profile_eval(model, ctx, batch, phase, n_timed=10, n_prof=3):
     busy = sum(r[1] for r in rows)
     emit({"phase": phase, "kernel_ms_per_batch": busy,
           "kernels_per_batch": sum(r[2] for r in rows),
+          "port_kernel_ms_per_batch": port_kernel_ms(rows),
           "eval_step_ms_median": step_ms, "gap_share": 1 - busy / step_ms,
           "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:14]]})
     return busy
@@ -880,13 +936,14 @@ def time_k4(case, data, plan, permuted):
         lib = library()
         torch.cuda.synchronize()
         lib_err = float((lib.float() - ref).abs().max())
-        lib_ms = cuda_ms(library)
+        lib_ms = device_ms(library)
     except (RuntimeError, NotImplementedError, TypeError):
         lib_err, lib_ms = None, None
     return dict(
         case=case, dtype=str(dt).split(".")[-1], shape=list(data.shape),
         n_kept=plan.n_kept, segments=plan.num_segments, max_abs_err=e, ref_max=m,
-        limit=limit, ms=cuda_ms(kern), plain_ms=cuda_ms(plain), library_ms=lib_ms,
+        limit=limit, ms=device_ms(kern), event_ms=cuda_ms(kern), plain_ms=device_ms(plain),
+        library_ms=lib_ms,
         library_max_abs_err=lib_err, bound_ms=bms, bound_by=by, bytes=b,
         flops=float(B * plan.n_kept * C),
     )
@@ -1122,7 +1179,7 @@ def main() -> int:
 
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
     slice_checks(model, graph, ctx, batch)
-    profile_serve(model, graph, ctx, batch)
+    profile_serve(model, ctx, batch)
 
     # ---- the training path
     b1, b2 = kernel_bwd(graph, ctx, w, F, cfg.batch_size * cfg.final_channels, gen)
@@ -1142,6 +1199,10 @@ def main() -> int:
     tr = train_phase(tcfg, ctx, init_state)
     train_per_step = profile_train(tr["model"], ctx, tr["batch"], tr["cw"],
                                    tr["per_step"])
+    # the composed path: K1 over csr (2 layers), csc (2) and the PCA gather
+    profile_train(tr["model"], composed_ctx(ctx), tr["batch"], tr["cw"],
+                  {k1.KERNEL.name: 5, k2.KERNEL.name: 0, k3.KERNEL.name: 0,
+                   k4.name: 0}, phase="profile_train_composed")
     del tr
     torch.cuda.empty_cache()
 
@@ -1174,10 +1235,17 @@ def main() -> int:
         k3.KERNEL.name: [],  # its backward is torch's compare and where
         k4.name: [],
     }
-    # K4's other forms: K4b, f32, and segment_sum_by through perm
-    forms = {k4.name: [r4[key] for key in (("K4b", "bfloat16"), ("K4a", "float32"),
-                                           ("K4b", "float32"),
-                                           ("segment_sum_by", "bfloat16"))]}
+    # other forms: K1 over all edges (the composed forward) and the f32
+    # forms; K2's f32 sides; K4b, f32, and segment_sum_by through perm
+    forms = {
+        k1.KERNEL.name: [r1[("all_edges", "bfloat16")], r1[("all_edges", "float32")],
+                         r1[("residual", "float32")]]
+        + [b1[(c, "float32")] for c in ("csc", "tres", "res_csc", "gather_rows_bwd",
+                                        "src_gather", "dst_gather")],
+        k2.KERNEL.name: [r2["float32"], b2["float32"]],
+        k4.name: [r4[key] for key in (("K4b", "bfloat16"), ("K4a", "float32"),
+                                      ("K4b", "float32"),
+                                      ("segment_sum_by", "bfloat16"))]}
     # launches: the count on the kernel's first serving path (sage for K1
     # and K2, mr for K3); every path's count is in launches_by_path
     first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",
@@ -1188,7 +1256,7 @@ def main() -> int:
         kernels.append({
             "name": k.name, "route": k.route, "source": k.source_rel,
             "replaces": k.replaces, "launches": paths[first[k.name]][k.name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "train_launches_per_step": per_step[
@@ -1197,13 +1265,14 @@ def main() -> int:
             "train_launches_per_step_by_path": {
                 p: c[k.name] for p, c in per_step.items()},
             "backward": [
-                {key: b[key] for key in ("case", "max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "library_ms")}
+                {key: b[key] for key in ("case", "max_abs_err", "ms", "event_ms",
+                                         "plain_ms", "bound_ms", "bound_by", "library_ms")}
                 for b in backward[k.name]
             ],
             "forms": [
-                {key: b[key] for key in ("case", "dtype", "shape", "max_abs_err", "ms",
-                                         "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                {key: b.get(key) for key in ("case", "dtype", "shape", "F", "max_abs_err",
+                                             "ms", "event_ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}
                 for b in forms.get(k.name, [])
             ],
         })

@@ -6,14 +6,18 @@ Reads what ``load_cohort_from_files`` (loaders.py:171-240) reads, with the
 
 - omics CSVs (patients x entrez or symbol columns; the first column holds
   the patient ids; an empty field or one of pandas' NA strings is NaN), rows
-  more than ``drop_na_percent`` NaN dropped;
+  more than ``drop_na_percent`` NaN dropped.  Values are read as
+  pandas.read_csv's default converter reads them, bit for bit
+  (``native.parse_csv_floats``), since that converter is not correctly
+  rounded and the JAX package reads these files with it;
 - the KEGG table CSV (columns PathwayID, Symbol, Entrezid);
 - the ordered pathway list (one id per line, or a pickled list);
 - the clinical pickle in its dict-of-mappings form {survive_time,
   survive_state, age} -> {patient: value}.  A pickled pandas DataFrame
   unpickles only where pandas is installed: that branch imports it inside
   and raises, naming the dict form, where it is not;
-- the GRNBoost2 edge list (TF, target, importance).
+- the GRNBoost2 edge list (TF, target, importance), correctly rounded as
+  the JAX package's C++ parser (strtod) reads it.
 
 ``edge_type`` ppi and merge, ``pretain_only_pathway_edge`` and .xlsx
 pathway lists raise NotImplementedError.
@@ -31,30 +35,34 @@ from multilevel_gnn_tpu_torch.data import native
 from multilevel_gnn_tpu_torch.data.cohort import Cohort
 from multilevel_gnn_tpu_torch.data.frame import Frame, KeggTable, drop_na_line
 
-# pandas.read_csv's default NA strings
-_NA = {
-    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
-    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
-    "nan", "null",
-}
-
-
-def _float(s: str) -> float:
-    return np.nan if s in _NA else float(s)
-
-
 def read_omics_csv(path: str) -> Frame:
-    """A patients x columns CSV whose first column is the row label."""
+    """A patients x columns CSV whose first column is the row label, read as
+    pandas.read_csv(path, index_col=0) reads it: a column of integers (and
+    NA strings) exactly, as pandas' int64 column, every other value by
+    pandas' default float converter (integers past int64 included)."""
     with open(path, newline="") as f:
         reader = csv.reader(f)
         header = next(reader)
-        index, rows = [], []
+        n_cols = len(header) - 1
+        index, rows, kinds, int_rows = [], [], [], []
         for rec in reader:
             if not rec:
                 continue
+            if len(rec) != n_cols + 1:
+                raise ValueError(f"{path}: row {rec[0]!r} has {len(rec) - 1} "
+                                 f"values, the header {n_cols}")
             index.append(rec[0])
-            rows.append([_float(v) for v in rec[1:]])
-    values = np.array(rows, np.float64).reshape(len(rows), len(header) - 1)
+            values, kind, ints = native.parse_csv_floats(rec[1:])
+            rows.append(values)
+            kinds.append(kind)
+            int_rows.append(ints)
+    if not rows:
+        return Frame(np.zeros((0, n_cols)), index, header[1:])
+    values, kind = np.stack(rows), np.stack(kinds)
+    int_cols = (kind != 0).all(axis=0)
+    if int_cols.any():
+        ints = np.stack(int_rows)[:, int_cols].astype(np.float64)
+        values[:, int_cols] = np.where(kind[:, int_cols] == 1, ints, np.nan)
     return Frame(values, index, header[1:])
 
 

@@ -11,9 +11,14 @@ into ``_build/`` beside this file (listed in .gitignore).  A failed build
 raises.
 
 ``parse_edge_tsv`` reads a (src, dst, value) edge list as the JAX package's
-C++ parser does (csrc/edge_parser.cc): header line skipped, tab-separated
-unless the header has no tab and a comma, a value that does not parse reads
-0.0.
+C++ parser does (csrc/edge_parser.cc, strtod): header line skipped,
+tab-separated unless the header has no tab and a comma, a value that does
+not parse reads 0.0.
+
+``parse_csv_floats`` reads numeric CSV fields as pandas.read_csv's default
+float converter does (``csrc/csv_float.cc``: pandas' precise_xstrtod, not
+correctly rounded), with pandas' NA strings as NaN, for the omics CSVs
+that the JAX package reads with pandas.
 """
 from __future__ import annotations
 
@@ -29,10 +34,8 @@ from typing import List, Tuple
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
-_SOURCE = _DIR / "csrc" / "mi_knn.cc"
 _BUILD_DIR = _DIR / "_build"
-_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
-_LIB = None
+_LIBS = {}
 _LOCK = threading.Lock()
 
 
@@ -41,36 +44,64 @@ def _cxx() -> str:
         path = shutil.which(cand) if cand else None
         if path:
             return path
-    raise RuntimeError("no C++ compiler found (set CXX) to build data/csrc/mi_knn.cc")
+    raise RuntimeError("no C++ compiler found (set CXX) to build data/csrc/")
 
 
-def _lib():
-    """The MI library, built at first use (keyed by a hash of the source and
-    flags); thread-safe, so a prefetching thread may be the first caller."""
-    global _LIB
+def _build(name: str, flags) -> ctypes.CDLL:
+    """csrc/<name>.cc as a shared library, built at first use (keyed by a
+    hash of the source and flags); thread-safe, so a prefetching thread may
+    be the first caller."""
     with _LOCK:
-        if _LIB is None:
-            h = hashlib.sha256(_SOURCE.read_bytes())
-            h.update(" ".join(_FLAGS).encode())
-            so = _BUILD_DIR / f"mi_knn-{h.hexdigest()[:16]}.so"
+        if name not in _LIBS:
+            source = _DIR / "csrc" / f"{name}.cc"
+            h = hashlib.sha256(source.read_bytes())
+            h.update(" ".join(flags).encode())
+            so = _BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
             if not so.exists():
                 _BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_suffix(f".{os.getpid()}.tmp")
                 r = subprocess.run(
-                    [_cxx(), *_FLAGS, "-o", str(tmp), str(_SOURCE)],
+                    [_cxx(), *flags, "-o", str(tmp), str(source)],
                     capture_output=True, text=True,
                 )
                 if r.returncode != 0:
-                    raise RuntimeError(f"building {_SOURCE.name} failed:\n{r.stderr}")
+                    raise RuntimeError(f"building {source.name} failed:\n{r.stderr}")
                 os.replace(tmp, so)
-            lib = ctypes.CDLL(str(so))
-            P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
-            lib.mi_cd_batch.argtypes = [P, L, L, P, I, I, P, P, I]
-            lib.mi_cd_batch.restype = None
-            lib.mi_cc_batch.argtypes = [P, L, L, P, I, P, P, I]
-            lib.mi_cc_batch.restype = None
-            _LIB = lib
-    return _LIB
+            _LIBS[name] = ctypes.CDLL(str(so))
+    return _LIBS[name]
+
+
+def _lib():
+    """The MI library (csrc/mi_knn.cc)."""
+    lib = _build("mi_knn", ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread"))
+    P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+    lib.mi_cd_batch.argtypes = [P, L, L, P, I, I, P, P, I]
+    lib.mi_cd_batch.restype = None
+    lib.mi_cc_batch.argtypes = [P, L, L, P, I, P, P, I]
+    lib.mi_cc_batch.restype = None
+    return lib
+
+
+def parse_csv_floats(fields) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(values float64, kind uint8, ints int64) of CSV fields (strings) as
+    pandas' default float converter reads them: NA strings give NaN.  kind
+    is 0 for a float, 1 for an integer within int64 (ints holds it), 2 for
+    an NA string: pandas reads a column of integers and NA strings exactly,
+    as int64.  A field that does not parse raises ValueError."""
+    lib = _build("csv_float", ("-O2", "-fPIC", "-std=c++17", "-shared",
+                               "-ffp-contract=off"))
+    fn = lib.parse_csv_floats
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_long] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_long
+    n = len(fields)
+    buf = "\0".join(fields).encode() + b"\0"
+    values = np.empty(n, np.float64)
+    kind = np.empty(n, np.uint8)
+    ints = np.zeros(n, np.int64)
+    bad = fn(buf, n, _ptr(values), _ptr(kind), _ptr(ints))
+    if bad >= 0:
+        raise ValueError(f"could not convert CSV field to float: {fields[bad]!r}")
+    return values, kind, ints
 
 
 def _scale_std(a: np.ndarray) -> np.ndarray:

@@ -1,81 +1,101 @@
-// windowed_tile_spmm: block-sparse tile SpMM over a locality-blocked edge
-// plan, on tensor cores.
+// windowed_tile_spmm: SpMM over a locality-blocked edge plan, accumulated
+// sparsely from shared memory.
 //
-//   out[row_of[p], :] = sum_{in-window edges e with dst(e) = p}
-//                           w[eid(e)] * x[row_of[src(e)], :]
+//   out[row_of[p], :] = sum_{in-window entries (p, q)} a(p, q) * x[row_of[q], :]
 //
-// in the plan's (possibly permuted) node order p, with row_of mapping a
-// permuted row back to its original row (identity when null).
+// in the plan's (possibly permuted) node order, with row_of mapping a
+// permuted row back to its original row (identity when null) and a(p, q)
+// the value of the distinct (dst, src) entry: the f32 sum of its edges'
+// weights in plan order.  With bf16 x each weight is first rounded to bf16
+// and the sum is rounded to bf16 again, as the TPU kernel's bf16 weighted
+// one-hot and its bf16 cast of the adjacency block do
+// (multilevel_gnn_tpu/ops/pallas/windowed.py:523-533, :561).
 //
 // Replaces multilevel_gnn_tpu/ops/pallas/windowed.py:574 windowed_exec
-// (forward side), together with the two permute_rows gathers around it
+// (either side), together with the two permute_rows gathers around it
 // (windowed.py:720-730): the row map is applied inside the loads and
-// stores.  The TPU kernel accumulates a (128 x 1024) f32 adjacency block
-// per destination tile in VMEM, then multiplies it by the whole source
-// window.  That block is 512 KB, more than a Hopper block's 227 KB of
-// shared memory, so this kernel walks the window in 128-row source
-// sub-blocks, and only the non-empty ones, which the plan lists per tile.
+// stores.
 //
-// Per (128-row destination tile, 128-feature slice) block, per non-empty
-// sub-block:
-//   1. X sub-block (128 source rows x 128 features) -> shared memory;
-//   2. A sub-tile (128 x 128) built in shared memory from the plan's
-//      distinct (dst, src) entries: one thread sums each entry's edge
-//      weights in plan order (duplicates summed in a fixed order, no
-//      atomics), then writes it;
-//   3. bf16: A (rounded to bf16) @ X on tensor cores through WMMA
-//      (mma.sync, bf16 in, f32 accumulate).  f32: CUDA-core FMA, 8x8
-//      outputs per thread, for full f32 accuracy.
-//   4. the entries just written are reset to 0 so A stays zero between
-//      sub-blocks without clearing the whole tile.
-// The f32 results are staged through shared memory and stored once, to
-// the original row order.  Tiles without in-window edges store zeros, so
-// every output row is written.
+// Why no dense tile.  The TPU kernel builds a dense (128 x 1024) adjacency
+// block and multiplies it on the MXU, its only fast path.  At GBM scale the
+// plan holds 132,754 entries over 502 non-empty 128 x 128 sub-blocks: 1.6%
+// density, so a dense product does 62x the needed arithmetic.  On Hopper
+// the work needed is small (2 flops per entry and feature, 0.54 GFLOP at
+// F = 2048, 8 us on the CUDA cores at 67 TFLOP/s) and the bound is the
+// bytes: each source row read once and each output row written once.  So
+// the kernel adds each entry's row straight from shared memory.
 //
-// Bound: the tensor-core work is 2 * 128 * 128 * F flops per non-empty
-// sub-block; the memory traffic is one X sub-block read per sub-block and
-// feature slice plus one output write.  Which one bounds depends on the
-// number of non-empty sub-blocks, which the plan reports.
-//
-// Shared memory: bf16 68 KB, f32 132 KB per block; both above the 48 KB
-// default, so the launcher opts in with cudaFuncSetAttribute.
+// Design, per (128-row destination tile, feature slice) block; blockIdx.x
+// is the tile, so the blocks of one feature slice run together and its X
+// slice (N x FT) stays in L2:
+//   0. a pre-pass (entry_values) writes each entry's (source column,
+//      value) once per call, deterministically, instead of every block
+//      summing edge weights through dependent loads;
+//   1. the tile's sub-block chunks (a 128-row source sub-block and at most
+//      ENT_CAP of its entries, split at destination-row boundaries) stream
+//      through a two-stage ring in shared memory, filled with cp.async
+//      16-byte copies that follow row_of, so the next chunk's X rows,
+//      per-row entry pointers and entries load while this one is summed;
+//   2. warp w of 16 owns destination rows 8w .. 8w+7 and lane l features
+//      FT/32 * l ..; the 8 x FT/32 f32 sums stay in registers across
+//      chunks, indexed statically (the row loop is unrolled);
+//   3. each entry adds val * Xs[src, features] from shared memory.  In bf16
+//      mode val and x are bf16 values, so every product is exact in f32,
+//      and the sum order is fixed (chunk order, then entry order):
+//      deterministic;
+//   4. one store per block from registers: every output row of the tile,
+//      zeros where it has no in-window edges, in the original row order.
+// FT is 128 features for bf16 and 64 for f32: a 32 KB X sub-block either
+// way.  Shared memory: 2 stages x 41.5 KB, so two blocks (32 warps) fit on
+// an SM.  Measured on an H100 at GBM scale (bf16, F = 2048), the stages
+// and stores alone take 0.085 ms against a 0.057 ms bound (the f32 output
+// write is two thirds of the bytes); the sums from shared memory add about
+// 0.04 ms on top, latency of the dependent shared loads that the 32 warps
+// do not hide fully.  16 warps of 8 rows took 0.127 ms where 8 warps of 16
+// rows took 0.158 (probes/variants.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
+constexpr int TN = 128;        // destination rows per tile
+constexpr int SB = 128;        // source rows per sub-block
+constexpr int THREADS = 512;   // 16 warps
+constexpr int RPW = TN / 16;   // destination rows per warp
+constexpr int RP = 132;        // per-chunk row pointers (129 used), 16 B rows
+constexpr int ENT_CAP = 1024;  // entries per chunk (the host plan's limit)
+constexpr int STAGES = 2;
 
-constexpr int TN = 128;       // destination rows per tile
-constexpr int SB = 128;       // source rows per sub-block
-constexpr int FT = 128;       // features per block
-constexpr int THREADS = 256;  // 8 warps
+template <typename T>
+struct Slice;
+template <>
+struct Slice<__nv_bfloat16> {
+  static constexpr int FT = 128;
+};
+template <>
+struct Slice<float> {
+  static constexpr int FT = 64;
+};
 
-// bf16 layout: row strides padded by 8 elements (16 B) against bank
-// conflicts; every WMMA tile pointer stays 32-byte aligned.
-constexpr int LDA16 = SB + 8;
-constexpr int LDX16 = FT + 8;
-constexpr int LDO = FT + 4;  // f32 staging of the output tile
-constexpr size_t SMEM_BF16_IN = (size_t)(TN * LDA16 + SB * LDX16) * 2;
-constexpr size_t SMEM_BF16_OUT = (size_t)TN * LDO * 4;
-constexpr size_t SMEM_BF16 =
-    SMEM_BF16_IN > SMEM_BF16_OUT ? SMEM_BF16_IN : SMEM_BF16_OUT;
-
-constexpr int LDA32 = SB + 4;
-constexpr int LDX32 = FT + 4;
-constexpr size_t SMEM_F32 = (size_t)(TN * LDA32 + SB * LDX32) * 4;
+template <typename T>
+struct Layout {
+  static constexpr int FT = Slice<T>::FT;
+  static constexpr int FPL = FT / 32;             // features per lane
+  static constexpr int VEC = 16 / sizeof(T);      // elements per 16 B copy
+  static constexpr int X_BYTES = SB * FT * sizeof(T);
+  static constexpr int RP_OFF = X_BYTES;
+  static constexpr int ENT_OFF = RP_OFF + RP * 4;
+  static constexpr int STAGE = ENT_OFF + ENT_CAP * 8;
+  static constexpr int SMEM = STAGES * STAGE;
+};
 
 struct Plan {
-  const int* tile_blk_ptr;  // (n_tiles + 1) sub-block range per tile
+  const int* tile_blk_ptr;  // (n_tiles + 1) chunk range per tile
   const int* blk_src;       // (n_blk) first source row (permuted order)
-  const int* blk_ent_ptr;   // (n_blk + 1) entry range per sub-block
-  const int* ent_pos;       // (n_ent) dst_local * 128 + src_local
-  const int* ent_edge_ptr;  // (n_ent + 1) edge range per entry
-  const int* edge_eid;      // (n_in) original edge id, entry-grouped
-  const float* w;           // (E) weight per original edge
+  const int* blk_ent_ptr;   // (n_blk + 1) entry range per chunk
+  const int* blk_row_ptr;   // (n_blk, RP) entry offsets per destination row
   const int* row_of;        // (N) permuted row -> original row, or null
   int N;
   int F;
@@ -86,256 +106,224 @@ __device__ __forceinline__ int orig_row(const Plan& p, int r) {
   return p.row_of ? p.row_of[r] : r;
 }
 
-__device__ __forceinline__ float entry_sum(const Plan& p, int e) {
-  float s = 0.f;
-  const int k1 = p.ent_edge_ptr[e + 1];
-  for (int k = p.ent_edge_ptr[e]; k < k1; ++k) s += p.w[p.edge_eid[k]];
-  return s;
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// ---------------------------------------------------------------- bf16
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-template <bool VECTOR>
-__global__ void __launch_bounds__(THREADS)
-    win_bf16_kernel(Plan p, const __nv_bfloat16* __restrict__ x,
-                    float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Xs = As + TN * LDA16;
-  float* Os = reinterpret_cast<float*>(smem);  // reused after the products
+// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
 
-  const int t = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Each entry's (source column in its sub-block, value), once per call.
+__global__ void entry_values(const int* __restrict__ ent_pos,
+                             const int* __restrict__ ent_edge_ptr,
+                             const int* __restrict__ edge_eid,
+                             const float* __restrict__ w,
+                             int2* __restrict__ ent_pv, int n_ent,
+                             int bf16) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_ent) return;
+  float s = 0.f;
+  const int k1 = ent_edge_ptr[e + 1];
+  for (int k = ent_edge_ptr[e]; k < k1; ++k) {
+    const float wk = w[edge_eid[k]];
+    s += bf16 ? round_bf16(wk) : wk;
+  }
+  if (bf16) s = round_bf16(s);
+  ent_pv[e] = make_int2(ent_pos[e] & (SB - 1), __float_as_int(s));
+}
+
+__device__ __forceinline__ void lane_values(const __nv_bfloat16* p,
+                                            float* v) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ void lane_values(const float* p, float* v) {
+  const float2 a = *reinterpret_cast<const float2*>(p);
+  v[0] = a.x;
+  v[1] = a.y;
+}
+
+__device__ __forceinline__ void store_lane(float* d, const float* v,
+                                           int n) {  // n = FPL: 4 or 2
+  if (n == 4)
+    *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+}
+
+template <typename T, bool VECTOR>
+__device__ __forceinline__ void load_chunk(const Plan& p, const int2* ent_pv,
+                                           const T* x, int c, int f0,
+                                           unsigned char* stage) {
+  using L = Layout<T>;
+  constexpr int CPR = L::FT / L::VEC;  // 16-byte copies per X row
+  T* Xs = reinterpret_cast<T*>(stage);
+  int* rps = reinterpret_cast<int*>(stage + L::RP_OFF);
+  int2* es = reinterpret_cast<int2*>(stage + L::ENT_OFF);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 1;  // warp rows wr*32 .. +32
-  const int wc = warp & 1;   // warp cols wc*64 .. +64
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  for (int i = tid; i < TN * LDA16 / 8; i += THREADS)
-    reinterpret_cast<uint4*>(As)[i] = make_uint4(0, 0, 0, 0);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  const int s0 = p.blk_src[c];
+  for (int i = tid; i < SB * CPR; i += THREADS) {
+    const int r = i / CPR;
+    const int col = (i % CPR) * L::VEC;
+    const int src = orig_row(p, s0 + r);
+    const int f = f0 + col;
+    T* d = Xs + r * L::FT + col;
+    if (VECTOR) {
+      const bool ok = src >= 0 && f < p.F;
+      cp_async16(d, ok ? x + (size_t)src * p.F + f : x, ok);
+    } else {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  __syncthreads();
+      for (int j = 0; j < L::VEC; ++j)
+        d[j] = (src >= 0 && f + j < p.F) ? x[(size_t)src * p.F + f + j]
+                                         : static_cast<T>(0.f);
+    }
+  }
+  for (int i = tid; i < RP / 4; i += THREADS)
+    cp_async16(rps + 4 * i, p.blk_row_ptr + (size_t)c * RP + 4 * i, true);
+  const int e0 = p.blk_ent_ptr[c];
+  const int n = p.blk_ent_ptr[c + 1] - e0;
+  for (int i = tid; i < n; i += THREADS) cp_async8(es + i, ent_pv + e0 + i);
+}
 
-  const int b1 = p.tile_blk_ptr[t + 1];
-  for (int b = p.tile_blk_ptr[t]; b < b1; ++b) {
-    const int s0 = p.blk_src[b];
-    const int e0 = p.blk_ent_ptr[b];
-    const int e1 = p.blk_ent_ptr[b + 1];
-    for (int i = tid; i < SB * (FT / 8); i += THREADS) {
-      const int r = i / (FT / 8);
-      const int c = (i % (FT / 8)) * 8;
-      const int src = orig_row(p, s0 + r);
-      const int f = f0 + c;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (src >= 0 && f < p.F) {
-        const __nv_bfloat16* xr = x + (size_t)src * p.F + f;
-        if (VECTOR) {
-          v = *reinterpret_cast<const uint4*>(xr);
-        } else {
-          __align__(16) __nv_bfloat16 tmp[8];
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(THREADS, 2)
+    win_kernel(Plan p, const int2* __restrict__ ent_pv,
+               const T* __restrict__ x, float* __restrict__ out) {
+  using L = Layout<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = blockIdx.x;
+  const int f0 = blockIdx.y * L::FT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rbase = warp * RPW;
+
+  float acc[RPW][L::FPL];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) tmp[j] = (f + j < p.F) ? xr[j] : zero;
-          v = *reinterpret_cast<const uint4*>(tmp);
-        }
+  for (int i = 0; i < RPW; ++i)
+#pragma unroll
+    for (int q = 0; q < L::FPL; ++q) acc[i][q] = 0.f;
+
+  const int c0 = p.tile_blk_ptr[t];
+  const int nc = p.tile_blk_ptr[t + 1] - c0;
+  if (nc > 0) load_chunk<T, VECTOR>(p, ent_pv, x, c0, f0, smem);
+  cp_commit();
+  for (int k = 0; k < nc; ++k) {
+    if (k + 1 < nc)
+      load_chunk<T, VECTOR>(p, ent_pv, x, c0 + k + 1, f0,
+                            smem + ((k + 1) % STAGES) * L::STAGE);
+    cp_commit();
+    cp_wait_one();  // every group but the newest: chunk k has landed
+    __syncthreads();
+    const unsigned char* stage = smem + (k % STAGES) * L::STAGE;
+    const T* Xs = reinterpret_cast<const T*>(stage);
+    const int* rps = reinterpret_cast<const int*>(stage + L::RP_OFF);
+    const int2* es = reinterpret_cast<const int2*>(stage + L::ENT_OFF);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int j1 = rps[rbase + i + 1];
+#pragma unroll 2
+      for (int j = rps[rbase + i]; j < j1; ++j) {
+        const int2 pv = es[j];
+        const float v = __int_as_float(pv.y);
+        float xv[L::FPL];
+        lane_values(Xs + pv.x * L::FT + lane * L::FPL, xv);
+#pragma unroll
+        for (int q = 0; q < L::FPL; ++q) acc[i][q] = fmaf(v, xv[q], acc[i][q]);
       }
-      *reinterpret_cast<uint4*>(Xs + r * LDX16 + c) = v;
     }
-    for (int e = e0 + tid; e < e1; e += THREADS) {
-      const int pos = p.ent_pos[e];
-      As[(pos >> 7) * LDA16 + (pos & 127)] = __float2bfloat16(entry_sum(p, e));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < SB; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bx[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * LDA16 + k,
-                               LDA16);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bx[j], Xs + k * LDX16 + wc * 64 + j * 16,
-                               LDX16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], a[i], bx[j], acc[i][j]);
-    }
-    __syncthreads();  // products done before A and X are rewritten
-    for (int e = e0 + tid; e < e1; e += THREADS) {
-      const int pos = p.ent_pos[e];
-      As[(pos >> 7) * LDA16 + (pos & 127)] = zero;
-    }
-    __syncthreads();
+    __syncthreads();  // chunk k consumed before its stage is refilled
   }
 
+  const int f = f0 + lane * L::FPL;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Os + (wr * 32 + i * 16) * LDO + wc * 64 + j * 16,
-                              acc[i][j], LDO, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TN * (FT / 4); i += THREADS) {
-    const int r = i / (FT / 4);
-    const int c = (i % (FT / 4)) * 4;
-    const int dst = orig_row(p, t * TN + r);
-    const int f = f0 + c;
-    if (dst < 0 || f >= p.F) continue;
-    const float* o = Os + r * LDO + c;
+  for (int i = 0; i < RPW; ++i) {
+    const int dst = orig_row(p, t * TN + rbase + i);
+    if (dst < 0) continue;
     float* d = out + (size_t)dst * p.F + f;
     if (VECTOR) {
-      *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(o);
+      if (f < p.F) store_lane(d, acc[i], L::FPL);
     } else {
-      for (int j = 0; j < 4 && f + j < p.F; ++j) d[j] = o[j];
+#pragma unroll
+      for (int q = 0; q < L::FPL; ++q)
+        if (f + q < p.F) d[q] = acc[i][q];
     }
   }
 }
 
-// ----------------------------------------------------------------- f32
-
-template <bool VECTOR>
-__global__ void __launch_bounds__(THREADS)
-    win_f32_kernel(Plan p, const float* __restrict__ x,
-                   float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Xs = As + TN * LDA32;
-
-  const int t = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // rows ty*8 .. +8
-  const int tx = tid & 15;  // cols tx*4 .. +4 and 64 + tx*4 .. +4
-
-  for (int i = tid; i < TN * LDA32 / 4; i += THREADS)
-    reinterpret_cast<float4*>(As)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  __syncthreads();
-
-  const int b1 = p.tile_blk_ptr[t + 1];
-  for (int b = p.tile_blk_ptr[t]; b < b1; ++b) {
-    const int s0 = p.blk_src[b];
-    const int e0 = p.blk_ent_ptr[b];
-    const int e1 = p.blk_ent_ptr[b + 1];
-    for (int i = tid; i < SB * (FT / 4); i += THREADS) {
-      const int r = i / (FT / 4);
-      const int c = (i % (FT / 4)) * 4;
-      const int src = orig_row(p, s0 + r);
-      const int f = f0 + c;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (src >= 0 && f < p.F) {
-        const float* xr = x + (size_t)src * p.F + f;
-        if (VECTOR) {
-          v = *reinterpret_cast<const float4*>(xr);
-        } else {
-          v.x = xr[0];
-          v.y = (f + 1 < p.F) ? xr[1] : 0.f;
-          v.z = (f + 2 < p.F) ? xr[2] : 0.f;
-          v.w = (f + 3 < p.F) ? xr[3] : 0.f;
-        }
-      }
-      *reinterpret_cast<float4*>(Xs + r * LDX32 + c) = v;
-    }
-    for (int e = e0 + tid; e < e1; e += THREADS) {
-      const int pos = p.ent_pos[e];
-      As[(pos >> 7) * LDA32 + (pos & 127)] = entry_sum(p, e);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < SB; ++k) {
-      float a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(ty * 8 + i) * LDA32 + k];
-      const float4 u = *reinterpret_cast<const float4*>(Xs + k * LDX32 + tx * 4);
-      const float4 v =
-          *reinterpret_cast<const float4*>(Xs + k * LDX32 + 64 + tx * 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[i][0] = fmaf(a[i], u.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i], u.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i], u.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i], u.w, acc[i][3]);
-        acc[i][4] = fmaf(a[i], v.x, acc[i][4]);
-        acc[i][5] = fmaf(a[i], v.y, acc[i][5]);
-        acc[i][6] = fmaf(a[i], v.z, acc[i][6]);
-        acc[i][7] = fmaf(a[i], v.w, acc[i][7]);
-      }
-    }
-    __syncthreads();
-    for (int e = e0 + tid; e < e1; e += THREADS) {
-      const int pos = p.ent_pos[e];
-      As[(pos >> 7) * LDA32 + (pos & 127)] = 0.f;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int dst = orig_row(p, t * TN + ty * 8 + i);
-    if (dst < 0) continue;
-    float* d = out + (size_t)dst * p.F;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int f = f0 + h * 64 + tx * 4;
-      if (f >= p.F) continue;
-      if (VECTOR) {
-        *reinterpret_cast<float4*>(d + f) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                        acc[i][4 * h + 3]);
-      } else {
-        for (int j = 0; j < 4 && f + j < p.F; ++j) d[f + j] = acc[i][4 * h + j];
-      }
-    }
-  }
-}
-
-template <typename KernelT, typename XT>
-int run(KernelT kernel, size_t smem, dim3 grid, cudaStream_t s, const Plan& p,
-        const XT* x, float* out) {
+template <typename T, bool VECTOR>
+int run(dim3 grid, cudaStream_t s, const Plan& p, const int2* ent_pv,
+        const void* x, float* out) {
+  auto kernel = win_kernel<T, VECTOR>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<T>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, smem, s>>>(p, x, out);
+  kernel<<<grid, THREADS, Layout<T>::SMEM, s>>>(p, ent_pv,
+                                                static_cast<const T*>(x), out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry point.  x is bf16 (is_bf16=1) or f32, row-major (N, F) in the
-// original row order; out is f32 (N, F), every row written.  vector=1
-// promises F % 8 == 0 and 16-byte aligned x and out.  Returns the
-// cudaError_t of the attribute call or the launch (0 on success).
+// original row order; out is f32 (N, F), every row written; ent_pv is
+// scratch for n_ent (column, value) pairs.  vector=1 promises F % 8 == 0
+// and 16-byte aligned x and out.  Launches the entry pre-pass, then the
+// tile kernel, on one stream.  Returns the cudaError_t of the first failed
+// call (0 on success).
 extern "C" int windowed_tile_spmm(
     const int* tile_blk_ptr, const int* blk_src, const int* blk_ent_ptr,
-    const int* ent_pos, const int* ent_edge_ptr, const int* edge_eid,
-    const float* w, const int* row_of, const void* x, float* out, int n_tiles,
-    int N, int F, int is_bf16, int vector, void* stream) {
+    const int* blk_row_ptr, const int* ent_pos, const int* ent_edge_ptr,
+    const int* edge_eid, const float* w, const int* row_of, void* ent_pv,
+    const void* x, float* out, int n_tiles, int n_ent, int N, int F,
+    int is_bf16, int vector, void* stream) {
   if (n_tiles <= 0 || N <= 0 || F <= 0) return 0;
-  const Plan p{tile_blk_ptr, blk_src, blk_ent_ptr, ent_pos, ent_edge_ptr,
-               edge_eid,     w,       row_of,      N,       F};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_tiles, (F + FT - 1) / FT);
-  if (is_bf16) {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    return vector ? run(win_bf16_kernel<true>, SMEM_BF16, grid, s, p, xb, out)
-                  : run(win_bf16_kernel<false>, SMEM_BF16, grid, s, p, xb, out);
+  int2* pv = static_cast<int2*>(ent_pv);
+  if (n_ent > 0) {
+    entry_values<<<(n_ent + 255) / 256, 256, 0, s>>>(
+        ent_pos, ent_edge_ptr, edge_eid, w, pv, n_ent, is_bf16);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const float* xf = static_cast<const float*>(x);
-  return vector ? run(win_f32_kernel<true>, SMEM_F32, grid, s, p, xf, out)
-                : run(win_f32_kernel<false>, SMEM_F32, grid, s, p, xf, out);
+  const Plan p{tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, row_of, N, F};
+  if (is_bf16) {
+    const dim3 grid(n_tiles, (F + Slice<__nv_bfloat16>::FT - 1) /
+                                 Slice<__nv_bfloat16>::FT);
+    return vector ? run<__nv_bfloat16, true>(grid, s, p, pv, x, out)
+                  : run<__nv_bfloat16, false>(grid, s, p, pv, x, out);
+  }
+  const dim3 grid(n_tiles, (F + Slice<float>::FT - 1) / Slice<float>::FT);
+  return vector ? run<float, true>(grid, s, p, pv, x, out)
+                : run<float, false>(grid, s, p, pv, x, out);
 }

@@ -9,11 +9,13 @@ for the functions of those names :286, :384 and :585) and the kernels'
 plain PyTorch versions.
 
 The TPU layout pads each 128-row output tile's edges to whole te-chunks so
-one-hot matmuls stream them; on Hopper a row-per-block reduction reads
-the gathered rows directly, so the plan is a plain receiver-sorted CSR:
-``rowptr`` per output row, the source row ``col`` and original edge id
-``eid`` per entry.  Weights stay per original edge and are read through
-``eid`` inside the kernel.
+one-hot matmuls stream them; on Hopper a warp (or, for a long row, a
+block) per output row reads the gathered rows directly, so the plan is a
+plain receiver-sorted CSR: ``rowptr`` per output row, the source row
+``col`` and original edge id ``eid`` per entry, and the lists of rows the
+kernel visits.  Weights stay per original edge and are read through
+``eid`` inside the kernel; with bf16 data each is rounded to bf16 first,
+as ``flat_segment_sum`` does (segment_sum.py:481-490).
 """
 from __future__ import annotations
 
@@ -34,9 +36,9 @@ KERNEL = register(
         name="segment_spmm_csr",
         source="segment_spmm_csr.cu",
         symbol="segment_spmm_csr",
-        # rowptr, col, eid, w, x, out, n_rows, F, is_bf16, accumulate,
-        # vector, stream
-        argtypes=[_P] * 6 + [_I] * 5 + [_P],
+        # rowptr, col, eid, w, items, long_rows, x, out, n_items, n_long, F,
+        # is_bf16, accumulate, vector, stream
+        argtypes=[_P] * 8 + [_I] * 6 + [_P],
         replaces="multilevel_gnn_tpu/ops/pallas/segment_sum.py:497",
     )
 )
@@ -53,6 +55,9 @@ SORTED_KERNEL = register(
 )
 
 
+LONG_ROW = 64  # rows with more entries are summed by a whole block
+
+
 @dataclasses.dataclass(frozen=True)
 class CSRPlan:
     """Receiver-sorted CSR over a static edge set.
@@ -61,6 +66,10 @@ class CSRPlan:
     col:    (nnz,) int32 source row per entry.
     eid:    (nnz,) int32 original edge id per entry (indexes the weights).
     row:    (nnz,) int32 output row per entry (used by the plain version).
+    items:  int32 rows a warp each sums: the rows with 1 .. LONG_ROW
+            entries (n_busy of them), then the empty rows, which only the
+            overwrite mode visits (to write zeros).
+    long_rows: int32 rows with more than LONG_ROW entries, a block each.
     max_col / max_eid: largest col / eid (-1 when empty), checked against
     the inputs' sizes by the wrapper."""
 
@@ -68,7 +77,10 @@ class CSRPlan:
     col: torch.Tensor
     eid: torch.Tensor
     row: torch.Tensor
+    items: torch.Tensor
+    long_rows: torch.Tensor
     n_rows: int
+    n_busy: int
     max_col: int
     max_eid: int
 
@@ -91,6 +103,8 @@ class CSRPlan:
         order = np.argsort(rows, kind="stable")
         rows, cols, eids = rows[order], cols[order], eids[order]
         rowptr = np.searchsorted(rows, np.arange(n_rows + 1), "left")
+        lens = np.diff(rowptr)
+        busy = np.flatnonzero((lens > 0) & (lens <= LONG_ROW))
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32))
@@ -100,7 +114,10 @@ class CSRPlan:
             col=t(cols),
             eid=t(eids),
             row=t(rows),
+            items=t(np.concatenate([busy, np.flatnonzero(lens == 0)])),
+            long_rows=t(np.flatnonzero(lens > LONG_ROW)),
             n_rows=int(n_rows),
+            n_busy=len(busy),
             max_col=int(cols.max()) if len(cols) else -1,
             max_eid=int(eids.max()) if len(eids) else -1,
         )
@@ -125,6 +142,8 @@ class CSRPlan:
             col=self.col.to(device),
             eid=self.eid.to(device),
             row=self.row.to(device),
+            items=self.items.to(device),
+            long_rows=self.long_rows.to(device),
         )
 
 
@@ -135,8 +154,10 @@ def segment_spmm_csr_plain(
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of segment_spmm_csr (same contract)."""
-    msg = x.index_select(0, plan.col.long()).float()
-    msg = msg * w.index_select(0, plan.eid.long()).float()[:, None]
+    we = w.index_select(0, plan.eid.long()).float()
+    if x.dtype == torch.bfloat16:
+        we = we.to(torch.bfloat16).float()
+    msg = x.index_select(0, plan.col.long()).float() * we[:, None]
     res = segment_sum(msg, plan.row, plan.n_rows)
     return res if out is None else out.add_(res)
 
@@ -150,7 +171,7 @@ def _check_inputs(x, w, plan, out):
         raise ValueError("w must be a contiguous (E,) float32 tensor")
     if plan.max_col >= x.shape[0] or plan.max_eid >= w.shape[0]:
         raise ValueError("plan indexes past x rows or w entries")
-    for t in (w, plan.rowptr, plan.col, plan.eid):
+    for t in (w, plan.rowptr, plan.col, plan.eid, plan.items):
         if t.device != x.device:
             raise ValueError("x, w and the plan must be on one device")
     if out is not None and (
@@ -170,10 +191,11 @@ def segment_spmm_csr(
 ) -> torch.Tensor:
     """out[n] = sum_{e in row n} w[eid[e]] * x[col[e]], accumulated in f32.
 
-    x: (rows, F) bf16 or f32; w: (E,) f32 per original edge.  Returns
-    (n_rows, F) f32.  With ``out`` given, adds into it in place (rows with
-    no entries are left as they are).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel."""
+    x: (rows, F) bf16 or f32; w: (E,) f32 per original edge, rounded to
+    bf16 when x is bf16.  Returns (n_rows, F) f32.  With ``out`` given,
+    adds into it in place (rows with no entries are left as they are).  A
+    CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel."""
     _check_inputs(x, w, plan, out)
     if x.device.type == "cpu":
         return segment_spmm_csr_plain(x, w, plan, out)
@@ -183,13 +205,18 @@ def segment_spmm_csr(
         out = torch.empty((plan.n_rows, F), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    n_items = plan.n_busy if accumulate else int(plan.items.shape[0])
+    n_long = int(plan.long_rows.shape[0])
+    if n_items + n_long == 0:
+        return out
     vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     fn = KERNEL.fn()
     err = fn(
         plan.rowptr.data_ptr(), plan.col.data_ptr(), plan.eid.data_ptr(),
-        w.data_ptr(), x.data_ptr(), out.data_ptr(),
-        plan.n_rows, F, int(x.dtype == torch.bfloat16), int(accumulate),
-        int(vector), stream_handle(x),
+        w.data_ptr(), plan.items.data_ptr(), plan.long_rows.data_ptr(),
+        x.data_ptr(), out.data_ptr(), n_items, n_long, F,
+        int(x.dtype == torch.bfloat16), int(accumulate), int(vector),
+        stream_handle(x),
     )
     KERNEL.launches += 1
     KERNEL.check(err)

@@ -13,10 +13,17 @@ permuted order) picks the aligned window of ``Wb * nwin`` source rows that
 holds most of its edges; the other edges are the residual, summed by K1.
 The layout differs: instead of te-edge chunks for one-hot matmuls, the
 plan lists, per tile, the non-empty 128-row source sub-blocks of its
-window, and per sub-block the distinct (dst, src) entries with their edges
-(grouped so one thread sums each entry in a fixed order).  The transpose
-side is the same layout built with senders and receivers swapped, over
-the forward's in-window edges; the kernel is the same.
+window as blocks of at most ``ENT_CAP`` distinct (dst, src) entries (a
+denser sub-block is split at destination-row boundaries), per block the
+entry range of each destination row, and per entry its edges (grouped so
+one thread sums each entry in a fixed order).  The transpose side is the
+same layout built with senders and receivers swapped, over the forward's
+in-window edges; the kernel is the same.
+
+bf16 data rounds each edge weight to bf16, sums an entry's weights in f32
+in plan order and rounds the sum to bf16, as the TPU kernel's weighted
+one-hot and adjacency cast do (windowed.py:523-533, :561); the residual
+plans' K1 rounds its weights the same way.
 """
 from __future__ import annotations
 
@@ -42,15 +49,18 @@ KERNEL = register(
         name="windowed_tile_spmm",
         source="windowed_tile_spmm.cu",
         symbol="windowed_tile_spmm",
-        # tile_blk_ptr, blk_src, blk_ent_ptr, ent_pos, ent_edge_ptr,
-        # edge_eid, w, row_of, x, out, n_tiles, N, F, is_bf16, vector, stream
-        argtypes=[_P] * 10 + [_I] * 5 + [_P],
+        # tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
+        # ent_edge_ptr, edge_eid, w, row_of, ent_pv, x, out, n_tiles, n_ent,
+        # N, F, is_bf16, vector, stream
+        argtypes=[_P] * 12 + [_I] * 6 + [_P],
         replaces="multilevel_gnn_tpu/ops/pallas/windowed.py:574",
     )
 )
 
 TN = 128  # destination rows per tile (the kernel's TN)
 SB = 128  # source rows per sub-block (the kernel's SB)
+ENT_CAP = 1024  # entries per block (the kernel's ENT_CAP)
+RP = 132  # row pointers per block, TN + 1 padded to 16 bytes (the kernel's RP)
 
 
 def _round_up(x, m):
@@ -138,6 +148,24 @@ def choose_node_perm(
     return None, f_id, max(f_id, f_rcm)
 
 
+def _split_blocks(sub_start: np.ndarray, ent_row: np.ndarray, n_ent: int):
+    """Block starts: each non-empty sub-block (entries sub_start[i] ..
+    sub_start[i+1]), cut at destination-row boundaries into blocks of at
+    most ENT_CAP entries.  A row has at most SB entries in a sub-block
+    (its entries are distinct sources), so every cut makes progress."""
+    ends = np.append(sub_start[1:], n_ent)
+    starts = []
+    for a, b in zip(sub_start.tolist(), ends.tolist()):
+        cur = a
+        while b - cur > ENT_CAP:
+            # the start of the row that holds the first entry past the cap
+            cut = a + int(np.searchsorted(ent_row[a:b], ent_row[cur + ENT_CAP]))
+            starts.append(cur)
+            cur = cut
+        starts.append(cur)
+    return np.asarray(starts, np.int64)
+
+
 def _build_side(
     src: np.ndarray,
     dst: np.ndarray,
@@ -180,15 +208,28 @@ def _build_side(
     ent_start = np.flatnonzero(new_ent)
     n_ent = len(ent_start)
     ent_t, ent_b = t[ent_start], blk[ent_start]
+    ent_row = d[ent_start] % TN
     new_blk = np.ones(n_ent, bool)
     if n_ent:
         new_blk[1:] = (ent_t[1:] != ent_t[:-1]) | (ent_b[1:] != ent_b[:-1])
-    blk_start = np.flatnonzero(new_blk)
+    blk_start = _split_blocks(np.flatnonzero(new_blk), ent_row, n_ent)
+    n_blk = len(blk_start)
+    # entry range of each destination row within each block: the entries
+    # are sorted by (block, row), so one search over block * TN + row
+    ent_blk = np.repeat(np.arange(n_blk), np.diff(np.append(blk_start, n_ent)))
+    rows = np.arange(TN + 1)
+    row_ptr = np.searchsorted(
+        ent_blk * TN + ent_row, np.arange(n_blk)[:, None] * TN + rows[None, :]
+    ) - blk_start[:, None]
+    row_ptr = np.concatenate(
+        [row_ptr, np.repeat(row_ptr[:, -1:], RP - TN - 1, axis=1)], axis=1
+    )
     layout = dict(
         tile_blk_ptr=np.searchsorted(ent_t[blk_start], np.arange(n_tiles + 1)),
         blk_src=ent_b[blk_start] * SB,
         blk_ent_ptr=np.append(blk_start, n_ent),
-        ent_pos=(d[ent_start] % TN) * SB + (s[ent_start] % SB),
+        blk_row_ptr=row_ptr.reshape(n_blk, RP),
+        ent_pos=ent_row * SB + (s[ent_start] % SB),
         ent_edge_ptr=np.append(ent_start, n),
         edge_eid=eid,
         ent_dst=d[ent_start],
@@ -205,17 +246,20 @@ def _t(a) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class WinSide:
-    """The sub-block/entry layout of one direction of the plan.
+    """The block/entry layout of one direction of the plan.
 
     Kernel arrays (int32): tile_blk_ptr (n_tiles+1), blk_src (n_blk),
-    blk_ent_ptr (n_blk+1), ent_pos (n_ent), ent_edge_ptr (n_ent+1),
-    edge_eid (n_in).  ent_dst_orig / ent_src_orig (original row ids) and
-    edge_ent serve the plain version.  On the forward side dst is the
-    receiver and src the sender; on the transpose side the other way round."""
+    blk_ent_ptr (n_blk+1), blk_row_ptr (n_blk, RP: entry offsets of each
+    destination row within its block, TN+1 used), ent_pos (n_ent,
+    dst_local * SB + src_local), ent_edge_ptr (n_ent+1), edge_eid (n_in).
+    ent_dst_orig / ent_src_orig (original row ids) and edge_ent serve the
+    plain version.  On the forward side dst is the receiver and src the
+    sender; on the transpose side the other way round."""
 
     tile_blk_ptr: torch.Tensor
     blk_src: torch.Tensor
     blk_ent_ptr: torch.Tensor
+    blk_row_ptr: torch.Tensor
     ent_pos: torch.Tensor
     ent_edge_ptr: torch.Tensor
     edge_eid: torch.Tensor
@@ -230,6 +274,7 @@ class WinSide:
             tile_blk_ptr=_t(lay["tile_blk_ptr"]),
             blk_src=_t(lay["blk_src"]),
             blk_ent_ptr=_t(lay["blk_ent_ptr"]),
+            blk_row_ptr=_t(lay["blk_row_ptr"]),
             ent_pos=_t(lay["ent_pos"]),
             ent_edge_ptr=_t(lay["ent_edge_ptr"]),
             edge_eid=_t(lay["edge_eid"]),
@@ -392,16 +437,16 @@ def build_plan(
 def windowed_tile_spmm_plain(
     x: torch.Tensor, w: torch.Tensor, plan: WindowPlan, transpose: bool = False
 ) -> torch.Tensor:
-    """Plain PyTorch version of windowed_tile_spmm: the same entry sums
-    (rounded to bf16 when x is bf16, as the kernel's A sub-tile is), then
+    """Plain PyTorch version of windowed_tile_spmm: the same entry values
+    (bf16 x: each weight rounded to bf16, the f32 sum rounded again), then
     the weighted row sums, in f32."""
     side = plan.bwd if transpose else plan.fwd
-    a = segment_sum(
-        w.index_select(0, side.edge_eid.long()).float(),
-        side.edge_ent,
-        side.n_entries,
-    )
-    if x.dtype == torch.bfloat16:
+    we = w.index_select(0, side.edge_eid.long()).float()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        we = we.to(torch.bfloat16).float()
+    a = segment_sum(we, side.edge_ent, side.n_entries)
+    if bf16:
         a = a.to(torch.bfloat16).float()
     msg = x.index_select(0, side.ent_src_orig.long()).float() * a[:, None]
     return segment_sum(msg, side.ent_dst_orig, plan.num_nodes)
@@ -436,17 +481,18 @@ def windowed_tile_spmm(
     out = torch.empty((N, F), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    ent_pv = torch.empty((side.n_entries, 2), dtype=torch.int32, device=x.device)
     vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     fn = KERNEL.fn()
     err = fn(
         side.tile_blk_ptr.data_ptr(), side.blk_src.data_ptr(),
-        side.blk_ent_ptr.data_ptr(), side.ent_pos.data_ptr(),
-        side.ent_edge_ptr.data_ptr(), side.edge_eid.data_ptr(),
-        w.data_ptr(),
+        side.blk_ent_ptr.data_ptr(), side.blk_row_ptr.data_ptr(),
+        side.ent_pos.data_ptr(), side.ent_edge_ptr.data_ptr(),
+        side.edge_eid.data_ptr(), w.data_ptr(),
         plan.row_of.data_ptr() if plan.row_of is not None else None,
-        x.data_ptr(), out.data_ptr(),
-        side.n_tiles, N, F, int(x.dtype == torch.bfloat16), int(vector),
-        stream_handle(x),
+        ent_pv.data_ptr(), x.data_ptr(), out.data_ptr(),
+        side.n_tiles, side.n_entries, N, F, int(x.dtype == torch.bfloat16),
+        int(vector), stream_handle(x),
     )
     KERNEL.launches += 1
     KERNEL.check(err)

@@ -15,8 +15,9 @@ the JAX package's custom VJPs (pallas backend, interpret mode).
 Tolerances:
   f32:  max|port - jax| <= 1e-5 * max(1, max|jax|).
   bf16: max|port_bf16 - jax_f32| <= 1.5 * max|jax_bf16 - jax_f32| + 1e-3
-        (the JAX package rounds residual and composed edge weights to bf16,
-        the port keeps them f32).
+        (a bound on bf16's own error; the port rounds the edge weights as
+        the JAX package does, and the transpose's tight bf16 parity with
+        JAX is in test_torch_windowed.py).
 """
 import jax
 import jax.numpy as jnp

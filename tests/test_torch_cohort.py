@@ -9,18 +9,18 @@ fold's), the fold graph's edges, attrs and mask, the class weights.
 Features within 1e-12, mutual information within 1e-10, PCA seeds within
 1e-8 with their signs.
 
-The JAX side reads the CSVs with pandas' round-trip float parser.  pandas'
-default parser is not correctly rounded (it keeps 17 digits, leading zeros
-included), so it reads some values up to ~1e-13 relative away from Python's
-float(), which the port uses; an ulp moves the pathway reorder (an argmax
-over a correlation matrix that np.corrcoef does not make exactly
-symmetric).  test_pandas_default_reader_is_not_exact pins that difference;
-with the same values both pipelines agree exactly.
+Both packages read the CSVs with their own default readers: the JAX
+package with pandas.read_csv, the port with native.parse_csv_floats, which
+gives pandas' default float converter's bits.  That converter is not
+correctly rounded (it keeps 17 digits, leading zeros included) and reads
+some values up to ~1e-13 relative away from Python's float(); an ulp moves
+the pathway reorder (an argmax over a correlation matrix that np.corrcoef
+does not make exactly symmetric), so the port reads as pandas does.
+test_pandas_default_reader_is_not_exact pins both facts.
 
 Also: the synthetic tables equal the JAX package's draw for draw, and a
 clinical DataFrame pickle (pandas is here) loads as its dict form does.
 """
-import functools
 import pickle
 from pathlib import Path
 
@@ -56,12 +56,7 @@ def written(tmp_path_factory):
 
 def _load_both(d, name):
     path = str(REPO / "configs" / f"{name}.yaml")
-    mp = pytest.MonkeyPatch()
-    mp.setattr(pd, "read_csv", functools.partial(pd.read_csv, float_precision="round_trip"))
-    try:
-        jc = jloaders.load_cohort_from_files(cfg=JConfig.from_yaml(path, **SMALL), **_paths(d))
-    finally:
-        mp.undo()
+    jc = jloaders.load_cohort_from_files(cfg=JConfig.from_yaml(path, **SMALL), **_paths(d))
     pc = loaders.load_cohort_from_files(cfg=Config.from_yaml(path, **SMALL), **_paths(d))
     return jc, pc
 
@@ -76,7 +71,7 @@ def test_cohort_and_fold_match_jax(written, name):
     np.testing.assert_array_equal(pc.ages, jc.ages)
     np.testing.assert_array_equal(pc.gene_pca_match, jc.gene_pca_match)
     np.testing.assert_array_equal(pc.raw_indice, jc.raw_indice)
-    np.testing.assert_allclose(pc.X, jc.X, rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(pc.X, jc.X)
     if jc.initial_reorder_idxs is None:
         assert pc.initial_reorder_idxs is None
     else:
@@ -109,12 +104,15 @@ def test_cohort_and_fold_match_jax(written, name):
 
 
 def test_pandas_default_reader_is_not_exact(written):
+    """pandas' default reader moves some written values by up to ~1e-13
+    relative; the port's reader gives pandas' bits."""
     port = loaders.read_omics_csv(f"{written}/raw_mrna.csv")
     omics = synthetic.make_synthetic_tables(seed=5, n_patients=60, n_pathways=6)[0]
-    np.testing.assert_array_equal(port.values, omics["mrna"].values)  # exact round trip
     pdf = pd.read_csv(f"{written}/raw_mrna.csv", index_col=0)
     assert list(pdf.index) == port.index and list(pdf.columns) == port.columns
-    rel = np.abs(pdf.to_numpy() - port.values) / np.abs(port.values)
+    np.testing.assert_array_equal(port.values, pdf.to_numpy())
+    written_values = omics["mrna"].values  # repr floats: exact round trip
+    rel = np.abs(port.values - written_values) / np.abs(written_values)
     assert 0 < rel.max() <= 1e-12
 
 

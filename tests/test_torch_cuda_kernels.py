@@ -19,7 +19,12 @@ version.  K4 (sorted segment-sum): B = 1 and 3, the 2-D form, widths on
 and off the vector path (C = 64, 40, 130, 2048), empty segments, a hub
 segment, segment_sum_by through a non-identity perm with dropped rows, and
 an empty plan; held to 1e-5 x max(1, max|plain|) in both dtypes (both sum
-the same exact values in f32, in different orders).
+the same exact values in f32, in different orders).  The K1 / K2 layouts:
+a star graph with a 5,000-edge hub (K1's long-row blocks on csr and csc,
+K2's hub rows on both sides), accumulate mode over 3 rows of 10,000 edges
+(the other rows untouched), K2 on a permuted plan at F = 8, 20, 64, 2048,
+2056 on both sides, and a dense sub-block split into blocks at the entry
+cap.
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -310,3 +315,84 @@ def test_k4_empty_plan(dev):
     x = torch.randn(2, 10, 16, device=dev)
     out = k1.sorted_segment_sum(x, plan)
     assert out.shape == (2, 6, 16) and float(out.abs().max()) == 0.0
+
+
+def _star(n=6000, hub_edges=5000, seed=12):
+    """Node 7 sends to and receives from 5,000 others; a ring links all."""
+    rng = np.random.RandomState(seed)
+    others = rng.choice(n, hub_edges, replace=False)
+    s = np.concatenate([np.full(hub_edges, 7), others, np.arange(n)])
+    d = np.concatenate([others, np.full(hub_edges, 7), (np.arange(n) + 1) % n])
+    return n, s.astype(np.int64), d.astype(np.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [64, 2048])
+def test_star_hub_matches_plain(dev, dtype, F):
+    n, s, d = _star()
+    eid = np.arange(len(s))
+    g = torch.Generator(device=dev).manual_seed(F)
+    x = torch.randn(n, F, generator=g, device=dev).to(dtype)
+    w = torch.rand(len(s), generator=g, device=dev)
+    for rows, cols in ((d, s), (s, d)):  # csr, csc
+        plan = k1.CSRPlan.build(rows, cols, eid, n)
+        assert plan.long_rows.tolist() == [7]
+        plan = plan.to(dev)
+        _close(k1.segment_spmm_csr(x, w, plan), k1.segment_spmm_csr_plain(x, w, plan), dtype)
+    plan = k2.build_plan(s, d, n, Wb=512, nwin=2).to(dev)
+    assert plan.n_res > 0
+    for transpose in (False, True):
+        _close(k2.windowed_tile_spmm(x, w, plan, transpose),
+               k2.windowed_tile_spmm_plain(x, w, plan, transpose), dtype)
+        _close(k2.windowed_spmm(x, w, plan, transpose),
+               k2.windowed_spmm_plain(x, w, plan, transpose), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_accumulate_over_few_long_rows(dev, dtype):
+    n, F = 10000, 256
+    rng = np.random.RandomState(13)
+    rows = np.repeat([3, 1000, 9999], 10000)
+    cols = rng.randint(0, n, len(rows))
+    plan = k1.CSRPlan.build(rows, cols, np.arange(len(rows)), n)
+    assert plan.n_busy == 0 and plan.long_rows.tolist() == [3, 1000, 9999]
+    plan = plan.to(dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(n, F, generator=g, device=dev).to(dtype)
+    w = torch.randn(len(rows), generator=g, device=dev)
+    base = torch.randn(n, F, generator=g, device=dev)
+    out = k1.segment_spmm_csr(x, w, plan, out=base.clone())
+    _close(out, k1.segment_spmm_csr_plain(x, w, plan, out=base.clone()), dtype)
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    keep[[3, 1000, 9999]] = False
+    assert torch.equal(out[keep], base[keep])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 20, 64, 2048, 2056])
+def test_k2_permuted_widths_both_sides(dev, dtype, F):
+    n, plan = _transpose_plan("permuted")
+    plan = plan.to(dev)
+    g = torch.Generator(device=dev).manual_seed(F + 1)
+    x = torch.randn(n, F, generator=g, device=dev).to(dtype)
+    w = torch.randn(plan.n_edges, generator=g, device=dev)
+    for transpose in (False, True):
+        _close(k2.windowed_tile_spmm(x, w, plan, transpose),
+               k2.windowed_tile_spmm_plain(x, w, plan, transpose), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_dense_sub_block_split(dev, dtype):
+    """Every pair of a 128 x 128 block: 16,384 entries in one sub-block,
+    split into blocks at the entry cap."""
+    s0, d0 = np.meshgrid(np.arange(128), np.arange(128))
+    n = 600
+    plan = k2.build_plan(s0.ravel(), d0.ravel(), n, Wb=128, nwin=1)
+    assert plan.fwd.n_blocks >= 16
+    plan = plan.to(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(n, 136, generator=g, device=dev).to(dtype)
+    w = torch.randn(plan.n_edges, generator=g, device=dev)
+    for transpose in (False, True):
+        _close(k2.windowed_tile_spmm(x, w, plan, transpose),
+               k2.windowed_tile_spmm_plain(x, w, plan, transpose), dtype)

@@ -1,9 +1,9 @@
 """The port's CV protocol against the JAX package's, on the CPU.
 
 One tiny cohort is written by the port's write_reference_format and loaded
-by both packages' load_cohort_from_files (the JAX side with pandas'
-round-trip float parser, so both start from the same values; see
-test_torch_cohort.py), with gbm.yaml at small widths, an f32 trunk and
+by both packages' load_cohort_from_files (each with its default reader,
+which give the same values; see test_torch_cohort.py), with gbm.yaml at
+small widths, an f32 trunk and
 dropout off.  Each fold's initial parameters are JAX's, carried into the
 port by replacing driver._new_model (the JAX package's init, read where it
 hands them to seed_pca_params); PCA seeding, batches and training are each
@@ -16,13 +16,11 @@ package's own.
   the pooled AUC and ACC equal, and the folds derived on identical splits.
 - the train CLI on the written directory gives run_experiment's result.
 """
-import functools
 import json
 from pathlib import Path
 
 import flax
 import numpy as np
-import pandas as pd
 import pytest
 
 from multilevel_gnn_tpu.core.config import Config as JConfig
@@ -60,13 +58,7 @@ def setup(tmp_path_factory):
 def build_setup(d):
     """The cohort written into d and loaded by both packages."""
     write_reference_format(d, seed=4, cancer_type="gbm", n_patients=60, n_pathways=5)
-    mp = pytest.MonkeyPatch()
-    mp.setattr(pd, "read_csv", functools.partial(pd.read_csv, float_precision="round_trip"))
-    try:
-        jcohort = jloaders.load_cohort_from_files(
-            cfg=JConfig.from_yaml(GBM, **KW), **_paths(d))
-    finally:
-        mp.undo()
+    jcohort = jloaders.load_cohort_from_files(cfg=JConfig.from_yaml(GBM, **KW), **_paths(d))
     cfg = Config.from_yaml(GBM, **KW)
     cohort = loaders.load_cohort_from_files(cfg=cfg, **_paths(d))
     return dict(dir=d, jcohort=jcohort, cohort=cohort, cfg=cfg)

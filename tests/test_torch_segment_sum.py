@@ -8,12 +8,15 @@ random graphs with empty segments and padding edges.
 
 Tolerances:
   f32:  rtol = atol = 1e-5.
-  bf16: max|port_bf16 - jax_f32| <= 1.5 * max|jax_bf16 - jax_f32| + 1e-3
-        (the TPU kernel rounds the weights to bf16; the port keeps f32
-        weights, so bf16 parity is a bound, not bitwise).
+  bf16: max|port_bf16 - jax_bf16| <= 1e-5 * max(1, max|jax_bf16|): both
+        round each edge weight to bf16, so both sum the same exact f32
+        products, in different orders.  The bound against JAX f32,
+        max|port_bf16 - jax_f32| <= 1.5 * max|jax_bf16 - jax_f32| + 1e-3,
+        stays as its own test.
 The CSR plan and the kernel's plain version are also checked against a
-float64 loop oracle (rtol = atol = 1e-5), and spmm.plain_versions() for
-dispatch (its result against the default path: rtol = atol = 1e-6).
+float64 loop oracle (rtol = atol = 1e-5), the plan's row lists against
+the rows they must cover, and spmm.plain_versions() for dispatch (its
+result against the default path: rtol = atol = 1e-6).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ from multilevel_gnn_tpu.core.graph import Graph as JGraph
 from multilevel_gnn_tpu.ops import spmm as jspmm
 from multilevel_gnn_tpu_torch.core.graph import Graph
 from multilevel_gnn_tpu_torch.ops import spmm
+from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import (
     CSRPlan,
     segment_spmm_csr,
@@ -101,6 +105,17 @@ def test_k1_spmm_bf16_within_bound(case):
     assert np.abs(p16 - j32).max() <= bound
 
 
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("case", CASES)
+def test_k1_spmm_bf16_matches_jax_bf16(case, reduce):
+    seed, n, e, pad, tail = case
+    ei, attr, n, pad_to = _graph(seed, n, e, pad, tail)
+    x = np.random.RandomState(seed + 30).randn(3, n, 16).astype(np.float32)
+    ref = _jax_spmm(ei, attr, n, pad_to, x, reduce, bf16=True)
+    out = _port_spmm(ei, attr, n, pad_to, x, reduce, bf16=True)
+    assert np.abs(out - ref).max() <= 1e-5 * max(1.0, np.abs(ref).max())
+
+
 def _oracle(x, w, rows, cols, eids, n_rows):
     out = np.zeros((n_rows, x.shape[1]), np.float64)
     for r, c, e in zip(rows, cols, eids):
@@ -129,6 +144,45 @@ def test_csr_plan_and_plain_accumulate():
     base = torch.from_numpy(rng.randn(n_rows, 12).astype(np.float32))
     acc = segment_spmm_csr_plain(xt, wt, plan, out=base.clone())
     np.testing.assert_allclose(acc.numpy(), ref + base.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("long_rows", [0, 3])
+def test_csr_row_lists_cover_rows(long_rows):
+    """items lists the rows with 1..LONG_ROW entries first (n_busy of them),
+    then the empty rows; long_rows the longer ones; each row once."""
+    rng = np.random.RandomState(4 + long_rows)
+    n_rows = 200
+    rows = rng.randint(0, n_rows - 30, 900)  # the last 30 rows stay empty
+    hubs = np.repeat(rng.choice(n_rows - 30, long_rows, replace=False),
+                     k1.LONG_ROW + 1 + rng.randint(0, 500, long_rows))
+    rows = np.concatenate([rows, hubs])
+    plan = CSRPlan.build(rows, rng.randint(0, 50, len(rows)), np.arange(len(rows)), n_rows)
+    lens = np.diff(plan.rowptr.numpy())
+    items, longs = plan.items.numpy(), plan.long_rows.numpy()
+    busy = items[: plan.n_busy]
+    np.testing.assert_array_equal(np.sort(np.concatenate([items, longs])), np.arange(n_rows))
+    assert np.all((lens[busy] > 0) & (lens[busy] <= k1.LONG_ROW))
+    assert np.all(lens[items[plan.n_busy:]] == 0) and np.all(lens[longs] > k1.LONG_ROW)
+    assert len(longs) == long_rows
+    # the non-empty rows (what accumulate mode visits) hold every edge once
+    visited = np.concatenate([busy, longs])
+    assert lens[visited].sum() == plan.nnz and len(np.unique(visited)) == len(visited)
+
+
+def test_k1_plain_rounds_bf16_weights():
+    """With bf16 x the plain version multiplies by the bf16-rounded weight
+    (exact products, summed in f32); with f32 x by the f32 weight."""
+    rng = np.random.RandomState(8)
+    rows, cols = rng.randint(0, 20, 150), rng.randint(0, 30, 150)
+    plan = CSRPlan.build(rows, cols, np.arange(150), 20)
+    x = torch.from_numpy(rng.randn(30, 8).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.rand(150) * 3).astype(np.float32))
+    wr = w.to(torch.bfloat16).float().numpy().astype(np.float64)
+    ref = _oracle(x.float().numpy(), wr, rows, cols, np.arange(150), 20)
+    out = segment_spmm_csr(x, w, plan).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    assert np.abs(out - _oracle(x.float().numpy(), w.numpy(), rows, cols,
+                                np.arange(150), 20)).max() > 1e-3
 
 
 @pytest.mark.parametrize("windowed", [False, True])

@@ -1,6 +1,6 @@
 """Print the PyTorch port's measured parity errors against the JAX package.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [--protocol-only]
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [--protocol-only | --repairs-only]
 
 Runs the same inputs as the parity tests in tests/test_torch_*.py (CPU,
 plain versions on the port side, Pallas interpret mode on the JAX side)
@@ -80,6 +80,59 @@ def main():
     backward()
     training(fold)
     max_aggregation(fold)
+
+
+def repairs():
+    """bf16 SpMMs against JAX's bf16 output (both round the edge weights):
+    K1 composed (sum, mean), the windowed forward and transpose on the
+    cases with each pair once, and on those with repeated pairs beside
+    their limit; the CSV reader against pandas on a written cohort."""
+    import pandas as pd
+    import tempfile
+    from multilevel_gnn_tpu_torch.data import loaders, synthetic
+
+    for case in T1.CASES:
+        seed, n, e, pad, tail = case
+        ei, attr, n, pad_to = T1._graph(seed, n, e, pad, tail)
+        x = np.random.RandomState(seed + 30).randn(3, n, 16).astype(np.float32)
+        row = {}
+        for reduce in ("sum", "mean"):
+            ref = T1._jax_spmm(ei, attr, n, pad_to, x, reduce, True)
+            out = T1._port_spmm(ei, attr, n, pad_to, x, reduce, True)
+            row[f"{reduce}_err"] = _err(out, ref)
+            row[f"{reduce}_limit"] = 1e-5 * max(1.0, float(np.abs(ref).max()))
+        _emit(module="K1 composed bf16 vs JAX bf16", case=list(case), **row)
+    for unique, case in zip(T2.UNIQUE, T2.CASES):
+        for transpose in (False, True):
+            name, s, d, w, mask, Wb, nwin, group = unique
+            n, jp, pp = T2._plans(unique)
+            x = np.random.RandomState(7).randn(n, 24).astype(np.float32)
+            ref = T2._jax(x, w, s, d, jp, mask, True, transpose)
+            row = dict(unique_err=_err(T2._port(x, w, pp, True, transpose), ref),
+                       unique_limit=1e-5 * max(1.0, float(np.abs(ref).max(initial=0.0))))
+            if name != "empty":
+                name, s, d, w, mask, Wb, nwin, group = case
+                n, jp, pp = T2._plans(case)
+                x = np.random.RandomState(8).randn(n, 24).astype(np.float32)
+                ref = T2._jax(x, w, s, d, jp, mask, True, transpose)
+                diff = np.abs(T2._port(x, w, pp, True, transpose) - ref)
+                lim, n_rep = T2._repeat_limit(pp, w, x, transpose)
+                row.update(repeated_entries=n_rep, repeated_err=float(diff.max()),
+                           repeated_worst_share_of_limit=float(
+                               (diff / (lim + 1e-5 * max(1.0, np.abs(ref).max()))).max()))
+            _emit(module="K2 windowed bf16 vs JAX bf16", case=name,
+                  side="transpose" if transpose else "forward", **row)
+    with tempfile.TemporaryDirectory() as d:
+        synthetic.write_reference_format(d, seed=5, n_patients=60, n_pathways=6)
+        port = loaders.read_omics_csv(f"{d}/raw_mrna.csv").values
+        ref = pd.read_csv(f"{d}/raw_mrna.csv", index_col=0).to_numpy()
+        written = synthetic.make_synthetic_tables(seed=5, n_patients=60,
+                                                  n_pathways=6)[0]["mrna"].values
+        _emit(module="omics CSV reader vs pandas.read_csv", values=int(port.size),
+              bits_equal=bool(np.array_equal(port, ref)),
+              fields_off_correct_rounding=int((port != written).sum()),
+              max_rel_off_correct_rounding=float(
+                  (np.abs(port - written) / np.abs(written)).max()))
 
 
 def backward():
@@ -292,7 +345,11 @@ def protocol(tmp):
 if __name__ == "__main__":
     import tempfile
 
+    if "--repairs-only" in sys.argv:
+        repairs()
+        sys.exit(0)
     if "--protocol-only" not in sys.argv:
         main()
+        repairs()
     with tempfile.TemporaryDirectory() as tmp:
         protocol(tmp)
