@@ -92,6 +92,31 @@ Then the sorted segment-sum and the protocol from files:
            and ACC; then a small protocol (f32, dropout off, 2 epochs) on
            the card and on the CPU, fold test scores within 1e-4
 
+After the sage training phases, on the same fold:
+
+  repairs  the cost of the bf16 Linear's bias added after the product (as
+           flax rounds) against the bias inside it, forward and backward at
+           the sage step's two conv MLP shapes (device ms a step); the sage
+           step's kernel ms with the repairs (profile_train); the bf16
+           forward of a small fold on the card against the CPU (TOL_BF16)
+  explain  integrated_gradients (16 steps, B = 32, bf16, windowed): K1 / K2
+           launches per call (counts zeroed just before, read just after),
+           device ms per call, peak memory, kernels against plain versions
+           (TOL_IG), and the survival screen's row count on seeded times
+  optim    five radam and five adamw steps on a small fold, card against
+           CPU (f32, dropout off), parameters within TOL_OPTIM
+
+And after the protocol phases, on the same files:
+
+  ckpt     run_experiment (gbm.yaml, bf16, 1 run x 5 folds x 4 epochs,
+           ckpt_every 1) uninterrupted, then interrupted in fold 1 by the
+           interrupt_after hook and resumed: pooled AUC / ACC and every
+           fold's test scores must be equal; a step's bytes, load and save
+           ms
+  predict  the predict CLI on fold 2's checkpoint equals predict_fold with
+           the same parameters in memory; ms and launches per batch of 32
+  explain_cli  the explain CLI once on fold 0's checkpoint
+
 Kernel cases off the main path (other feature widths, permuted plans,
 empty plans) are in tests/test_torch_cuda_kernels.py.
 
@@ -103,6 +128,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -751,7 +777,7 @@ def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3,
           "ok": ok})
     if not ok:
         raise AssertionError(f"{phase}: launches per step {per_step}, want {want_per_step}")
-    return per_step
+    return per_step, busy
 
 
 def profile_eval(model, ctx, batch, phase, n_timed=10, n_prof=3):
@@ -855,7 +881,7 @@ def train_conv(conv, cfg, ctx):
     cwt = torch.as_tensor(cw, dtype=torch.float32, device="cuda")
     want_step = {k1.KERNEL.name: 5, k2.KERNEL.name: 0, k3.KERNEL.name: 2, k4.name: 0}
     return profile_train(model, ctx, batch, cwt, want_step,
-                         phase=f"profile_train_{conv}")
+                         phase=f"profile_train_{conv}")[0]
 
 
 def conv_paths(conv, cfg, ctx, batch, n_batches):
@@ -1028,6 +1054,7 @@ def cohort_phase(root, device="cuda"):
           "windowed_min_edges": cfg.windowed_min_edges, "ok": ok})
     if not ok:
         raise AssertionError("cohort phase failed")
+    return cohort
 
 
 def sync(device):
@@ -1104,6 +1131,280 @@ def experiment_phase(root, device="cuda"):
           "pooled_auc_cpu": scores["cpu"][1]["auc"][2], "ok": ok})
     if not ok:
         raise AssertionError("small protocol: card vs CPU mismatch")
+    return launches
+
+
+# ---- the bf16 repairs, checkpoints, predict, explain, optimizers
+# integrated gradients with kernels against plain versions, max|diff| /
+# max|ref| over the (B, NODES) attributions: the limits of TOL_GRAD, since
+# IG sums input gradients of the same forward and backward
+TOL_IG = {"bf16": 7e-2, "f32": 6e-6}
+TOL_OPTIM = 1e-5  # five radam / adamw steps, card against CPU (f32, small)
+IG_STEPS = 16
+CKPT_EPOCHS = 4
+
+
+def repairs_phase(model, ctx, train_kernel_ms):
+    """F1's cost at the sage step's biased bf16 Linear shapes (the two
+    conv MLPs): forward and backward with the bias inside the product
+    (one rounding) and added after it (flax's rounding, the port's form),
+    device ms from the profiler; the train step's kernel ms with the
+    repairs (profile_train); and the bf16 forward of a small fold on the
+    card against the same fold on the CPU."""
+    import torch.nn.functional as F
+
+    rows = ctx.graph.n_nodes * model.cfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ms = {"bias_in_product": 0.0, "bias_after_product": 0.0}
+    shapes = []
+    for i in range(model.n_layers):
+        lin = getattr(model, f"gnn_{i}").gconv.nn.Linear_0
+        cout, cin = lin.weight.shape
+        shapes.append([rows, cin, cout])
+        x = torch.randn(rows, cin, generator=gen, device="cuda").bfloat16().requires_grad_()
+        w = torch.randn(cout, cin, generator=gen, device="cuda").bfloat16().requires_grad_()
+        b = torch.randn(cout, generator=gen, device="cuda").bfloat16().requires_grad_()
+        g = torch.randn(rows, cout, generator=gen, device="cuda").bfloat16()
+        for form in ms:
+            def run(form=form):
+                y = F.linear(x, w, b) if form == "bias_in_product" else F.linear(x, w) + b
+                y.backward(g)
+                x.grad = w.grad = b.grad = None
+            ms[form] += device_ms(run)
+        del x, w, b, g
+    res = {}
+    for dev in ("cuda", "cpu"):
+        _, m, _, c, bt = make_gbm_scale_setup(
+            node_num=300, n_pathways=12, batch=8, gene_rows=900, topology="cohort",
+            windowed=True, device=dev, compute_dtype="bfloat16", spmm_bf16=True)
+        with torch.no_grad():
+            m.eval()
+            res[dev] = [t.float().cpu() for t in m(bt, c)]
+    e_prob, m_prob = err_of(res["cuda"][0], res["cpu"][0])
+    e_img, m_img = err_of(res["cuda"][1], res["cpu"][1])
+    ok = (e_prob <= TOL_BF16 * max(1.0, m_prob) and e_img <= TOL_BF16 * max(1.0, m_img)
+          and bool(torch.isfinite(res["cuda"][1]).all()))
+    emit({"phase": "repairs", "train_kernel_ms_per_step": train_kernel_ms,
+          "linear_shapes": shapes, "linear_fwd_bwd_ms_per_step": ms,
+          "bias_add_cost_ms_per_step": ms["bias_after_product"] - ms["bias_in_product"],
+          "bf16_small_card_vs_cpu": {"prob_max_abs_err": e_prob, "image_max_abs_err": e_img,
+                                     "image_max": m_img, "tol": TOL_BF16},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("repairs: bf16 card vs CPU mismatch")
+
+
+def explain_phase(model, ctx, batch):
+    """integrated_gradients at the GBM fold (bf16 trunk, windowed, B = 32,
+    IG_STEPS steps): launches per call (counts zeroed just before), device
+    ms per call from the profiler, peak memory, kernels against plain
+    versions (max|diff| / max|ref|), then the pathway attributions and the
+    survival screen of the batch on seeded survival times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multilevel_gnn_tpu_torch.train.explain import integrated_gradients, pathway_attributions
+    from multilevel_gnn_tpu_torch.utils.survival import pathway_km_screen
+
+    integrated_gradients(model, batch, ctx, steps=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_launches()
+    t0 = time.perf_counter()
+    ig = integrated_gradients(model, batch, ctx, steps=IG_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        integrated_gradients(model, batch, ctx, steps=IG_STEPS)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, 1)
+    busy = sum(r[1] for r in rows)
+    with spmm.plain_versions():
+        ref = integrated_gradients(model, batch, ctx, steps=IG_STEPS)
+    torch.cuda.synchronize()
+    e, m = err_of(ig, ref)
+    trunk = "bf16" if model.cfg.compute_dtype else "f32"
+    rng = np.random.RandomState(4)
+    n = batch.x.shape[0]
+    scores = pathway_attributions(ig, ctx, model.cfg.pathway_num)
+    screen = pathway_km_screen(scores, np.round(rng.exponential(20.0, n)),
+                               (rng.rand(n) < 0.7).astype(int),
+                               [f"p{i}" for i in range(model.cfg.pathway_num)])
+    ok = (bool(torch.isfinite(ig).all()) and m > 0 and e <= TOL_IG[trunk] * m
+          and launches[k1.KERNEL.name] > 0 and launches[k2.KERNEL.name] > 0
+          and launches[k3.KERNEL.name] == 0 and launches[k4.name] == 0 and len(screen) > 0)
+    emit({"phase": "explain", "steps": IG_STEPS, "batch": n, "trunk": trunk,
+          "launches_per_call": launches,
+          "device_ms_per_call": busy, "wall_ms_per_call": wall * 1e3,
+          "port_kernel_ms_per_call": port_kernel_ms(rows),
+          "peak_mem_mib": peak / 2**20, "max_abs_err_vs_plain": e, "ref_max": m,
+          "tol_rel": TOL_IG[trunk], "km_rows": len(screen),
+          "top": [{"name": nm, "ms": t, "calls": c} for nm, t, c in rows[:10]], "ok": ok})
+    if not ok:
+        raise AssertionError("explain phase failed")
+    return launches
+
+
+def optim_phase():
+    """Five steps each of radam and adamw on a small fold, on the card and
+    on the CPU (f32 trunk, dropout off, clip and weight decay on):
+    parameters within TOL_OPTIM."""
+    out = {}
+    for name in ("radam", "adamw"):
+        params, losses = {}, {}
+        for dev in ("cuda", "cpu"):
+            cfg, _, graph, ctx, batch = make_gbm_scale_setup(
+                node_num=300, n_pathways=12, batch=8, gene_rows=900, topology="cohort",
+                windowed=True, device=dev)
+            cfg = cfg.replace(feature_drop=False, head_drop_rate=0.0, gnn_dropout=0.0,
+                              clip_grad=True, wd=1e-3, lr=1e-3)
+            m = MultilevelGNN(cfg, graph.n_nodes, ctx.num_pca_rows, device=dev, seed=0)
+            opt = make_optimizer(m, cfg, 3, name=name)
+            cw = torch.tensor([1.0, 1.5], device=dev)
+            losses[dev] = [float(train_step(m, opt, batch, ctx, cw, None)) for _ in range(5)]
+            params[dev] = {k: v.detach().float().cpu() for k, v in m.state_dict().items()}
+        err = max(float((params["cuda"][k] - params["cpu"][k]).abs().max())
+                  for k in params["cpu"])
+        moved = max(float((params["cpu"][k] - MultilevelGNN(
+            cfg, graph.n_nodes, ctx.num_pca_rows, device="cpu", seed=0
+        ).state_dict()[k]).abs().max()) for k in params["cpu"])
+        out[name] = {"param_max_abs_err": err, "losses_cuda": losses["cuda"],
+                     "losses_cpu": losses["cpu"], "max_param_move": moved}
+    ok = all(v["param_max_abs_err"] <= TOL_OPTIM and v["max_param_move"] > 0
+             for v in out.values())
+    emit({"phase": "optim", "steps": 5, "tol": TOL_OPTIM, **out, "ok": ok})
+    if not ok:
+        raise AssertionError("optim: card vs CPU mismatch")
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def ckpt_phase(root, cohort, device="cuda"):
+    """The protocol on the cohort files (gbm.yaml, bf16, 1 run x 5 folds x
+    CKPT_EPOCHS epochs, ckpt_every 1) uninterrupted, then interrupted in
+    fold 1 by the interrupt_after hook and resumed: pooled AUC / ACC and
+    every fold's test scores must be equal.  Also a step's bytes, and one
+    step's load (model, optimizer, generator) and save timed.  Returns the
+    uninterrupted run's ckpt dir."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.train import checkpoint as C
+    from multilevel_gnn_tpu_torch.train import driver, predict
+
+    cfg = Config.from_yaml(GBM_YAML).replace(num_run=1, epochs=CKPT_EPOCHS, ckpt_every=1)
+    a_dir, b_dir = f"{root}/ckpt_a", f"{root}/ckpt_b"
+    t0 = time.perf_counter()
+    a = driver.run_experiment(cfg, cohort, device=device, ckpt_dir=a_dir)
+    t_a = time.perf_counter() - t0
+    interrupted_at = None
+    try:
+        driver.run_experiment(cfg, cohort, device=device, ckpt_dir=b_dir,
+                              interrupt_after=[CKPT_EPOCHS + 2])
+    except KeyboardInterrupt as e:
+        interrupted_at = str(e)
+    t0 = time.perf_counter()
+    b = driver.run_experiment(cfg, cohort, device=device, ckpt_dir=b_dir, resume=True)
+    t_b = time.perf_counter() - t0
+    e = CKPT_EPOCHS
+    pooled_equal = all(a[k] == b[k] for k in ("auc", "acc", "auc_by_loss", "acc_by_loss",
+                                                "auc_by_epoch", "acc_by_epoch"))
+    fold_diff = []
+    for f in range(5):
+        fa = np.load(f"{a_dir}/result_run0_fold{f}.npy", allow_pickle=True).item()
+        fb = np.load(f"{b_dir}/result_run0_fold{f}.npy", allow_pickle=True).item()
+        fold_diff.append(max(float(np.abs(getattr(fa, k)[e] - getattr(fb, k)[e]).max())
+                             for k in ("epoch_pred", "epoch_pred_by_loss",
+                                       "epoch_pred_by_epoch")))
+    tag = f"{a_dir}/run0_fold0"
+    step = C.latest_resumable_step(tag)
+    step_bytes = _dir_bytes(f"{tag}/step_{step}") + os.path.getsize(
+        f"{tag}/step_{step}.host.npy")
+    st = predict.load_fold_state(cfg, cohort, None, 0, 0, device=device)
+    opt = make_optimizer(st["model"], st["cfg"], 1)
+    gen = torch.Generator(device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    tree, _ = C.load_checkpoint(tag, step)
+    st["model"].load_state_dict(tree["model"])
+    opt.load_state_dict(tree["optimizer"])
+    gen.set_state(tree["generator"])
+    sync(device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    C.save_checkpoint(f"{root}/ckpt_t", st["model"], opt, gen, step=1)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    ok = (interrupted_at is not None and pooled_equal and max(fold_diff) == 0.0
+          and [f.get("loaded", False) for f in b["folds"]] == [True] + [False] * 4)
+    emit({"phase": "ckpt", "epochs": CKPT_EPOCHS, "interrupted": interrupted_at,
+          "pooled_auc": a["auc"][e], "pooled_auc_resumed": b["auc"][e],
+          "pooled_acc": a["acc"][e], "pooled_acc_resumed": b["acc"][e],
+          "pooled_equal": pooled_equal, "fold_test_score_max_abs_diff": fold_diff,
+          "uninterrupted_s": t_a, "resumed_s": t_b, "step_bytes": step_bytes,
+          "save_ms": save_ms, "load_ms": load_ms,
+          "loaded": [f.get("loaded", False) for f in b["folds"]], "ok": ok})
+    if not ok:
+        raise AssertionError("ckpt: the resumed protocol differs from the uninterrupted one")
+    return a_dir
+
+
+def predict_phase(root, cohort, ckpt_dir, device="cuda"):
+    """The predict CLI on fold 2's checkpoint against predict_fold with the
+    same parameters loaded in memory (equal), then predict_fold timed with
+    its launches counted per batch (B = 32)."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.train import predict
+    from multilevel_gnn_tpu_torch.train.checkpoint import load_checkpoint
+
+    cfg = Config.from_yaml(GBM_YAML)
+    cli_res = predict.main(["--config", GBM_YAML, "--ckpt-dir", ckpt_dir, "--fold", "2",
+                            "--data-dir", root, "--device", device])
+    st = predict.load_fold_state(cfg, cohort, None, 0, 2, device=device)
+    st["model"].load_state_dict(load_checkpoint(f"{ckpt_dir}/run0_fold2")[0]["model"])
+    mem = predict.predict_fold(cfg, cohort, None, 0, 2, model=st["model"], device=device)
+    sync(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    predict.predict_patients(st["model"], st["ctx"], st["X"], cohort.Y, cohort.ages,
+                             st["splits"]["test"])
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    n_b = -(-len(st["splits"]["test"]) // cfg.batch_size)
+    ok = (cli_res["prob"] == mem["prob"] and cli_res["auc"] == mem["auc"]
+          and launches[k1.KERNEL.name] > 0 and launches[k3.KERNEL.name] == 0)
+    emit({"phase": "predict", "fold": 2, "patients": len(mem["prob"]), "batches": n_b,
+          "batch_size": cfg.batch_size, "ms_per_batch": dt * 1e3 / n_b,
+          "launches_per_batch": {k: v / n_b for k, v in launches.items()},
+          "windowed": st["ctx"].graph.winplan is not None,
+          "auc": mem["auc"], "cli_equals_in_memory": ok, "ok": ok})
+    if not ok:
+        raise AssertionError("predict: the CLI's scores differ from the in-memory ones")
+    return launches
+
+
+def explain_cli_phase(root, ckpt_dir, device="cuda"):
+    """The explain CLI once on fold 0's checkpoint (its test split in
+    chunks of 32, IG_STEPS steps), launches counted."""
+    from multilevel_gnn_tpu_torch.train import explain
+
+    sync(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = explain.main(["--config", GBM_YAML, "--ckpt-dir", ckpt_dir, "--fold", "0",
+                        "--data-dir", root, "--ig-steps", str(IG_STEPS), "--top", "3",
+                        "--device", device])
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    ok = (len(res["rows"]) > 0 and bool(np.isfinite(res["scores"]).all())
+          and launches[k1.KERNEL.name] > 0)
+    emit({"phase": "explain_cli", "patients": len(res["patients"]), "rows": len(res["rows"]),
+          "wall_s": dt, "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError("explain CLI failed")
     return launches
 
 
@@ -1197,17 +1498,20 @@ def main() -> int:
                       torch.tensor([1.0, 1.5], device="cuda"))
     del f32_model
     tr = train_phase(tcfg, ctx, init_state)
-    train_per_step = profile_train(tr["model"], ctx, tr["batch"], tr["cw"],
-                                   tr["per_step"])
+    train_per_step, train_kernel_ms = profile_train(tr["model"], ctx, tr["batch"],
+                                                    tr["cw"], tr["per_step"])
     # the composed path: K1 over csr (2 layers), csc (2) and the PCA gather
     profile_train(tr["model"], composed_ctx(ctx), tr["batch"], tr["cw"],
                   {k1.KERNEL.name: 5, k2.KERNEL.name: 0, k3.KERNEL.name: 0,
                    k4.name: 0}, phase="profile_train_composed")
     del tr
     torch.cuda.empty_cache()
+    repairs_phase(model, ctx, train_kernel_ms)
+    paths = {"serve_sage": launches, "explain": explain_phase(model, ctx, batch)}
+    optim_phase()
+    torch.cuda.empty_cache()
 
     # ---- the max-aggregation convs (MRConv, EdgeConv) on the same fold
-    paths = {"serve_sage": launches}
     per_step = {"sage": train_per_step}
     for conv in ("mr", "edge"):
         paths[f"serve_{conv}"], per_step[conv] = conv_paths(
@@ -1220,8 +1524,12 @@ def main() -> int:
 
     # ---- the protocol from reference-format files
     with tempfile.TemporaryDirectory() as root:
-        cohort_phase(root)
+        cohort = cohort_phase(root)
         paths["experiment"] = experiment_phase(root)
+        ckpt_dir = ckpt_phase(root, cohort)
+        paths["predict"] = predict_phase(root, cohort, ckpt_dir)
+        paths["explain_cli"] = explain_cli_phase(root, ckpt_dir)
+        del cohort
 
     main_k1 = r1[("residual", "bfloat16")]
     main_k2 = r2["bfloat16"]

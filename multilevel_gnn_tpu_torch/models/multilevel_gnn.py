@@ -59,6 +59,33 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(f"MultilevelGNN options not ported yet: {bad}")
 
 
+class _Conv2d(torch.autograd.Function):
+    """F.conv2d (stride 1, dilation 1, one group) whose backward runs on
+    cuDNN's deterministic algorithms.  The algorithms cuDNN picks by
+    default may add the weight gradient with atomics, so two trainings
+    from one state drifted apart after a few steps on an H100 and a
+    resumed protocol did not repeat the uninterrupted one (PERF.md);
+    the forward's algorithms are deterministic already."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.padding = padding
+        return F.conv2d(x, w, b, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        p = ctx.padding
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                         allow_tf32=cudnn.allow_tf32):
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, w, [w.shape[0]], [1, 1], [p, p], [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], True])
+        return dx, dw, db, None
+
+
 class ConvHead(nn.Module):
     """PathCNN-style head on the (B, C, P, 3K) NCHW image: conv stack,
     MaxPool (window = stride = (pathway_pool_dim, pca_pool_dim), floor),
@@ -92,7 +119,8 @@ class ConvHead(nn.Module):
         cfg = self.cfg
         h = x
         for i in range(self.n_conv):
-            h = F.relu(getattr(self, f"Conv_{i}")(h))
+            conv = getattr(self, f"Conv_{i}")
+            h = F.relu(_Conv2d.apply(h, conv.weight, conv.bias, conv.padding[0]))
         h = F.max_pool2d(
             h,
             kernel_size=(cfg.pathway_pool_dim, cfg.pca_pool_dim),
@@ -204,8 +232,8 @@ class MultilevelGNN(nn.Module):
         cfg = self.cfg
         cdt = compute_dtype(cfg)
         edge_attr = ctx.graph.edge_attr if cfg.weighted_edge else None
+        # x stays f32 here: each conv casts it to cdt where it uses it
         if cdt is not None:
-            x = x.to(cdt)
             mask_x = mask_x.to(cdt)
         for i in range(self.n_layers):
             x = getattr(self, f"gnn_{i}")(x, ctx.graph, edge_attr, generator)

@@ -27,7 +27,7 @@ def act(x: torch.Tensor, act_type: Optional[str], neg_slope: float = 0.2) -> tor
     if a == "relu":
         return F.relu(x)
     if a == "leakyrelu":
-        return F.leaky_relu(x, neg_slope)
+        return leaky_relu(x, neg_slope)
     if a == "elu":
         return F.elu(x)
     if a == "tanh":
@@ -37,6 +37,31 @@ def act(x: torch.Tensor, act_type: Optional[str], neg_slope: float = 0.2) -> tor
     if a == "softmax":
         return torch.softmax(x, dim=-1)
     raise NotImplementedError(f"activation [{act_type}] is not found")
+
+
+class _LeakyReLU(torch.autograd.Function):
+    """F.leaky_relu with the slope rounded to x's dtype: a bf16 x times
+    bf16(0.2) = 0.2001953125 is exact in f32, so its one rounding to bf16
+    is jax.nn.leaky_relu's bf16 product; the backward is JAX's
+    where(x >= 0, g, g * slope), gradient 1 at x = 0 (F.leaky_relu's is
+    the slope there)."""
+
+    @staticmethod
+    def forward(ctx, x, slope: float):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return F.leaky_relu(x, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * ctx.slope), None
+
+
+def leaky_relu(x: torch.Tensor, neg_slope: float = 0.2) -> torch.Tensor:
+    """jax.nn.leaky_relu(x, neg_slope): the slope in x's dtype, gradient 1
+    at x = 0."""
+    return _LeakyReLU.apply(x, float(torch.tensor(neg_slope, dtype=x.dtype)))
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -73,7 +98,10 @@ class Dropout(nn.Module):
 class Linear(nn.Module):
     """Dense layer with weight (out, in).  kernel_init: "torch" (nn.Linear
     default) or "xavier"; bias U(+-1/sqrt(fan_in)).  dtype: optional compute
-    dtype (params stay float32, input and params cast for the product)."""
+    dtype (params stay float32, input and params cast for the product).
+    As flax's Dense, the product is rounded to the compute dtype and the
+    bias is added after it in that dtype (F.linear with a bias rounds
+    once)."""
 
     def __init__(
         self,
@@ -100,10 +128,12 @@ class Linear(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype is None:
-            return F.linear(x, self.weight, self.bias)
-        b = self.bias.to(self.dtype) if self.bias is not None else None
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        w, b = self.weight, self.bias
+        if self.dtype is not None:
+            x, w = x.to(self.dtype), w.to(self.dtype)
+            b = b.to(self.dtype) if b is not None else None
+        y = F.linear(x, w)
+        return y if b is None else y + b
 
 
 class MLP(nn.Module):

@@ -64,13 +64,17 @@ class RSAGEConv(nn.Module):
         edge_attr: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        # an f32 x (the trunk's input) is cast for each use on its own, so
+        # the two cotangents, each rounded to the compute dtype, are added
+        # in f32, as XLA keeps that sum (it drops the bf16 round trip)
+        xd = x if self.dtype is None else x.to(self.dtype)
         mean_j = spmm.spmm_mean(
-            x, graph, edge_weight=edge_attr, dtype=self.spmm_dtype
+            xd, graph, edge_weight=edge_attr, dtype=self.spmm_dtype
         )
         if self.dtype is not None:
             mean_j = mean_j.to(self.dtype)
         if self.relative:
-            mean_j = mean_j - x
+            mean_j = mean_j - xd
         aggr = self.lin_r(mean_j)
         h = torch.cat([x.to(aggr.dtype), aggr], dim=-1)
         out = self.nn(h, generator)
@@ -85,7 +89,10 @@ def _node_rows(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """x in the compute dtype with whole node rows contiguous: the edge
     gathers copy node rows, and index_select takes its vectorized kernel
     only on a contiguous input (the first layer's input, an outer product
-    with a transposed batch, is not)."""
+    with a transposed batch, is not).  EdgeConv calls it for each use of x,
+    so an f32 x (the trunk's input) gets its two cotangents added in f32,
+    as XLA adds them (see RSAGEConv.forward); MRConv casts once, which
+    comes closer to XLA's sum of its three (ROADMAP section 3, F3)."""
     return (x if dtype is None else x.to(dtype)).contiguous()
 
 
@@ -133,9 +140,8 @@ class EdgeConv(_MaxConv):
     (conv.py:505-507), so the next layer and the value mask see f32."""
 
     def forward(self, x, graph: Graph, edge_attr=None, generator=None):
-        x = _node_rows(x, self.dtype)
-        x_i = spmm.gather_dst(x, graph)
-        x_j = spmm.gather_src(x, graph)
+        x_i = spmm.gather_dst(_node_rows(x, self.dtype), graph)
+        x_j = spmm.gather_src(_node_rows(x, self.dtype), graph)
         msg = self.nn(torch.cat([x_i, x_j - x_i], dim=-1))
         return spmm.edge_segment_max(
             msg, graph.receivers, graph.edge_mask, graph.csr

@@ -1,14 +1,18 @@
 """Train CLI of the port (counterpart of multilevel_gnn_tpu/train/cli.py):
 
     python -m multilevel_gnn_tpu_torch.train.cli --config configs/gbm.yaml \\
-        (--data-dir DIR | --synthetic) [--set key=value ...] [--device cpu]
+        (--data-dir DIR | --synthetic) [--set key=value ...] [--device cpu] \\
+        [--ckpt-dir DIR [--resume]]
 
 Runs run_experiment, the num_run x 5-fold protocol, on a cohort read from
 reference-format files under --data-dir (or on a generated one with
 --synthetic) and prints one JSON line: the pooled AUC / ACC at the last
 check epoch and the wall time.  --out writes the whole result.  The device
-is CUDA unless --device cpu is given.  The JAX CLI's mesh, checkpoint,
-pretrain, fold-parallel, profile and scaling options are not ported.
+is CUDA unless --device cpu is given.  --ckpt-dir checkpoints every fold
+(at its last epoch, or every N epochs with --set ckpt_every=N) and saves
+each finished fold's result; --resume continues an interrupted protocol
+from there.  The JAX CLI's mesh, pretrain, fold-parallel, profile and
+scaling options are not ported.
 """
 from __future__ import annotations
 
@@ -112,6 +116,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--debug", action="store_true", help="tiny fast settings")
     ap.add_argument("--out", default=None, help="results json path")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint dir: every fold at its last epoch, or "
+                         "every N epochs with --set ckpt_every=N")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume an interrupted experiment from --ckpt-dir")
     ap.add_argument("--set", nargs="*", default=[], help="key=value overrides")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -124,7 +133,8 @@ def main(argv=None) -> dict:
     if args.debug:
         cfg = cfg.replace(num_run=1, epochs=5, batch_size=8)
     cohort = make_cohort(cfg, args.synthetic, args.data_dir, args.debug)
-    results = run_experiment(cfg, cohort, device=device)
+    results = run_experiment(cfg, cohort, device=device, ckpt_dir=args.ckpt_dir,
+                             resume=args.resume)
     final_e = results["check_epochs"][-1]
     print(json.dumps({
         "cancer_type": cfg.cancer_type,

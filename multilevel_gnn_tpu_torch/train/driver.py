@@ -11,16 +11,22 @@ so both draw the same batches.  run_fold gathers each training batch on
 the device from a per-epoch plan copied there once (as the JAX driver's
 epoch scan does), so the host never waits for the card inside an epoch.
 
-Left out of run_fold and run_experiment: the mesh, checkpoints and resume,
-pretraining and pretrained transfer, warm_only, the deepergcn / pathcnn
-branches, and epoch_scan / fold_scan, which only change how JAX dispatches
-the same steps.  stratified_kfold reproduces sklearn 1.9's StratifiedKFold
-in numpy (the GPU hosts have no sklearn).
+Checkpoints (train/checkpoint.py) go under ckpt_dir/run{r}_fold{f}/ every
+cfg.ckpt_every epochs (at the fold's last epoch when 0), keeping the newest
+cfg.ckpt_keep; a finished fold's FoldResult is saved as
+ckpt_dir/result_run{r}_fold{f}.npy, and resume=True loads finished folds
+and resumes an unfinished one at its latest complete step.  Left out of
+run_fold and run_experiment: the mesh, pretraining and pretrained transfer,
+warm_only, the deepergcn / pathcnn branches, and epoch_scan / fold_scan,
+which only change how JAX dispatches the same steps.  stratified_kfold
+reproduces sklearn 1.9's StratifiedKFold in numpy (the GPU hosts have no
+sklearn).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import queue
 import threading
 import time
@@ -32,6 +38,7 @@ import torch
 from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN, seed_pca_params
+from multilevel_gnn_tpu_torch.train import checkpoint as C
 from multilevel_gnn_tpu_torch.train import metrics as M
 from multilevel_gnn_tpu_torch.train.step import eval_step, make_optimizer, train_step
 
@@ -68,6 +75,15 @@ def stratified_kfold(labels: np.ndarray, n_splits: int, shuffle: bool, seed):
         test_folds[y_encoded == k] = folds_for_class
     idx = np.arange(len(y))
     return [(idx[test_folds != i], idx[test_folds == i]) for i in range(n_splits)]
+
+
+def fold_indices(labels: np.ndarray, cfg: Config, fold_i: int):
+    """(train, valid, test) patient indices of outer fold fold_i
+    (driver.py:824-830): the outer stratified 5-fold split gives (tune,
+    test); the first inner split of tune gives (train, valid)."""
+    tune, test_idx = stratified_kfold(labels, 5, cfg.split_shaffle, cfg.split_seed)[fold_i]
+    tr, va = stratified_kfold(labels[tune], 5, cfg.split_shaffle, cfg.split_seed)[0]
+    return tune[tr], tune[va], test_idx
 
 
 def epoch_plan(
@@ -190,6 +206,9 @@ def run_fold(
     model=None,
     run_i: int = 0,
     fold_i: int = 0,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+    interrupt_after: Optional[List[int]] = None,
 ) -> FoldResult:
     """Train one prepared fold for cfg.epochs and score it (driver.py:243-739,
     per-step path), with the seeds of (run_i, fold_i).
@@ -200,7 +219,13 @@ def run_fold(
     one from the fold seed.  Per epoch: the training steps, then evaluate on
     valid and test; best-by-valid-AUC and best-by-valid-loss test scores
     are kept, and recorded at each check epoch (with the current epoch's
-    scores as the fallback when no improvement was seen)."""
+    scores as the fallback when no improvement was seen).
+
+    ckpt_dir: checkpoints under ckpt_dir/run{run_i}_fold{fold_i}/ (module
+    docstring); resume: start from its latest complete step.  The lists of
+    a resumed fold's FoldResult hold the epochs run in this call.
+    interrupt_after: [n], a test hook counted down once per epoch across
+    calls; at 0 it checkpoints and raises KeyboardInterrupt."""
     dev = ctx.device
     seed = cfg.seed * 10_000 + run_i * 100 + fold_i  # driver.py:317
     if model is None:
@@ -234,6 +259,31 @@ def run_fold(
                    result_y_by_loss=None, epoch={}, epoch_by_loss={},
                    epoch_by_epoch={})
     out = FoldResult(None, {}, {}, {})
+    step_i, start_epoch = 0, 1
+    tag_dir = (os.path.join(ckpt_dir, f"run{run_i}_fold{fold_i}")
+               if ckpt_dir is not None else None)
+    if tag_dir is not None and resume:
+        last = C.latest_resumable_step(tag_dir)
+        if last is not None:
+            tree, _ = C.load_checkpoint(tag_dir, last)
+            model.load_state_dict(tree["model"])
+            optimizer.load_state_dict(tree["optimizer"])
+            generator.set_state(tree["generator"])
+            host = C.load_host_state(tag_dir, last)
+            results = host["results"]
+            out.y_true = host["y_true_test"]
+            step_i = host["step_i"]
+            np_rng.set_state(host["np_rng_state"])
+            start_epoch = last + 1
+
+    def save(epoch):
+        """_save_fold_ckpt, driver.py:487-514."""
+        C.save_checkpoint(tag_dir, model, optimizer, generator,
+                          {"run": run_i, "fold": fold_i, "epoch": epoch}, step=epoch)
+        C.save_host_state(tag_dir, epoch, {
+            "results": results, "y_true_test": out.y_true, "step_i": step_i,
+            "np_rng_state": np_rng.get_state()})
+        C.prune_old_steps(tag_dir, cfg.ckpt_keep)
 
     def record(epoch, valid_auc, valid_acc, valid_loss, test_score):
         """_record_epoch, driver.py:460-485."""
@@ -251,7 +301,7 @@ def run_fold(
                 )
             results["epoch_by_epoch"][epoch] = test_score
 
-    for epoch in range(1, cfg.epochs + 1):
+    for epoch in range(start_epoch, cfg.epochs + 1):
         t0 = time.perf_counter()
         plan = list(epoch_plan(X, train_idx, cfg.batch_size, np_rng, shuffle,
                                drop_last, sampler_weights, variation))
@@ -283,6 +333,7 @@ def run_fold(
                     events.append(ev)
             out.step_losses += [float(v) for v in torch.stack(losses).cpu()]
             out.step_ms += [a.elapsed_time(b) for a, b in events]
+            step_i += len(plan)
         valid_auc, valid_acc, _, _, valid_loss = evaluate(
             model, ctx, X, Y, ages, valid_idx, cfg.batch_size
         )
@@ -292,6 +343,17 @@ def run_fold(
         record(epoch, valid_auc, valid_acc, valid_loss, test_score)
         out.epoch_valid.append((valid_auc, valid_acc, valid_loss))
         out.epoch_times.append(time.perf_counter() - t0)
+        interrupt = interrupt_after is not None and interrupt_after[0] == 1
+        if tag_dir is not None and (
+            (cfg.ckpt_every > 0 and epoch % cfg.ckpt_every == 0)
+            or interrupt or (cfg.ckpt_every <= 0 and epoch == cfg.epochs)
+        ):
+            save(epoch)
+        if interrupt_after is not None:
+            interrupt_after[0] -= 1
+            if interrupt_after[0] <= 0:
+                raise KeyboardInterrupt(
+                    f"interrupted at run {run_i} fold {fold_i} epoch {epoch} (test hook)")
     out.epoch_pred = {e: results["epoch"][e] for e in check_epochs}
     out.epoch_pred_by_loss = {e: results["epoch_by_loss"][e] for e in check_epochs}
     out.epoch_pred_by_epoch = {e: results["epoch_by_epoch"][e] for e in check_epochs}
@@ -345,22 +407,32 @@ class _Prefetcher:
         self._q.put(None)
 
 
-def run_experiment(cfg: Config, cohort, device="cuda") -> Dict:
+def run_experiment(
+    cfg: Config, cohort, device="cuda", ckpt_dir: Optional[str] = None,
+    resume: bool = False, interrupt_after: Optional[List[int]] = None,
+) -> Dict:
     """The num_run x 5-fold protocol with pooled check-epoch scoring
     (driver.py:794-962).
 
-    Per run, the outer stratified 5-fold split gives (tune, test); the first
-    inner split of tune gives (train, valid).  Every run derives the same
-    splits, so each fold's derivation (MI mask, PCA seeds, edges, graph) is
-    made once and kept; with cfg.fold_prefetch the next fold's derivation
-    runs on a worker thread while the current fold trains.  At each check
-    epoch (every 5th, or the last) the test scores of the five folds are
-    pooled into one AUC and ACC per run, for the best-by-valid-AUC
-    ("auc", "acc"), best-by-valid-loss ("*_by_loss") and current-epoch
-    ("*_by_epoch") snapshots; the result holds their mean over runs, their
-    std (``*_std``) and every run's value (``*_all``), keyed by epoch.
-    ``folds`` lists each trained fold's derivation seconds by stage, its
-    median device ms per train step (CUDA only) and host s per epoch."""
+    Per run, fold_indices gives each fold's (train, valid, test).  Every
+    run derives the same splits, so each fold's derivation (MI mask, PCA
+    seeds, edges, graph) is made once and kept; with cfg.fold_prefetch the
+    next fold's derivation runs on a worker thread while the current fold
+    trains.  At each check epoch (every 5th, or the last) the test scores
+    of the five folds are pooled into one AUC and ACC per run, for the
+    best-by-valid-AUC ("auc", "acc"), best-by-valid-loss ("*_by_loss") and
+    current-epoch ("*_by_epoch") snapshots; the result holds their mean
+    over runs, their std (``*_std``) and every run's value (``*_all``),
+    keyed by epoch.  ``folds`` lists each fold's derivation seconds by
+    stage, its median device ms per train step (CUDA only) and host s per
+    epoch; a fold loaded from its result record has "loaded": True.
+    ``epoch_s_median`` is the median host s per epoch over the last run's
+    folds, as JAX takes it.
+
+    ckpt_dir / resume / interrupt_after: as run_fold's; each finished
+    fold's FoldResult is saved as ckpt_dir/result_run{r}_fold{f}.npy, and
+    with resume a fold that has one is loaded instead of trained (the next
+    fold's derivation is still prefetched)."""
     labels = cohort.labels()
     check_epochs = list(range(5, cfg.epochs + 1, 5)) or [cfg.epochs]
     agg = {
@@ -369,12 +441,6 @@ def run_experiment(cfg: Config, cohort, device="cuda") -> Dict:
                   "acc_by_epoch")
     }
     t0 = time.perf_counter()
-
-    def fold_indices(outer, fold_i):
-        tune, test_idx = outer[fold_i]
-        tr, va = stratified_kfold(labels[tune], 5, cfg.split_shaffle, cfg.split_seed)[0]
-        return tune[tr], tune[va], test_idx
-
     setup_cache: Dict = {}
     pending: Dict = {}
     prefetcher = _Prefetcher() if cfg.fold_prefetch else None
@@ -397,27 +463,43 @@ def run_experiment(cfg: Config, cohort, device="cuda") -> Dict:
             pending[k] = prefetcher.submit(setup, fold_i, train_idx)
 
     folds_info = []
-    all_epoch_times: List[float] = []
+    fold_results: List[FoldResult] = []
     try:
         for run_i in range(cfg.num_run):
-            outer = stratified_kfold(labels, 5, cfg.split_shaffle, cfg.split_seed)
-            fold_results: List[FoldResult] = []
-            for fold_i in range(len(outer)):
-                train_idx, valid_idx, test_idx = fold_indices(outer, fold_i)
-                (fcfg, fold, X), setup_s = get_setup(fold_i, train_idx)
-                if fold_i + 1 < len(outer):
-                    prefetch(fold_i + 1, fold_indices(outer, fold_i + 1)[0])
-                fr = run_fold(
-                    fcfg.replace(pathway_num=cohort.n_pathways), fold.ctx, X,
-                    cohort.Y, cohort.ages, train_idx, valid_idx, test_idx,
-                    fold.class_weight, check_epochs, run_i=run_i, fold_i=fold_i,
-                )
+            fold_results = []
+            for fold_i in range(5):
+                train_idx, valid_idx, test_idx = fold_indices(labels, cfg, fold_i)
+                done = (os.path.join(ckpt_dir, f"result_run{run_i}_fold{fold_i}.npy")
+                        if ckpt_dir is not None else None)
+                loaded = resume and done is not None and os.path.exists(done)
+                if not loaded:
+                    (fcfg, fold, X), setup_s = get_setup(fold_i, train_idx)
+                if fold_i + 1 < 5:
+                    prefetch(fold_i + 1, fold_indices(labels, cfg, fold_i + 1)[0])
+                if loaded:
+                    fr = np.load(done, allow_pickle=True).item()
+                    info = {"loaded": True}
+                else:
+                    fr = run_fold(
+                        fcfg.replace(pathway_num=cohort.n_pathways), fold.ctx, X,
+                        cohort.Y, cohort.ages, train_idx, valid_idx, test_idx,
+                        fold.class_weight, check_epochs, run_i=run_i, fold_i=fold_i,
+                        ckpt_dir=ckpt_dir, resume=resume,
+                        interrupt_after=interrupt_after,
+                    )
+                    if done is not None:
+                        os.makedirs(ckpt_dir, exist_ok=True)
+                        with open(f"{done}.tmp", "wb") as f:
+                            np.save(f, fr, allow_pickle=True)
+                        os.replace(f"{done}.tmp", done)
+                    info = {
+                        "setup_s": setup_s, "setup_stage_s": fold.seconds,
+                        "edges": fold.edge_count,
+                        "windowed": fold.ctx.graph.winplan is not None,
+                    }
                 fold_results.append(fr)
-                all_epoch_times += fr.epoch_times
                 folds_info.append({
-                    "run": run_i, "fold": fold_i, "setup_s": setup_s,
-                    "setup_stage_s": fold.seconds, "edges": fold.edge_count,
-                    "windowed": fold.ctx.graph.winplan is not None,
+                    "run": run_i, "fold": fold_i, **info,
                     "step_ms_median": float(np.median(fr.step_ms)) if fr.step_ms else None,
                     "epoch_s": fr.epoch_times,
                 })
@@ -432,10 +514,11 @@ def run_experiment(cfg: Config, cohort, device="cuda") -> Dict:
     finally:
         if prefetcher is not None:
             prefetcher.shutdown()
+    epoch_times = [t for fr in fold_results for t in fr.epoch_times]
     out = {
         "check_epochs": check_epochs,
         "wall_time_s": time.perf_counter() - t0,
-        "epoch_s_median": float(np.median(all_epoch_times)) if all_epoch_times else None,
+        "epoch_s_median": float(np.median(epoch_times)) if epoch_times else None,
         "folds": folds_info,
     }
     for k, d in agg.items():

@@ -4,14 +4,16 @@ classification_loss :58-82, make_optimizer :111-156, make_loss_fn :185-209,
 train_step :218-225, eval_step :227-236).
 
 Softmax head + BCELoss on 2-column targets, as the reference, plus the
-learnable-PCA feature losses; Adam with coupled L2, an optional global-norm
-clip at 20 and the StepLR / warmup schedule of the update count.
+learnable-PCA feature losses; Adam with coupled L2 (or RAdam, or AdamW),
+an optional global-norm clip at 20 and the StepLR / warmup schedule of the
+update count.
 """
 from __future__ import annotations
 
 import math
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext
@@ -97,36 +99,54 @@ def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float
 
 
 class Optimizer:
-    """optax.chain(clip_by_global_norm(20)?, add_decayed_weights(wd)?,
-    adam(schedule)) over a module's parameters (step.py:136-156).
+    """optax's chains over a module's parameters (step.py:136-156), each
+    after the optional clip_by_global_norm(20) and on the schedule of the
+    update count (make_lr_schedule):
+
+      adam    add_decayed_weights(wd)?, adam: torch.optim.Adam with
+              weight_decay is this coupled L2 (wd * p added to the
+              gradient before the moments), as the reference trains
+      radam   radam, then add_decayed_weights(wd) when wd > 0: the decay
+              is added after the learning-rate scale, so p moves by
+              -lr * u + wd * p, as the JAX chain does
+      adamw   adamw: p moves by -lr * (u + wd * p), decoupled, on every
+              parameter
 
     The clip divides by max(norm, 20), optax's form (torch's
-    clip_grad_norm_ adds 1e-6 to the norm).  torch.optim.Adam with
-    weight_decay is the coupled L2 (wd * p added to the gradient before the
-    moments), as the reference trains; its lr is set from the schedule
-    before every update.  A parameter without a gradient (a frozen one)
-    counts as a zero gradient, as in the JAX tree."""
+    clip_grad_norm_ adds 1e-6 to the norm).  A parameter without a
+    gradient (a frozen one) counts as a zero gradient, as in the JAX tree.
+    radam's rectification term and the bias corrections are computed in
+    float32, as optax computes them."""
 
-    def __init__(self, params, cfg: Config, steps_per_epoch: int):
+    def __init__(self, params, cfg: Config, steps_per_epoch: int, name: str = "adam"):
+        if name not in ("adam", "radam", "adamw"):
+            raise NotImplementedError(f"optimizer {name!r} is not ported")
+        self.name = name
         self.params = [p for p in params if p.requires_grad]
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.clip = bool(cfg.clip_grad)
+        self.b1, self.b2, self.wd = cfg.beta1, cfg.beta2, cfg.wd
         self.count = 0
-        self.adam = torch.optim.Adam(
-            self.params, lr=self.schedule(0), betas=(cfg.beta1, cfg.beta2),
-            eps=1e-8, weight_decay=cfg.wd,
-        )
+        if name == "adam":
+            self.adam = torch.optim.Adam(
+                self.params, lr=self.schedule(0), betas=(cfg.beta1, cfg.beta2),
+                eps=1e-8, weight_decay=cfg.wd,
+            )
+        else:
+            self.mu = [torch.zeros_like(p) for p in self.params]
+            self.nu = [torch.zeros_like(p) for p in self.params]
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
     @torch.no_grad()
     def step(self) -> None:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         if self.clip:
-            grads = [p.grad for p in self.params]
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads))
             )
@@ -135,23 +155,78 @@ class Optimizer:
                 norm < CLIP_NORM, torch.ones_like(norm), CLIP_NORM / norm
             )
             torch._foreach_mul_(grads, scale)
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.adam.step()
+        lr = self.schedule(self.count)
+        if self.name == "adam":
+            for group in self.adam.param_groups:
+                group["lr"] = lr
+            self.adam.step()
+        else:
+            self._moment_step(grads, lr)
         self.count += 1
+
+    def _moment_step(self, grads, lr: float) -> None:
+        """optax's scale_by_radam / scale_by_adam on the moments, then the
+        decay and the learning rate as the chain orders them."""
+        t = np.float32(self.count + 1)
+        b1, b2 = np.float32(self.b1), np.float32(self.b2)
+        c1 = float(np.float32(1) - b1 ** t)
+        c2 = float(np.float32(1) - b2 ** t)
+        r = None  # adamw, or radam past its threshold: rescaled Adam
+        if self.name == "radam":
+            ro_inf = np.float32(2.0 / (1.0 - self.b2) - 1.0)
+            b2t = b2 ** t
+            ro = ro_inf - np.float32(2) * t * b2t / (np.float32(1) - b2t)
+            if ro >= 5.0:
+                r = float(np.sqrt(
+                    (ro - np.float32(4)) * (ro - np.float32(2)) * ro_inf
+                    / ((ro_inf - np.float32(4)) * (ro_inf - np.float32(2)) * ro)))
+        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+            m.mul_(self.b1).add_(g, alpha=1 - self.b1)
+            v.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
+            m_hat = m / c1
+            if self.name == "radam" and r is None:
+                u = m_hat
+            else:
+                u = m_hat / (torch.sqrt(v / c2) + 1e-8)
+                if r is not None:
+                    u = u * r
+            if self.name == "adamw":
+                p.sub_((u + self.wd * p) * lr)
+            elif self.wd > 0:
+                p.add_(self.wd * p - u * lr)
+            else:
+                p.sub_(u * lr)
+
+    def state_dict(self) -> dict:
+        state = {"name": self.name, "count": self.count}
+        if self.name == "adam":
+            state["adam"] = self.adam.state_dict()
+        else:
+            state["mu"], state["nu"] = list(self.mu), list(self.nu)
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        """Loads a state_dict of the same optimizer over the same
+        parameters, saved on any device."""
+        if state["name"] != self.name:
+            raise ValueError(f"state of {state['name']!r}, optimizer {self.name!r}")
+        self.count = int(state["count"])
+        if self.name == "adam":
+            self.adam.load_state_dict(state["adam"])
+        else:
+            for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+                for d, s in zip(dst, src):
+                    d.copy_(s)
 
 
 def make_optimizer(
     model: torch.nn.Module, cfg: Config, steps_per_epoch: int,
     name: Optional[str] = None,
 ) -> Optimizer:
-    """Adam with coupled L2, StepLR and warmup, and the clip when
-    cfg.clip_grad (step.py:111-156).  The 'radam' and 'adamw' names of the
-    reference's optimizer zoo are not ported yet."""
-    name = name or "adam"
-    if name != "adam":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet")
-    return Optimizer(model.parameters(), cfg, steps_per_epoch)
+    """The optimizer ``name`` ('adam' by default, 'radam' or 'adamw'), with
+    StepLR, warmup and the clip when cfg.clip_grad (step.py:111-156).  As
+    in JAX, the name selects it; cfg.optimizer is not read."""
+    return Optimizer(model.parameters(), cfg, steps_per_epoch, name or "adam")
 
 
 def make_loss_fn(cfg: Config) -> Callable:

@@ -24,7 +24,9 @@ a star graph with a 5,000-edge hub (K1's long-row blocks on csr and csc,
 K2's hub rows on both sides), accumulate mode over 3 rows of 10,000 edges
 (the other rows untouched), K2 on a permuted plan at F = 8, 20, 64, 2048,
 2056 on both sides, and a dense sub-block split into blocks at the entry
-cap.
+cap.  Integrated gradients with K1 / K2 against the same with the plain
+versions (windowed and composed, bf16 and f32, same tolerances), and a
+checkpoint written on the card loaded on the CPU and on the card.
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -396,3 +398,77 @@ def test_k2_dense_sub_block_split(dev, dtype):
     for transpose in (False, True):
         _close(k2.windowed_tile_spmm(x, w, plan, transpose),
                k2.windowed_tile_spmm_plain(x, w, plan, transpose), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("windowed", [True, False], ids=["windowed", "composed"])
+def test_integrated_gradients_kernels_match_plain(dev, dtype, windowed):
+    """integrated_gradients with K1 / K2 (forward and the input gradient's
+    backward) against the same with the plain versions, on a small cohort
+    fold; held to TOL x max(1, max|plain|)."""
+    from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup
+    from multilevel_gnn_tpu_torch.ops import spmm
+    from multilevel_gnn_tpu_torch.ops.kernels import build
+    from multilevel_gnn_tpu_torch.train.explain import integrated_gradients
+
+    bf16 = dtype == torch.bfloat16
+    _, model, graph, ctx, batch = make_gbm_scale_setup(
+        node_num=300, n_pathways=12, batch=8, gene_rows=900, topology="cohort",
+        windowed=windowed, device=dev, compute_dtype="bfloat16" if bf16 else None,
+        spmm_bf16=bf16)
+    assert (graph.winplan is not None) == windowed
+    for k in build.REGISTRY.values():
+        k.launches = 0
+    ig = integrated_gradients(model, batch, ctx, steps=4)
+    assert k1.KERNEL.launches > 0 and (k2.KERNEL.launches > 0) == windowed
+    with spmm.plain_versions():
+        ref = integrated_gradients(model, batch, ctx, steps=4)
+    assert bool(torch.isfinite(ig).all()) and float(ref.abs().max()) > 0
+    _close(ig, ref, dtype)
+
+
+@pytest.mark.parametrize("name", ["adam", "radam"])
+def test_checkpoint_moves_between_devices(dev, tmp_path, name):
+    """A checkpoint written on the card loads on the CPU and on the card:
+    model and optimizer state equal to what was saved, and one more step
+    from either equal to the same step on the saved optimizer (within f32
+    rounding on the CPU); the dropout generator's state goes on."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.train import checkpoint as C
+    from multilevel_gnn_tpu_torch.train.step import make_optimizer
+
+    def setup(device):
+        torch.manual_seed(0)
+        m = torch.nn.Linear(5, 3).to(device)
+        return m, make_optimizer(m, Config(lr=1e-2), 2, name=name)
+
+    def step(m, opt, x):
+        m(x.to(m.weight.device)).sum().backward()
+        opt.step()
+        opt.zero_grad()
+
+    m, opt = setup(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xs = torch.randn(4, 4, 5, generator=torch.Generator().manual_seed(1))
+    for x in xs[:3]:
+        step(m, opt, x)
+    C.save_checkpoint(str(tmp_path), m, opt, gen, step=1)
+    step(m, opt, xs[3])
+    for device in ("cpu", dev):
+        # a fresh load each time: the optimizer takes the loaded moments
+        # as its own where they are already on its device, and steps them
+        tree, _ = C.load_checkpoint(str(tmp_path), 1)
+        m2, opt2 = setup(device)
+        m2.load_state_dict(tree["model"])
+        opt2.load_state_dict(tree["optimizer"])
+        assert opt2.count == 3
+        for k, v in tree["model"].items():
+            torch.testing.assert_close(m2.state_dict()[k].cpu(), v, rtol=0, atol=0)
+        step(m2, opt2, xs[3])
+        for (k, a), b in zip(m.named_parameters(), m2.parameters()):
+            torch.testing.assert_close(b.detach().cpu(), a.detach().cpu(), rtol=1e-5,
+                                       atol=1e-6, msg=lambda e, k=k: f"{device} {k}: {e}")
+    g2 = torch.Generator(device=dev)
+    g2.set_state(tree["generator"])
+    torch.testing.assert_close(torch.rand(8, generator=g2, device=dev),
+                               torch.rand(8, generator=gen, device=dev), rtol=0, atol=0)

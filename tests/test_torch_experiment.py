@@ -14,6 +14,11 @@ package's own.
 - run_experiment, 1 run x 5 folds x 5 epochs: every fold's test scores at
   epoch 5 (best by valid AUC, best by valid loss, last epoch) within 1e-5,
   the pooled AUC and ACC equal, and the folds derived on identical splits.
+- the same run_fold and run_experiment under kirc.yaml and lgg.yaml (B,
+  pca_dim 3, the pathway reorder, pool dims 1, lr and step; kirc's
+  selected_similarity), at the same small widths.
+- run_experiment against JAX on its default path, the whole fold as one
+  scan (epoch_scan, fold_scan).
 - the train CLI on the written directory gives run_experiment's result.
 """
 import json
@@ -55,12 +60,21 @@ def setup(tmp_path_factory):
     return build_setup(str(tmp_path_factory.mktemp("cohort")))
 
 
-def build_setup(d):
-    """The cohort written into d and loaded by both packages."""
-    write_reference_format(d, seed=4, cancer_type="gbm", n_patients=60, n_pathways=5)
-    jcohort = jloaders.load_cohort_from_files(cfg=JConfig.from_yaml(GBM, **KW), **_paths(d))
-    cfg = Config.from_yaml(GBM, **KW)
-    cohort = loaders.load_cohort_from_files(cfg=cfg, **_paths(d))
+@pytest.fixture(scope="module", params=["kirc", "lgg"])
+def other(request, tmp_path_factory):
+    """The same cohort under kirc.yaml or lgg.yaml."""
+    return build_setup(str(tmp_path_factory.mktemp(request.param)), request.param)
+
+
+def build_setup(d, name="gbm"):
+    """The cohort written into d and loaded by both packages under
+    configs/{name}.yaml at the small widths of KW."""
+    path = str(Path(GBM).with_name(f"{name}.yaml"))
+    write_reference_format(d, seed=4, cancer_type=name, n_patients=60, n_pathways=5)
+    jcohort = jloaders.load_cohort_from_files(cfg=JConfig.from_yaml(path, **KW),
+                                              **_paths(d, name))
+    cfg = Config.from_yaml(path, **KW)
+    cohort = loaders.load_cohort_from_files(cfg=cfg, **_paths(d, name))
     return dict(dir=d, jcohort=jcohort, cohort=cohort, cfg=cfg)
 
 
@@ -127,12 +141,47 @@ def test_run_fold_run1_fold2_matches_jax(setup, monkeypatch):
     _close_scores(pres, jres)
 
 
+def _fold_matches(setup, monkeypatch, fold_i=2, run_i=1):
+    jc, pc, cfg = setup["jcohort"], setup["cohort"], setup["cfg"]
+    labels = pc.labels()
+    np.testing.assert_array_equal(labels, jc.labels())
+    tr, va, te = driver.fold_indices(labels, cfg, fold_i)
+    carrier = InitCarrier(monkeypatch)
+    check = [1, 3, 5]
+    jres = jdriver.run_fold(jc.cfg, jc, tr, va, te, fold_i, run_i, check)
+    pcfg, fold, X = driver.fold_setup(cfg, pc, tr, fold_i, device="cpu")
+    pres = driver.run_fold(pcfg.replace(pathway_num=pc.n_pathways), fold.ctx, X, pc.Y,
+                           pc.ages, tr, va, te, fold.class_weight, check,
+                           run_i=run_i, fold_i=fold_i)
+    assert not carrier.params
+    _close_scores(pres, jres)
+
+
+def test_run_fold_other_configs_match_jax(other, monkeypatch):
+    _fold_matches(other, monkeypatch)
+
+
+def test_run_experiment_other_configs_match_jax(other, monkeypatch):
+    _experiment_matches(other, monkeypatch)
+
+
+def test_run_experiment_matches_jax_fold_scan(setup, monkeypatch):
+    """JAX on its default path: the whole fold as one scan (epoch_scan and
+    fold_scan on)."""
+    _experiment_matches(setup, monkeypatch, epoch_scan=True, fold_scan=True)
+
+
 def test_run_experiment_matches_jax(setup, monkeypatch):
+    _experiment_matches(setup, monkeypatch)
+
+
+def _experiment_matches(setup, monkeypatch, **jax_kw):
+    """jax_kw: JAX config overrides that change only how it dispatches."""
     jc, pc, cfg = setup["jcohort"], setup["cohort"], setup["cfg"]
     carrier = InitCarrier(monkeypatch)
     jfolds = _spy_results(monkeypatch, jdriver)
     pfolds = _spy_results(monkeypatch, driver)
-    jout = jdriver.run_experiment(jc.cfg, jc)
+    jout = jdriver.run_experiment(jc.cfg.replace(**jax_kw), jc)
     pout = driver.run_experiment(cfg, pc, device="cpu")
     assert not carrier.params and len(jfolds) == len(pfolds) == 5
     for a, b in zip(pfolds, jfolds):
@@ -156,3 +205,31 @@ def test_cli_runs_the_protocol(setup, tmp_path, capsys):
     assert 0.0 <= line["pooled_auc"] <= 1.0 and np.isfinite(line["wall_time_s"])
     saved = json.loads(out.read_text())
     assert saved["config"]["epochs"] == 5 and len(saved["folds"]) == 5
+
+
+def test_epoch_s_median_over_the_last_run(setup, monkeypatch):
+    """epoch_s_median at num_run 2 from recorded epoch times (run_fold
+    replaced in both packages by one that records them): the median over
+    the last run's folds, as JAX takes it."""
+    jc, pc = setup["jcohort"], setup["cohort"]
+    times = {(r, f): [10.0 * r + f, 10.0 * r + f + 0.5] for r in range(2) for f in range(5)}
+
+    def fake(module):
+        def run_fold(*a, run_i, fold_i, **k):
+            te = a[5] if module is driver else a[3]
+            y = pc.labels()[np.asarray(te)]
+            s = {5: np.linspace(0, 1, len(y))}
+            return module.FoldResult(y, s, s, s, epoch_times=times[(run_i, fold_i)])
+        return run_fold
+
+    def jax_run_fold(cfg, cohort, tr, va, te, fold_i, run_i, check, *a, **k):
+        return fake(jdriver)(None, None, None, te, run_i=run_i, fold_i=fold_i)
+
+    monkeypatch.setattr(driver, "run_fold", fake(driver))
+    monkeypatch.setattr(jdriver, "run_fold", jax_run_fold)
+    cfg = setup["cfg"].replace(num_run=2)
+    pout = driver.run_experiment(cfg, pc, device="cpu")
+    jout = jdriver.run_experiment(jc.cfg.replace(num_run=2), jc)
+    want = float(np.median([t for f in range(5) for t in times[(1, f)]]))
+    assert pout["epoch_s_median"] == jout["epoch_s_median"] == want == 12.25
+    assert want != float(np.median([t for v in times.values() for t in v]))

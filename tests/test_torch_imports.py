@@ -7,7 +7,8 @@
   configs still load.
 - An entry point called without a device on a machine without CUDA raises
   instead of running on the CPU (torch.cuda.is_available is patched to
-  False, so the check holds on any machine).
+  False, so the check holds on any machine): the GBM-scale setup and the
+  train, predict and explain CLIs.
 - Sources for the CUDA kernels are in the package, and no module builds
   them at import.
 """
@@ -31,6 +32,8 @@ import multilevel_gnn_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
+for n in ("train.checkpoint", "train.explain", "train.predict", "utils.survival"):
+    assert "multilevel_gnn_tpu_torch." + n in names, n
 import chip_smoke
 from multilevel_gnn_tpu_torch.core.config import Config
 for c in ("gbm", "kirc", "lgg"):
@@ -53,7 +56,7 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[0]) >= 26
+    assert int(r.stdout.split()[0]) >= 30
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -67,6 +70,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+    from multilevel_gnn_tpu_torch.train import cli, explain, predict
+
+    base = ["--config", str(REPO / "configs" / "gbm.yaml"), "--synthetic"]
+    for main, extra in ((cli.main, []), (predict.main, ["--ckpt-dir", "x"]),
+                        (explain.main, ["--ckpt-dir", "x"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(base + extra)
 
 
 def test_kernel_sources_shipped():

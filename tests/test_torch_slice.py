@@ -12,8 +12,9 @@ Checked for several batches (the last one padded): eval-mode
 probabilities and eval_step loss, and the evaluate() AUC/ACC.
 Tolerances:
   f32 trunk:  atol = 1e-5 (probabilities and loss).
-  bf16 trunk (compute_dtype bfloat16, spmm_bf16):
-        max|port_bf16 - jax_f32| <= 1.5 * max|jax_bf16 - jax_f32| + 1e-3.
+  bf16 trunk (compute_dtype bfloat16, spmm_bf16), against JAX's bf16 trunk:
+        atol = 1e-5 (probabilities, loss and the first batch's pathway
+        image; read 3.0e-7 and 7.5e-9 in the parity report).
   AUC / ACC (f32): equal.
 """
 import flax
@@ -21,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from multilevel_gnn_tpu.core.batch import make_fold_context as j_make_ctx
 from multilevel_gnn_tpu.core.config import Config as JConfig
@@ -41,6 +43,7 @@ from multilevel_gnn_tpu_torch.train.predict import predict_patients
 from multilevel_gnn_tpu_torch.train.step import eval_step
 
 N_GENES, N_PATHWAYS, G, B, P = 120, 6, 300, 4, 10
+TOL_BF16 = 1e-5  # bf16 trunk against JAX's bf16 trunk
 WIN = dict(perm_group=3, Wb=128, nwin=1)
 
 
@@ -107,6 +110,7 @@ def _run(fold, bf16, reorder=False, gnn_name="sage"):
         jout = [fns.eval_step(params, b, fold["jctx"]) for b in batches]
         jev = j_evaluate(fns, params, fold["jctx"], fold["X"], fold["Y"],
                          fold["ages"], np.arange(P), B)
+        jimg = np.asarray(jmodel.apply(params, batches[0], fold["jctx"], False)[1])
     finally:
         jspmm.set_backend(prev)
         jspmm.set_spmm_dtype(None)
@@ -119,11 +123,14 @@ def _run(fold, bf16, reorder=False, gnn_name="sage"):
     pbatches = list(iter_batches(fold["X"], fold["Y"], fold["ages"], np.arange(P), B, "cpu"))
     pout = [eval_step(model, b, fold["pctx"]) for b in pbatches]
     pev = evaluate(model, fold["pctx"], fold["X"], fold["Y"], fold["ages"], np.arange(P), B)
+    with torch.no_grad():
+        pimg = model.eval()(pbatches[0], fold["pctx"])[1].numpy()
     jp = np.stack([np.asarray(p) for p, _ in jout]).astype(np.float64)
     jl = np.array([float(l) for _, l in jout])
     pp = np.stack([p.numpy() for p, _ in pout]).astype(np.float64)
     pl = np.array([float(l) for _, l in pout])
-    return dict(jp=jp, jl=jl, pp=pp, pl=pl, jev=jev, pev=pev, model=model)
+    return dict(jp=jp, jl=jl, pp=pp, pl=pl, jev=jev, pev=pev, model=model,
+                jimg=jimg, pimg=pimg)
 
 
 @pytest.fixture(scope="module")
@@ -177,11 +184,11 @@ def test_slice_evaluate_auc_acc_equal(runs):
 
 
 def test_slice_bf16_within_bound(runs):
-    f, h = runs["f32"], runs["bf16"]
-    bound_p = 1.5 * np.abs(h["jp"] - f["jp"]).max() + 1e-3
-    assert np.abs(h["pp"] - f["jp"]).max() <= bound_p
-    bound_l = 1.5 * np.abs(h["jl"] - f["jl"]).max() + 1e-3
-    assert np.abs(h["pl"] - f["jl"]).max() <= bound_l
+    h = runs["bf16"]
+    assert np.isfinite(h["pp"]).all() and np.isfinite(h["pimg"]).all()
+    np.testing.assert_allclose(h["pp"], h["jp"], rtol=0, atol=TOL_BF16)
+    np.testing.assert_allclose(h["pl"], h["jl"], rtol=0, atol=TOL_BF16)
+    np.testing.assert_allclose(h["pimg"], h["jimg"], rtol=0, atol=TOL_BF16)
 
 
 def test_predict_patients_matches_evaluate(fold, runs):

@@ -17,8 +17,10 @@
   per-step losses atol 1e-5 (f32); params after 5 steps within
   2 * lr * steps absolute (Adam's worst case on a gradient near zero,
   whose sign can flip), and within 1e-5 where JAX's first gradient is
-  above 1e-3 of its parameter's largest.  bf16 trunk: the per-step losses within
-  1.5 * max|jax_bf16 - jax_f32| + 1e-3 of JAX's f32 losses.
+  above 1e-3 of its parameter's largest.  bf16 trunk, against JAX's bf16
+  trunk: the per-step losses within 1e-4; the first step's gradients
+  within 1e-3 of each parameter's largest, the trunk MLP biases within
+  twice the residue of XLA's bf16 bias reduction (BF16_GRAD_RESIDUE).
 """
 import dataclasses
 
@@ -46,6 +48,16 @@ from test_torch_slice import B, G, P, _cfg_dict, fold  # noqa: F401  (fixture)
 
 LR = 1e-3
 STEPS = 5
+# bf16 trunk against JAX's bf16 trunk (both on the 'pallas' path, JAX under
+# jit): the five steps' losses, and the first step's gradients as
+# max|diff| / max|grad| per parameter
+TOL_BF16_LOSS = 1e-4
+TOL_BF16_GRAD = 1e-3
+# ... except the trunk MLP biases, whose bf16 gradient XLA on the CPU sums
+# in bf16, 32 rows at a time (ROADMAP section 3, F3): twice the residue
+# read on this fold, 6.9e-3 and 4.0e-3
+BF16_GRAD_RESIDUE = {"gnn_0.gconv.nn.Linear_0.bias": 1.4e-2,
+                     "gnn_1.gconv.nn.Linear_0.bias": 8.0e-3}
 
 
 def test_bce_gradient_finite_at_saturation():
@@ -148,9 +160,8 @@ def test_optimizer_matches_optax():
             np.testing.assert_allclose(getattr(module, k).detach().numpy(),
                                        np.asarray(jp[k]), rtol=0, atol=1e-6)
     assert opt.count == 10
-    for name in ("radam", "adamw"):
-        with pytest.raises(NotImplementedError):
-            pstep.make_optimizer(module, Config(**kw), spe, name=name)
+    with pytest.raises(NotImplementedError):
+        pstep.make_optimizer(module, Config(**kw), spe, name="sgd")
 
 
 def _train(fold, bf16, windowed, gnn_name="sage"):
@@ -227,8 +238,53 @@ def test_five_train_steps_f32_match_jax(fold, windowed):
                zip(model.parameters(), start.parameters())) > LR  # it trained
 
 
+def _first_grads(fold, windowed=True, gnn_name="sage"):
+    """The first bf16 step's gradients from the same flax params: JAX's
+    loss under jax.jit (as its train_step runs) and the port's, by the
+    port's parameter names."""
+    kw = dict(feature_drop=False, head_drop_rate=0.0, gnn_dropout=0.0, lr=LR,
+              weight_balance=True, pca_indep_loss=True, pca_loss=True,
+              compute_dtype="bfloat16", spmm_bf16=True, gnn_name=gnn_name)
+    jcfg, pcfg = JConfig.from_dict(_cfg_dict(**kw)), Config.from_dict(_cfg_dict(**kw))
+    jctx, pctx = fold["jctx"], fold["pctx"]
+    if not windowed:
+        jctx = dataclasses.replace(jctx, graph=dataclasses.replace(jctx.graph, winplan=None))
+        pctx = dataclasses.replace(pctx, graph=dataclasses.replace(pctx.graph, winplan=None))
+    cw = np.array([1.0, 1.7], np.float32)
+    jb = next(iter(j_iter_batches(fold["X"], fold["Y"], fold["ages"], np.arange(P), B,
+                                  np.random.RandomState(0), False, False)))
+    pb = next(iter(iter_batches(fold["X"], fold["Y"], fold["ages"], np.arange(P), B, "cpu")))
+    jmodel = JModel(jcfg)
+    prev = jspmm.get_backend()
+    jspmm.set_backend("pallas")
+    jspmm.set_spmm_dtype(jnp.bfloat16)
+    try:
+        params, _ = jstep.build_train_fns(jmodel, jcfg).init_state(
+            jax.random.PRNGKey(0), jb, jctx, 3)
+        loss_fn = jstep.make_loss_fn(jmodel, jcfg)
+        g0 = jax.jit(jax.grad(lambda p: loss_fn(p, jb, jctx, jnp.asarray(cw),
+                                                jax.random.PRNGKey(0))[0]))(params)
+    finally:
+        jspmm.set_backend(prev)
+        jspmm.set_spmm_dtype(None)
+    flat = lambda t: {k: np.asarray(v) for k, v in
+                      flax.traverse_util.flatten_dict(t, sep="/").items()}
+    model = MultilevelGNN(pcfg, fold["n"], G, device="cpu")
+    load_flax_params(model, flat(params))
+    model.train()
+    loss, _ = pstep.make_loss_fn(pcfg)(model, pb, pctx, torch.from_numpy(cw),
+                                       torch.Generator().manual_seed(0))
+    loss.backward()
+    return ({k: np.asarray(v) for k, v in state_dict_from_flax(flat(g0)).items()},
+            {n: p.grad.numpy() for n, p in model.named_parameters()})
+
+
 def test_five_train_steps_bf16_within_bound(fold):
-    j32, _, _, _, _, _ = _train(fold, bf16=False, windowed=True)
     j16, p16, _, _, _, _ = _train(fold, bf16=True, windowed=True)
     assert np.isfinite(p16).all()
-    assert np.abs(p16 - j32).max() <= 1.5 * np.abs(j16 - j32).max() + 1e-3
+    np.testing.assert_allclose(p16, j16, rtol=0, atol=TOL_BF16_LOSS)
+    jg, pg = _first_grads(fold)
+    assert set(jg) == set(pg)
+    for name, g in jg.items():
+        rel = np.abs(pg[name] - g).max() / max(np.abs(g).max(), 1e-30)
+        assert rel <= BF16_GRAD_RESIDUE.get(name, TOL_BF16_GRAD), (name, rel)

@@ -1,11 +1,13 @@
 """Print the PyTorch port's measured parity errors against the JAX package.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [--protocol-only | --repairs-only]
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py \
+        [--protocol-only | --repairs-only | --bf16-workflows-only]
 
 Runs the same inputs as the parity tests in tests/test_torch_*.py (CPU,
 plain versions on the port side, Pallas interpret mode on the JAX side)
-and prints one JSON line per module with the max abs error and, for bf16,
-the bound the tests hold it to.  Not collected by pytest.
+and prints one JSON line per module with the max abs error and the
+tolerance the tests hold it to (bf16 against JAX's bf16).  Not collected
+by pytest.
 """
 import json
 import os
@@ -70,8 +72,9 @@ def main():
     _emit(module="slice MultilevelGNN eval", n_res=fold["pctx"].graph.winplan.n_res,
           f32_prob_max_abs_err=float(np.abs(f["pp"] - f["jp"]).max()),
           f32_loss_max_abs_err=float(np.abs(f["pl"] - f["jl"]).max()),
-          bf16_prob_max_abs_err_vs_jax_f32=float(np.abs(h["pp"] - f["jp"]).max()),
-          bf16_prob_bound=float(1.5 * np.abs(h["jp"] - f["jp"]).max() + 1e-3),
+          bf16_prob_max_abs_err_vs_jax_bf16=float(np.abs(h["pp"] - h["jp"]).max()),
+          bf16_image_max_abs_err_vs_jax_bf16=float(np.abs(h["pimg"] - h["jimg"]).max()),
+          bf16_tol=TS.TOL_BF16,
           auc_equal=f["pev"][0] == f["jev"][0], acc_equal=f["pev"][1] == f["jev"][1])
     r = TS._run(fold, False, reorder=True)
     _emit(module="slice MultilevelGNN eval, pathway reorder",
@@ -149,6 +152,7 @@ def backward():
         _emit(module="K2+K1 windowed backward", case=name, n_tres=pp.n_tres,
               n_res=pp.n_res, bwd_n_in=pp.bwd.n_in,
               f32_max_abs_err=float(np.abs(p32 - j32).max()) if p32.size else 0.0,
+              bf16_max_abs_err_vs_jax_bf16=float(np.abs(p16 - j16).max()) if p16.size else 0.0,
               bf16_max_abs_err_vs_jax_f32=float(np.abs(p16 - j32).max()) if p16.size else 0.0,
               bf16_bound=float(1.5 * np.abs(j16 - j32).max() + 1e-3) if j16.size else 1e-3)
     for windowed in (False, True):
@@ -158,10 +162,11 @@ def backward():
         g = rng.randn(3, n, 12).astype(np.float32)
         j32 = TB._jax_spmm_grad(jg, x, g, False)
         j16 = TB._jax_spmm_grad(jg, x, g, True)
+        p16 = TB._port_spmm_grad(pg, x, g, True)
         _emit(module="spmm_mean autograd", path="windowed" if windowed else "composed",
               f32_max_abs_err=float(np.abs(TB._port_spmm_grad(pg, x, g, False) - j32).max()),
-              bf16_max_abs_err_vs_jax_f32=float(
-                  np.abs(TB._port_spmm_grad(pg, x, g, True) - j32).max()),
+              bf16_max_abs_err_vs_jax_bf16=float(np.abs(p16 - j16).max()),
+              bf16_max_abs_err_vs_jax_f32=float(np.abs(p16 - j32).max()),
               bf16_bound=float(1.5 * np.abs(j16 - j32).max() + 1e-3))
     dx, ref = TB.gather_rows_grads()
     _emit(module="gather_rows backward", f32_max_abs_err=float(np.abs(dx - ref).max()))
@@ -183,11 +188,10 @@ def training(fold):
               loss_max_abs_err=float(np.abs(pl - jl).max()),
               param_max_abs_err=dp, param_bound=2 * TT.LR * TT.STEPS,
               param_max_abs_err_clear_grad=dc, param_bound_clear_grad=1e-5)
-    j32, _, _, _, _, _ = TT._train(fold, bf16=False, windowed=True)
     j16, p16, _, _, _, _ = TT._train(fold, bf16=True, windowed=True)
     _emit(module="five train steps, bf16 trunk",
-          loss_max_abs_err_vs_jax_f32=float(np.abs(p16 - j32).max()),
-          bound=float(1.5 * np.abs(j16 - j32).max() + 1e-3))
+          loss_max_abs_err_vs_jax_bf16=float(np.abs(p16 - j16).max()),
+          tol=TT.TOL_BF16_LOSS)
     mp = pytest.MonkeyPatch()
     try:
         jf = TD.run_jax_fold(mp)
@@ -259,10 +263,9 @@ def max_aggregation(fold):
         _emit(module=f"MultilevelGNN {conv} eval",
               f32_prob_max_abs_err=_err(f["pp"], f["jp"]),
               f32_loss_max_abs_err=_err(f["pl"], f["jl"]),
-              bf16_prob_max_abs_err_vs_jax_f32=_err(h["pp"], f["jp"]),
-              bf16_prob_bound=float(1.5 * np.abs(h["jp"] - f["jp"]).max() + 1e-3),
-              bf16_loss_max_abs_err_vs_jax_f32=_err(h["pl"], f["jl"]),
-              bf16_loss_bound=float(1.5 * np.abs(h["jl"] - f["jl"]).max() + 1e-3))
+              bf16_prob_max_abs_err_vs_jax_bf16=_err(h["pp"], h["jp"]),
+              bf16_image_max_abs_err_vs_jax_bf16=_err(h["pimg"], h["jimg"]),
+              bf16_loss_max_abs_err_vs_jax_bf16=_err(h["pl"], h["jl"]))
         jl, pl, model, ref, _, grad0 = TT._train(fold, bf16=False, windowed=True,
                                                  gnn_name=conv)
         want = dict(ref.named_parameters())
@@ -342,9 +345,127 @@ def protocol(tmp):
           pooled_acc_port=pout["acc"][5], pooled_acc_jax=jout["acc"][5])
 
 
+def bf16_workflows(tmp):
+    """The bf16 trunk against JAX's bf16 trunk (eval, five
+    steps, first-step gradients per parameter), integrated gradients, the
+    optimizers and the KM screen against JAX, and run_experiment under
+    kirc / lgg and against JAX's fold-scan path."""
+    import dataclasses
+
+    import test_torch_explain as TX
+    import test_torch_optim as TO
+    fold = TS.fold.__wrapped__()
+    for conv in ("sage", "mr", "edge"):
+        h = TS._run(fold, True, gnn_name=conv)
+        _emit(module=f"bf16 eval vs JAX bf16, {conv}",
+              prob_err=_err(h["pp"], h["jp"]), loss_err=_err(h["pl"], h["jl"]),
+              image_err=_err(h["pimg"], h["jimg"]), tol=TS.TOL_BF16)
+        j16, p16, _, _, _, _ = TT._train(fold, bf16=True, windowed=True, gnn_name=conv)
+        _emit(module=f"five bf16 train steps vs JAX bf16, {conv}",
+              loss_err=_err(p16, j16), tol=TT.TOL_BF16_LOSS)
+        for windowed in ((True, False) if conv == "sage" else (False,)):
+            jg, pg = TT._first_grads(fold, windowed, gnn_name=conv)
+            rel = {k: float(np.abs(pg[k] - g).max() / max(np.abs(g).max(), 1e-30))
+                   for k, g in jg.items()}
+            _emit(module=f"first bf16 step's gradients vs JAX bf16, {conv}",
+                  path="windowed" if windowed else "composed",
+                  worst_other=max(v for k, v in rel.items()
+                                  if k not in TT.BF16_GRAD_RESIDUE),
+                  rel_by_param={k: v for k, v in rel.items() if v > 1e-6},
+                  tol=TT.TOL_BF16_GRAD, residue_tol=TT.BF16_GRAD_RESIDUE)
+    for windowed in (True, False):
+        jctx, pctx = fold["jctx"], fold["pctx"]
+        if not windowed:
+            jctx = dataclasses.replace(jctx, graph=dataclasses.replace(jctx.graph, winplan=None))
+            pctx = dataclasses.replace(pctx, graph=dataclasses.replace(pctx.graph, winplan=None))
+        errs = _ig_errs(TX, fold, jctx, pctx)
+        _emit(module="integrated_gradients f32", path="windowed" if windowed else "composed",
+              **errs, tol_rel=1e-5)
+    for name in ("radam", "adamw"):
+        for kw, tag in ((TO.ON, "clip_warmup_steplr_wd"), (TO.OFF, "plain")):
+            _emit(module=f"{name} vs optax, 10 updates", case=tag,
+                  param_max_abs_err=_optim_err(TO, name, kw), tol=1e-6)
+    perr = 0.0
+    for seed in range(3):
+        scores, times, events, names = TX._survival(seed)
+        for g, w in zip(TX.survival.pathway_km_screen(scores, times, events, names),
+                        TX.jsurv.pathway_km_screen(scores, times, events, names)):
+            perr = max(perr, abs(g["p"] - w["p"]))
+    _emit(module="pathway_km_screen vs JAX", p_max_abs_err=perr, tol=1e-12)
+    for name in ("kirc", "lgg", "gbm fold-scan"):
+        setup = TE.build_setup(os.path.join(tmp, name.split()[0]), name.split()[0])
+        jkw = dict(epoch_scan=True, fold_scan=True) if "scan" in name else {}
+        mp = pytest.MonkeyPatch()
+        try:
+            TE.InitCarrier(mp)
+            from multilevel_gnn_tpu.train import driver as jdriver
+            from multilevel_gnn_tpu_torch.train import driver as pdriver
+            jf = TE._spy_results(mp, jdriver)
+            pf = TE._spy_results(mp, pdriver)
+            jout = jdriver.run_experiment(setup["jcohort"].cfg.replace(**jkw), setup["jcohort"])
+            pout = pdriver.run_experiment(setup["cfg"], setup["cohort"], device="cpu")
+        finally:
+            mp.undo()
+        e = jout["check_epochs"][-1]
+        err = max(_err(getattr(a, k)[e], getattr(b, k)[e]) for a, b in zip(pf, jf)
+                  for k in ("epoch_pred", "epoch_pred_by_loss", "epoch_pred_by_epoch"))
+        _emit(module=f"run_experiment {name}, f32", fold_test_score_err=err,
+              pooled_auc_equal=pout["auc"] == jout["auc"],
+              pooled_acc_equal=pout["acc"] == jout["acc"])
+
+
+def _ig_errs(TX, fold, jctx, pctx):
+    import flax
+    from multilevel_gnn_tpu.ops import spmm as jspmm
+    from multilevel_gnn_tpu_torch.interop import load_flax_params
+
+    kw = TS._cfg_dict()
+    jmodel = TX.JModel(TX.JConfig.from_dict(kw))
+    jb = next(iter(TX.j_iter_batches(fold["X"], fold["Y"], fold["ages"], np.arange(TS.P),
+                                     TS.B, np.random.RandomState(0), False, False)))
+    jspmm.set_backend("pallas")
+    try:
+        params = jmodel.init(jax.random.PRNGKey(0), jb, jctx, False)
+        jig = np.asarray(TX.jexplain.integrated_gradients(jmodel, params, jb, jctx,
+                                                          steps=TX.STEPS))
+    finally:
+        jspmm.set_backend("xla")
+    model = TX.MultilevelGNN(TX.Config.from_dict(kw), fold["n"], TS.G, device="cpu")
+    load_flax_params(model, {k: np.asarray(v) for k, v in
+                             flax.traverse_util.flatten_dict(params, sep="/").items()})
+    pb = next(iter(TX.iter_batches(fold["X"], fold["Y"], fold["ages"], np.arange(TS.P),
+                                   TS.B, "cpu")))
+    pig = TX.explain.integrated_gradients(model, pb, pctx, steps=TX.STEPS).numpy()
+    return {"max_abs_err": _err(pig, jig), "ref_max": float(np.abs(jig).max())}
+
+
+def _optim_err(TO, name, kw):
+    import jax.numpy as jnp
+    import optax
+
+    init, grads = TO._data()
+    tx = TO.jstep.make_optimizer(TO.JConfig(**kw), TO.SPE, name=name)
+    jp = {k: jnp.asarray(v) for k, v in init.items()}
+    state = tx.init(jp)
+    module = TO._module(init)
+    opt = TO.pstep.make_optimizer(module, TO.Config(**kw), TO.SPE, name=name)
+    err = 0.0
+    for gr in grads:
+        upd, state = tx.update({k: jnp.asarray(v) for k, v in gr.items()}, state, jp)
+        jp = optax.apply_updates(jp, upd)
+        TO._step(module, opt, gr)
+        err = max(err, max(_err(getattr(module, k).detach().numpy(), np.asarray(jp[k]))
+                           for k in TO.SHAPES))
+    return err
+
+
 if __name__ == "__main__":
     import tempfile
 
+    if "--bf16-workflows-only" in sys.argv:
+        with tempfile.TemporaryDirectory() as tmp:
+            bf16_workflows(tmp)
+        sys.exit(0)
     if "--repairs-only" in sys.argv:
         repairs()
         sys.exit(0)
