@@ -117,6 +117,36 @@ And after the protocol phases, on the same files:
            the same parameters in memory; ms and launches per batch of 32
   explain_cli  the explain CLI once on fold 0's checkpoint
 
+Then the custom ops, export, the profiler trace, the PPI / merge graph
+sources and warm, each failing the run when its check fails:
+
+  ops      torch.library.opcheck (schema, fake function, dispatch, aot
+           dispatch) of every mgtpu custom op on CUDA tensors over the GBM
+           fold's plans (F = 64), right after profile_serve
+  export   the GBM sage fold's eval forward (bf16, windowed, B = 32)
+           exported with torch.export, saved, and loaded in a fresh
+           process: probabilities against the live eval_step on the same
+           batch within 1e-6 x max(1, max|ref|), K1 2 / K2 2 launches per
+           call as in the live call; the artifact's bytes, load and
+           first-call seconds, CUDA-event and device ms of an exported call
+           against a live one, the mgtpu ops in the graph and whether
+           functionalization added copies (auto_functionalized nodes)
+  profile_cli  (after experiment) the train CLI with --profile-dir on the
+           protocol files, 1 run x 5 folds x 2 epochs: the trace's bytes,
+           K1's kernel symbol in it; wall time against the same protocol
+           without it, before and after
+  ppi / merge  (after explain_cli) STRING-layout PPI tables (45,000 pair
+           rows over the cohort's genes) beside the files: the train CLI at
+           gbm.yaml widths with edge_type ppi, then merge, 1 run x 5 folds x
+           3 epochs, counted; edges per fold and their path, derivation s;
+           profile_train_<edge_type> on fold 0 (launches per step as the
+           plans predict, merge running the stack over both graphs); a
+           small protocol (f32, dropout off, 2 epochs) card against CPU
+           within 1e-4
+  warm     the warm CLI in a copy of the package with nothing built (its
+           builds' seconds), then the train CLI from that copy: every
+           kernel and data library found built (0.0 s)
+
 Kernel cases off the main path (other feature widths, permuted plans,
 empty plans) are in tests/test_torch_cuda_kernels.py.
 
@@ -126,6 +156,7 @@ and other forms' numbers) and the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -133,6 +164,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -201,26 +233,68 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+WINDOWS = {"kept": 0, "dropped": 0}  # device_ms's profiled windows, over the run
+
+
 def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3) -> float:
     """Device time of one fn() call in ms: the time of the kernels it
     launches, from the profiler's device rows, per call over iters calls;
     the median of `windows` profiled windows, since a window's record can
     come back short.  Unlike events around a call, it leaves out the
     host's launch time, which sets the events' reading where the kernels
-    are short."""
+    are short.  Only windows with the most kernel records count, and
+    windows are profiled until `windows` such ones are in, up to
+    3 * windows (on an H100 all three windows of K1's csc form came back
+    empty once, and several forms read below their byte bound, which the
+    card cannot do: records were lost)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    per_window = []
-    for _ in range(windows):
+    seen = []  # (kernel ms per call, kernel launches per call) of each window
+    complete = []
+    for _ in range(3 * windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per_window.append(sum(r[1] for r in kernel_rows(prof, iters)))
-    return float(np.median(per_window))
+        rows = kernel_rows(prof, iters)
+        seen.append((sum(r[1] for r in rows), sum(r[2] for r in rows)))
+        # a window whose record came back short has fewer kernel records
+        # than the fullest one; only the fullest windows are kept
+        full = max(calls for _, calls in seen)
+        complete = [ms for ms, calls in seen if calls == full and ms > 0]
+        if len(complete) == windows:
+            break
+    if not complete:
+        raise AssertionError("the profiler recorded no kernel in any window")
+    WINDOWS["kept"] += len(complete)
+    WINDOWS["dropped"] += len(seen) - len(complete)
+    return float(np.median(complete))
+
+
+def kernel_ms(fn, bound_ms: float):
+    """(ms, source) of one kernel call: device_ms(fn), unless it reads below
+    the call's bound, which the card cannot do; then CUDA events around a
+    loop of 50 calls, whose reading includes any gap between the launches.
+    On an H100, late in a long run of this script several profiled forms
+    read below their byte bound (K4a 0.1795 against 0.2254 ms), while a
+    fresh process read the same call at 0.2565 ms by the profiler and
+    0.2579 by such a loop (probes/timing_check.py)."""
+    ms = device_ms(fn)
+    if ms >= bound_ms:
+        return ms, "profiler"
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(50):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 50, "events_loop"
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -323,12 +397,13 @@ def time_k1(name, plan, x, w, acc, gen, library=None):
         vals = w.index_select(0, plan.eid.long())
         library = library_spmm(plan.row.long(), plan.col.long(), vals,
                                plan.n_rows, x.shape[0], x)
+    ms, src = kernel_ms(kern, bms)
     return dict(
         case=name, dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=x.shape[1],
         warp_rows=plan.n_busy if acc else int(plan.items.shape[0]),
         long_rows=int(plan.long_rows.shape[0]),
-        max_abs_err=e, ref_max=m, limit=limit,
-        ms=device_ms(kern), event_ms=cuda_ms(kern), plain_ms=device_ms(plain),
+        max_abs_err=e, ref_max=m, limit=limit, ms=ms, ms_source=src,
+        event_ms=cuda_ms(kern), plain_ms=device_ms(plain),
         library_ms=device_ms(library) if library is not None else None,
         bound_ms=bms, bound_by=by, bytes=b, flops=fl,
     )
@@ -358,10 +433,11 @@ def time_k2(name, plan, x, w, transpose):
     )
     lib = library_spmm(side.ent_dst_orig.long(), side.ent_src_orig.long(),
                        vals, plan.num_nodes, plan.num_nodes, x)
+    ms, src = kernel_ms(kern, bms)
     return dict(
         case=name, dtype=str(dt).split(".")[-1], F=x.shape[1],
         blocks=side.n_blocks, entries=side.n_entries, max_abs_err=e,
-        ref_max=m, limit=limit, ms=device_ms(kern), event_ms=cuda_ms(kern),
+        ref_max=m, limit=limit, ms=ms, ms_source=src, event_ms=cuda_ms(kern),
         plain_ms=device_ms(plain), library_ms=device_ms(lib) if lib is not None else None,
         bound_ms=bms, bound_by=by, bytes=b, flops=fl,
     )
@@ -426,10 +502,10 @@ def time_k3(graph, msg):
     except (RuntimeError, NotImplementedError):
         lib_ms = None
     del rows, idx, dst
+    ms, src = kernel_ms(lambda: k3.segment_max_csr(msg, plan), bms)
     return dict(
         case=f"csr F={F}", dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=F,
-        max_abs_err=e, ref_max=m, limit=0.0,
-        ms=device_ms(lambda: k3.segment_max_csr(msg, plan)),
+        max_abs_err=e, ref_max=m, limit=0.0, ms=ms, ms_source=src,
         event_ms=cuda_ms(lambda: k3.segment_max_csr(msg, plan)),
         plain_ms=device_ms(lambda: k3.segment_max_csr_plain(msg, plan)),
         library_ms=lib_ms, bound_ms=bms, bound_by=by, bytes=b,
@@ -965,10 +1041,11 @@ def time_k4(case, data, plan, permuted):
         lib_ms = device_ms(library)
     except (RuntimeError, NotImplementedError, TypeError):
         lib_err, lib_ms = None, None
+    ms, src = kernel_ms(kern, bms)
     return dict(
         case=case, dtype=str(dt).split(".")[-1], shape=list(data.shape),
         n_kept=plan.n_kept, segments=plan.num_segments, max_abs_err=e, ref_max=m,
-        limit=limit, ms=device_ms(kern), event_ms=cuda_ms(kern), plain_ms=device_ms(plain),
+        limit=limit, ms=ms, ms_source=src, event_ms=cuda_ms(kern), plain_ms=device_ms(plain),
         library_ms=lib_ms,
         library_max_abs_err=lib_err, bound_ms=bms, bound_by=by, bytes=b,
         flops=float(B * plan.n_kept * C),
@@ -1408,6 +1485,345 @@ def explain_cli_phase(root, ckpt_dir, device="cuda"):
     return launches
 
 
+# ---- the kernels as custom ops, export, warm, the profiler trace, and the
+# PPI / merge graph sources
+TOL_EXPORT = 1e-6  # times max(1, max|ref|): the exported call against the live one
+REPO = Path(__file__).resolve().parent
+PPI_EDGES = 45_000  # make_cohort_topology's e_ppi
+PPI_EPOCHS = 3
+# the child process that loads the artifact: load seconds (from its start,
+# torch's import and CUDA's start-up included, and a second load), first-
+# call seconds, probabilities, launches per call (counts zeroed just
+# before one call), CUDA-event ms per call and its kernels' device ms
+EXPORT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+torch.cuda.init()
+import_s = time.perf_counter() - t0
+# the precision flags main() sets for the live call
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from multilevel_gnn_tpu_torch.artifact import load_exported
+from multilevel_gnn_tpu_torch.ops.kernels import build
+t1 = time.perf_counter()
+infer = load_exported(sys.argv[1])
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+load_exported_s = time.perf_counter() - t1
+t1 = time.perf_counter()
+load_exported(sys.argv[1])
+torch.cuda.synchronize()
+load_again_s = time.perf_counter() - t1
+z = np.load(sys.argv[2])
+x = torch.as_tensor(z["x"], device="cuda")
+age = torch.as_tensor(z["age"], device="cuda")
+t0 = time.perf_counter()
+infer(x, age)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+for k in build.REGISTRY.values():
+    k.launches = 0
+p = infer(x, age)
+torch.cuda.synchronize()
+launches = {k.name: k.launches for k in build.REGISTRY.values()}
+ms = []
+for _ in range(20):
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record(); infer(x, age); b.record(); b.synchronize()
+    ms.append(a.elapsed_time(b))
+windows = []
+for _ in range(3):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            infer(x, age)
+        torch.cuda.synchronize()
+    windows.append(sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA
+                       and not getattr(ev, "is_user_annotation", False)) / 1e3 / 10)
+print(json.dumps({"load_s": load_s, "import_torch_s": import_s,
+                  "load_exported_s": load_exported_s, "load_again_s": load_again_s,
+                  "first_call_s": first_s, "probs": p.cpu().tolist(),
+                  "launches": launches, "event_ms_median": float(np.median(ms)),
+                  "device_ms": float(np.median(windows))}))
+"""
+
+
+def _child_env():
+    return dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def ops_phase(graph, gen):
+    """torch.library.opcheck (schema, fake function, dispatch, the op under
+    aot dispatch) of every mgtpu op on CUDA tensors over the GBM fold's
+    plans, at F = 64 columns."""
+    csr, wp = graph.csr, graph.winplan
+    N, E = graph.n_nodes, graph.num_padded_edges
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    x = rand(N, 64)
+    w = spmm.edge_weights(graph, "mean", graph.edge_attr)
+    splan = k1.SortedPlan.build(graph.receivers.cpu().numpy(), N,
+                                graph.edge_mask.cpu().numpy()).to("cuda")
+    k1_args = (csr.rowptr, csr.col, csr.eid, csr.row, csr.items, csr.long_rows)
+    res = wp.res
+    cases = [
+        ("segment_spmm_csr", k1.segment_spmm_csr_op, (x, w) + k1_args),
+        ("segment_spmm_csr_acc", k1.segment_spmm_csr_acc_op,
+         (rand(N, 64, dtype=torch.float32), x, w, res.rowptr, res.col, res.eid, res.row,
+          res.items, res.long_rows, res.n_busy)),
+        ("windowed_tile_spmm", k2.windowed_tile_spmm_op, (x, w) + k2._side_args(wp, False)),
+        ("windowed_tile_spmm_transpose", k2.windowed_tile_spmm_op,
+         (x, w) + k2._side_args(wp, True)),
+        ("segment_max_csr", k3.segment_max_csr_op, (rand(E, 64), csr.rowptr, csr.eid, csr.row)),
+        ("sorted_segment_sum", k1.sorted_segment_sum_op,
+         (rand(2, E, 16), splan.rowptr, None, splan.seg)),
+        ("sorted_segment_sum_perm", k1.sorted_segment_sum_op,
+         (rand(2, E, 16), splan.rowptr, splan.perm, splan.seg)),
+    ]
+    seconds = {}
+    for name, op, args in cases:
+        t0 = time.perf_counter()
+        torch.library.opcheck(op, args)  # raises on a failed check
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "ops", "checked": list(seconds), "seconds": seconds, "ok": True})
+
+
+def export_phase(model, ctx, batch):
+    """The GBM sage fold's eval forward exported (torch.export), saved,
+    and loaded in a fresh process: its probabilities against the live
+    eval_step on the same batch, its launches per call against the live
+    call's, the artifact's bytes, load and first-call seconds, and the
+    device ms of an exported call against a live one."""
+    from multilevel_gnn_tpu_torch.train.export import export_program, save_exported
+
+    B, n_nodes = batch.x.shape
+    t0 = time.perf_counter()
+    program = export_program(copy.deepcopy(model), ctx, B, n_nodes)
+    export_s = time.perf_counter() - t0
+    targets = Counter(str(n.target) for n in program.graph.nodes if n.op == "call_function")
+    meta = {"batch_size": B, "n_nodes": n_nodes, "platforms": ["cuda"], "run": 0, "fold": 0,
+            "n_tensors": len(program.state_dict) + len(program.constants),
+            "cancer_type": "gbm", "model": "multilevel_gnn"}
+    eval_step(model, batch, ctx)
+    torch.cuda.synchronize()
+    zero_launches()
+    live = eval_step(model, batch, ctx)[0]
+    torch.cuda.synchronize()
+    live_launches = launch_counts()
+    live_event_ms = cuda_ms(lambda: eval_step(model, batch, ctx))
+    live_device_ms = device_ms(lambda: eval_step(model, batch, ctx))
+    with tempfile.TemporaryDirectory() as root:
+        out = f"{root}/export"
+        save_exported(out, {"program": program, "meta": meta})
+        del program
+        artifact_bytes = _dir_bytes(out)
+        np.savez(f"{root}/inputs.npz", x=batch.x.cpu().numpy(), age=batch.age.cpu().numpy())
+        r = subprocess.run([sys.executable, "-c", EXPORT_CHILD, out, f"{root}/inputs.npz"],
+                           capture_output=True, text=True, env=_child_env(), timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"export: the artifact's process failed:\n{r.stderr[-4000:]}")
+    child = _last_json(r.stdout)
+    ref = live.cpu().numpy()
+    got = np.asarray(child["probs"])
+    err = float(np.abs(got - ref).max())
+    lim = TOL_EXPORT * max(1.0, float(np.abs(ref).max()))
+    ok = (got.shape == ref.shape and err <= lim and child["launches"] == live_launches
+          and live_launches[k1.KERNEL.name] == 2 and live_launches[k2.KERNEL.name] == 2)
+    emit({"phase": "export", "n_nodes": n_nodes, "n_edges": ctx.graph.n_edges, "batch": B,
+          "export_s": export_s, "artifact_bytes": artifact_bytes,
+          "n_tensors": meta["n_tensors"],
+          "load_s": child["load_s"], "import_torch_s": child["import_torch_s"],
+          "load_exported_s": child["load_exported_s"],
+          "load_again_s": child["load_again_s"], "first_call_s": child["first_call_s"],
+          "max_abs_err": err, "tol": lim, "equal_bits": bool(np.array_equal(got, ref)),
+          "launches_per_call": child["launches"], "live_launches_per_call": live_launches,
+          "event_ms": child["event_ms_median"], "live_event_ms": live_event_ms,
+          "device_ms": child["device_ms"], "live_device_ms": live_device_ms,
+          "mgtpu_ops_in_graph": {k: v for k, v in targets.items() if "mgtpu" in k},
+          "auto_functionalized_nodes": sum(v for k, v in targets.items()
+                                           if "auto_functionalized" in k),
+          "ok": ok})
+    if not ok:
+        raise AssertionError("export: the exported call differs from the live one")
+    return child["launches"]
+
+
+def warm_phase():
+    """The warm CLI in a fresh copy of the package (nothing built), then
+    the train CLI from the same copy: it must find every kernel and data
+    library built (0.0 s each)."""
+    import shutil
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(REPO / "multilevel_gnn_tpu_torch", Path(tmp) / "multilevel_gnn_tpu_torch",
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        env = dict(os.environ, PYTHONPATH=tmp)
+        args = ["--config", GBM_YAML, "--synthetic", "--debug"]
+        out = {}
+        for name, module in (("warm", "multilevel_gnn_tpu_torch.train.warm"),
+                             ("train", "multilevel_gnn_tpu_torch.train.cli")):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+                               text=True, env=env, timeout=600, cwd=tmp)
+            if r.returncode != 0:
+                raise AssertionError(f"warm: {module} failed:\n{r.stderr[-4000:]}")
+            out[name] = (_last_json(r.stdout), time.perf_counter() - t0)
+    warm, warm_wall = out["warm"]
+    train, train_wall = out["train"]
+    libs = set(build.REGISTRY) | {"mi_knn", "csv_float"}
+    ok = (set(train["builds"]) == libs and all(v == 0.0 for v in train["builds"].values())
+          and libs <= set(warm["builds"])
+          and all(warm["builds"][k] > 0 for k in build.REGISTRY))
+    emit({"phase": "warm", "warm_s": warm["warm_s"], "warm_builds": warm["builds"],
+          "warm_process_s": warm_wall, "next_train_builds": train["builds"],
+          "next_train_process_s": train_wall, "ok": ok})
+    if not ok:
+        raise AssertionError("warm: the next process still had something to build")
+
+
+def profile_phase(root):
+    """The train CLI with --profile-dir on the protocol files (1 run x 5
+    folds x 2 epochs) against the same protocol without it: the trace's
+    bytes and K1's kernel symbol in it, and both wall times."""
+    from multilevel_gnn_tpu_torch.train import cli
+    from multilevel_gnn_tpu_torch.utils.profiling import TRACE_FILE
+
+    args = ["--config", GBM_YAML, "--data-dir", root, "--set", "num_run=1", "epochs=2"]
+    walls = {}
+    for name, extra in (("plain", []), ("profiled", ["--profile-dir", f"{root}/prof"]),
+                        ("plain_again", [])):
+        sync("cuda")
+        t0 = time.perf_counter()
+        cli.main(args + extra)
+        sync("cuda")
+        walls[name] = time.perf_counter() - t0
+    trace = Path(root) / "prof" / TRACE_FILE
+    text = trace.read_text()
+    ok = SYMBOLS["segment_spmm_csr"][0] in text
+    emit({"phase": "profile_cli", "trace_bytes": trace.stat().st_size, "wall_s": walls,
+          "names_k1": ok, "names_k2": any(s in text for s in SYMBOLS["windowed_tile_spmm"]),
+          "ok": ok})
+    trace.unlink()
+    if not ok:
+        raise AssertionError("profile: the trace does not name K1's kernel")
+
+
+def expected_step_launches(ctx, n_layers):
+    """Kernel launches of one sage train step from the fold's plans: per
+    layer and graph, K2 forward and transpose plus K1 over each non-empty
+    residual plan on a windowed graph, K1 over csr and csc on a composed
+    one; and the PCA gather's backward (K1)."""
+    want = {k1.KERNEL.name: 1, k2.KERNEL.name: 0, k3.KERNEL.name: 0, k4.name: 0}
+    for g in (ctx.graph, ctx.graph2):
+        if g is None:
+            continue
+        wp = g.winplan
+        if wp is None:
+            want[k1.KERNEL.name] += 2 * n_layers
+        else:
+            want[k2.KERNEL.name] += 2 * n_layers
+            want[k1.KERNEL.name] += n_layers * sum(
+                int(p.nnz > 0) for p in (wp.res, wp.tres, wp.res_csc))
+    return want
+
+
+def graph_source_phase(edge_type, root, small_root):
+    """edge_type ppi or merge at reference scale from STRING tables: the
+    train CLI's protocol (1 run x 5 folds x PPI_EPOCHS epochs, gbm.yaml's
+    widths, bf16), counted; each fold's edges, path and derivation seconds;
+    one batch's train step (kernel ms, launches per step as the plans
+    predict); then a small protocol (f32, dropout off, 2 epochs) on the card
+    and on the CPU, fold test scores within TOL_PROTOCOL."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.data.loaders import load_cohort_from_files
+    from multilevel_gnn_tpu_torch.train import cli, driver
+
+    sets = [f"edge_type={edge_type}", "edge_path=./data/{}/ppi_edges.csv"]
+    if edge_type == "merge":
+        sets.append("grn_edge_path=./data/{}/grn_edges.tsv")
+    sync("cuda")
+    zero_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["--config", GBM_YAML, "--data-dir", root, "--set", "num_run=1",
+                    f"epochs={PPI_EPOCHS}", *sets])
+    sync("cuda")
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    folds = res["folds"]
+
+    def paths(d):
+        return dict(
+            mrna_path=f"{d}/gbm/raw_mrna.csv", cnv_path=f"{d}/gbm/raw_cnv.csv",
+            methylation_path=f"{d}/gbm/raw_methylation.csv",
+            clinical_path=f"{d}/gbm/clinical.pkl", kegg_path=f"{d}/kegg.csv",
+            pathway_list_path=f"{d}/pathways.txt", edge_path=f"{d}/gbm/ppi_edges.csv",
+            ppi_node_path=f"{d}/node.csv",
+            grn_edge_path=f"{d}/gbm/grn_edges.tsv" if edge_type == "merge" else None)
+
+    # one batch's train step on fold 0 of the same files
+    cfg = Config.from_yaml(GBM_YAML, edge_type=edge_type)
+    cohort = load_cohort_from_files(cfg=cfg, **paths(root))
+    tr, _, _ = driver.fold_indices(cohort.labels(), cfg, 0)
+    fcfg, fold, X = driver.fold_setup(cfg, cohort, tr, 0, "cuda")
+    fcfg = fcfg.replace(pathway_num=cohort.n_pathways)
+    model = driver._new_model(fcfg, fold.ctx, 0)
+    batch = next(iter_batches(X, cohort.Y, cohort.ages, tr, fcfg.batch_size, "cuda"))
+    cw = torch.as_tensor(fold.class_weight, dtype=torch.float32, device="cuda")
+    want = expected_step_launches(fold.ctx, model.n_layers)
+    per_step, kernel_ms = profile_train(model, fold.ctx, batch, cw, want,
+                                        phase=f"profile_train_{edge_type}")
+    g2 = fold.ctx.graph2
+    del model, fold, cohort
+    torch.cuda.empty_cache()
+
+    # the small protocol, card against CPU
+    scfg = Config.from_yaml(GBM_YAML).replace(
+        edge_type=edge_type, num_run=1, epochs=2, compute_dtype=None, spmm_bf16=False,
+        feature_drop=False, head_drop_rate=0.0, gnn_dropout=0.0)
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        small = load_cohort_from_files(cfg=scfg, **paths(small_root))
+        rec, undo = _spy_folds()
+        try:
+            out = driver.run_experiment(scfg, small, device=dev)
+        finally:
+            undo()
+        scores[dev] = (rec, out)
+    errs = [max(float(np.abs(a.epoch_pred[2] - b.epoch_pred[2]).max()),
+                float(np.abs(a.epoch_pred_by_epoch[2] - b.epoch_pred_by_epoch[2]).max()))
+            for a, b in zip(scores["cuda"][0], scores["cpu"][0])]
+    ok = bool(len(folds) == 5 and launches[k1.KERNEL.name] > 0
+              and (launches[k2.KERNEL.name] > 0) == any(f["windowed"] for f in folds)
+              and launches[k3.KERNEL.name] == 0 and len(errs) == 5
+              and max(errs) <= TOL_PROTOCOL
+              and (g2 is not None) == (edge_type == "merge"))
+    emit({"phase": edge_type, "wall_s": wall, "cli_wall_time_s": res["wall_time_s"],
+          "edges": [f["edges"] for f in folds], "windowed": [f["windowed"] for f in folds],
+          "windowed_min_edges": cfg.windowed_min_edges,
+          "graph2_edges": None if g2 is None else int(g2.n_edges),
+          "fold_setup_s": [f["setup_s"] for f in folds],
+          "fold_stage_s": [f["setup_stage_s"] for f in folds],
+          "ms_per_step_median": [f["step_ms_median"] for f in folds],
+          "launches": launches, "step_kernel_ms": kernel_ms,
+          "launches_per_step": per_step, "pooled_auc": res["auc"][res["check_epochs"][-1]],
+          "small_fold_max_abs_err": errs, "tol": TOL_PROTOCOL,
+          "small_pooled_auc_cuda": scores["cuda"][1]["auc"][2],
+          "small_pooled_auc_cpu": scores["cpu"][1]["auc"][2], "ok": ok})
+    if not ok:
+        raise AssertionError(f"{edge_type} phase failed")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1481,6 +1897,8 @@ def main() -> int:
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
     slice_checks(model, graph, ctx, batch)
     profile_serve(model, ctx, batch)
+    ops_phase(graph, gen)
+    export_launches = export_phase(model, ctx, batch)
 
     # ---- the training path
     b1, b2 = kernel_bwd(graph, ctx, w, F, cfg.batch_size * cfg.final_channels, gen)
@@ -1507,7 +1925,8 @@ def main() -> int:
     del tr
     torch.cuda.empty_cache()
     repairs_phase(model, ctx, train_kernel_ms)
-    paths = {"serve_sage": launches, "explain": explain_phase(model, ctx, batch)}
+    paths = {"serve_sage": launches, "export": export_launches,
+             "explain": explain_phase(model, ctx, batch)}
     optim_phase()
     torch.cuda.empty_cache()
 
@@ -1526,10 +1945,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         cohort = cohort_phase(root)
         paths["experiment"] = experiment_phase(root)
+        profile_phase(root)
         ckpt_dir = ckpt_phase(root, cohort)
         paths["predict"] = predict_phase(root, cohort, ckpt_dir)
         paths["explain_cli"] = explain_cli_phase(root, ckpt_dir)
         del cohort
+        # ---- STRING PPI tables beside the GRN list: edge_type ppi and merge
+        from multilevel_gnn_tpu_torch.data.loaders import read_kegg_csv
+        from multilevel_gnn_tpu_torch.data.synthetic import (
+            write_reference_format, write_string_ppi)
+
+        write_string_ppi(root, read_kegg_csv(f"{root}/kegg.csv"), seed=3, e_ppi=PPI_EDGES,
+                         cancer_type="gbm")
+        small = f"{root}/small"
+        write_reference_format(small, cancer_type="gbm", **SMALL_COHORT)
+        write_string_ppi(small, read_kegg_csv(f"{small}/kegg.csv"), seed=3, e_ppi=800,
+                         cancer_type="gbm")
+        for edge_type in ("ppi", "merge"):
+            paths[edge_type] = graph_source_phase(edge_type, root, small)
+            torch.cuda.empty_cache()
+    warm_phase()
 
     main_k1 = r1[("residual", "bfloat16")]
     main_k2 = r2["bfloat16"]
@@ -1558,13 +1993,19 @@ def main() -> int:
     # and K2, mr for K3); every path's count is in launches_by_path
     first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",
              k3.KERNEL.name: "serve_mr", k4.name: "serve_sage"}
+    # the torch.library ops each kernel backs
+    ops = {k1.KERNEL.name: ["mgtpu::segment_spmm_csr", "mgtpu::segment_spmm_csr_acc"],
+           k2.KERNEL.name: ["mgtpu::windowed_tile_spmm"],
+           k3.KERNEL.name: ["mgtpu::segment_max_csr"],
+           k4.name: ["mgtpu::sorted_segment_sum"]}
     kernels = []
     for k, r in ((k1.KERNEL, main_k1), (k2.KERNEL, main_k2), (k3.KERNEL, main_k3),
                  (k4, main_k4)):
         kernels.append({
-            "name": k.name, "route": k.route, "source": k.source_rel,
+            "name": k.name, "route": k.route, "source": k.source_rel, "ops": ops[k.name],
             "replaces": k.replaces, "launches": paths[first[k.name]][k.name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "event_ms": r["event_ms"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "ms_source": r["ms_source"],
+            "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "train_launches_per_step": per_step[
@@ -1573,17 +2014,18 @@ def main() -> int:
             "train_launches_per_step_by_path": {
                 p: c[k.name] for p, c in per_step.items()},
             "backward": [
-                {key: b[key] for key in ("case", "max_abs_err", "ms", "event_ms",
+                {key: b[key] for key in ("case", "max_abs_err", "ms", "ms_source", "event_ms",
                                          "plain_ms", "bound_ms", "bound_by", "library_ms")}
                 for b in backward[k.name]
             ],
             "forms": [
                 {key: b.get(key) for key in ("case", "dtype", "shape", "F", "max_abs_err",
-                                             "ms", "event_ms", "plain_ms", "bound_ms",
+                                             "ms", "ms_source", "event_ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}
                 for b in forms.get(k.name, [])
             ],
         })
+    emit({"phase": "profiler_windows", **WINDOWS})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -38,7 +38,8 @@ class FoldContext:
     display permutation.  pca_gather: the gather_rows backward plan over
     pca_rows (K1: rows = node slots, columns = PCA rows).  pca_seed:
     optional (G, pca_dim) float32 PCA-seeded initial value of the
-    learnable PCA params (init_with_pca)."""
+    learnable PCA params (init_with_pca).  graph2: edge_type 'merge''s
+    secondary graph (Cohort.merge_graph2) or None."""
 
     graph: Graph
     gene_pca_match: torch.Tensor
@@ -48,6 +49,7 @@ class FoldContext:
     reorder_idxs: torch.Tensor
     pca_gather: CSRPlan
     pca_seed: Optional[torch.Tensor] = None
+    graph2: Optional[Graph] = None
 
     @property
     def num_pca_rows(self) -> int:

@@ -8,17 +8,21 @@ The same derivations, in the same order, from the same tables:
   (``Cohort.__init__`` :92-185, ``_build_pca_table`` :217-274,
   ``_build_node_features`` :276-305);
 - per fold: the MI feature mask over PCA rows (``mutual_mask`` :334-428,
-  with its f32-rounding of the features), per-(pathway, omics) PCA seeds
-  (``_pathway_pca`` :430-532, sklearn's ``PCA(svd_solver="full")`` and its
-  sign convention written out in numpy and scipy), the pathway reorder,
-  MI-selected intra- and cross-omics edges (``build_edges`` :635-696) and
-  the fold graph and context (``fold`` :830-923), on the requested device.
+  with its f32-rounding of the features, and with ``use_cache`` the
+  on-disk cache of data/cache.py under the JAX package's key), per-(pathway,
+  omics) PCA seeds (``_pathway_pca`` :430-532, sklearn's
+  ``PCA(svd_solver="full")`` and its sign convention written out in numpy
+  and scipy), the pathway reorder, MI-selected intra- and cross-omics edges
+  (``build_edges`` :635-696, with ``edge_select``'s per-edge PCA / MI test
+  ``_edge_mi_valid`` :560-587) and the fold graph and context (``fold``
+  :830-923), on the requested device;
+- ``edge_type: merge``'s secondary graph (``merge_graph2`` :589-633),
+  attached to every fold's context as ``graph2``.
 
 Omics tables are ``data.frame.Frame``s, the KEGG table a ``KeggTable``,
 clinical data a dict of mappings {survive_time, survive_state, age} ->
-{patient: value}.  Branches no shipped config turns on raise
-NotImplementedError: ``use_cache``, ``edge_select`` (per-edge MI tests),
-``edge_type: merge`` and the gene-level folds (DeeperGCN, MultiOmixGCN).
+{patient: value}.  The gene-level folds (DeeperGCN, MultiOmixGCN) are not
+ported.
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ from multilevel_gnn_tpu_torch.core.batch import FoldContext, make_fold_context
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.core.graph import Graph
 from multilevel_gnn_tpu_torch.data import native
+from multilevel_gnn_tpu_torch.data.cache import PreprocessCache, content_key
 from multilevel_gnn_tpu_torch.data.frame import Frame, KeggTable
+from multilevel_gnn_tpu_torch.utils.knnie import kraskov_mi
 
 OMICS = ("mrna", "cnv", "methylation")  # omics index 0/1/2 (reference order)
 
@@ -88,6 +94,29 @@ def pca_full(data: np.ndarray, n_components: int) -> Tuple[np.ndarray, np.ndarra
     return comp, out
 
 
+def pca_one(data: np.ndarray) -> np.ndarray:
+    """sklearn PCA(n_components=1).fit(data).transform(data), (n, 1), with
+    its default solver choice: "covariance_eigh" for n >= 10 * features
+    (the eigenvectors of X^T X - n mean mean^T over n - 1), else "full"
+    (pca_full); each with svd_flip's sign convention."""
+    X = np.asarray(data, np.float64)
+    n, f = X.shape
+    if not (f <= 1000 and n >= 10 * f):
+        return pca_full(X, 1)[1]
+    mean = np.mean(X, axis=0)
+    C = X.T @ X
+    C -= n * mean.reshape(-1, 1) * mean.reshape(1, -1)
+    C /= n - 1
+    _, vecs = np.linalg.eigh(C)
+    Vt = np.flip(vecs, axis=1).T
+    rows = np.argmax(np.abs(Vt), axis=1)
+    Vt = Vt * np.sign(Vt[np.arange(Vt.shape[0]), rows])[:, None]
+    comp = Vt[:1]
+    out = X @ comp.T
+    out -= mean.reshape(1, -1) @ comp.T
+    return out
+
+
 class Cohort:
     """In-memory multi-omics cohort with per-fold derivations.
 
@@ -95,7 +124,8 @@ class Cohort:
     columns, raw).  clinical: {'survive_time' (months), 'survive_state'
     (1 = event), 'age'} -> {patient: value}.  kegg: KeggTable.  pathways:
     ordered pathway ids.  edges: entrez -> [(src, dst) entrez pairs];
-    edge_attrs: entrez -> [float] parallel to edges."""
+    edge_attrs: entrez -> [float] parallel to edges; edges2 / edge_attrs2:
+    the same for edge_type 'merge''s secondary graph."""
 
     def __init__(
         self,
@@ -106,18 +136,18 @@ class Cohort:
         edges: Dict[int, List[Tuple[int, int]]],
         edge_attrs: Dict[int, List[float]],
         cfg: Config,
+        edges2: Optional[Dict[int, List[Tuple[int, int]]]] = None,
+        edge_attrs2: Optional[Dict[int, List[float]]] = None,
     ):
-        if cfg.use_cache:
-            raise NotImplementedError("use_cache (the on-disk MI-mask cache) is not ported")
-        if cfg.edge_select:
-            raise NotImplementedError("edge_select (per-edge PCA/MI tests) is not ported")
-        if cfg.edge_type == "merge":
-            raise NotImplementedError("edge_type 'merge' is not ported")
         self.cfg = cfg
         self.kegg = kegg
         self.pathways = [str(p) for p in pathways]
         self.edges = edges
         self.edge_attrs = edge_attrs
+        # the secondary (GRN) edge set of edge_type 'merge'
+        self.edges2 = edges2
+        self.edge_attrs2 = edge_attrs2
+        self._graph2_cache: Dict[str, Graph] = {}
 
         mrna, cnv, mt = omics["mrna"], omics["cnv"], omics["methylation"]
         if cfg.zscore_mrna:
@@ -307,6 +337,22 @@ class Cohort:
         cfg = self.cfg
         if fold in self._mask_cache:
             return self._mask_cache[fold]
+        disk = None
+        if cfg.use_cache:
+            # the JAX package's key, parts and 'v2f32' token included (the
+            # estimator sees f32-rounded features), so its entries serve here
+            disk = PreprocessCache("./data_cache")
+            key = content_key(
+                "mi_mask", "v2f32", cfg.cancer_type,
+                tuple(self.patients[i] for i in train_idx),
+                cfg.mutual_neighbors, cfg.mutual_classif,
+                cfg.random_state if cfg.freeze_mutual_select_init else None,
+                cfg.node_select_threshold, cfg.mutual_info_threshold,
+            )
+            hit = disk.get(key)
+            if hit is not None:
+                self._mask_cache[fold] = hit
+                return hit
         pos = {p: i for i, p in enumerate(self.pca_patients)}
         rows = [pos[self.patients[i]] for i in train_idx]
         # the reference tensorizes the float64 features with torch.tensor,
@@ -325,6 +371,8 @@ class Cohort:
         if cfg.remain_all_tf:
             mask = np.maximum(mask, self.tf_token.astype(np.float32)[:, None])
         self._mask_cache[fold] = (mask, mi)
+        if disk is not None:
+            disk.put(key, (mask, mi))
         return mask, mi
 
     def _pathway_pca(self, info_mask: Optional[np.ndarray]):
@@ -420,16 +468,84 @@ class Cohort:
                     break
         return np.array(order, np.int32)
 
-    def build_edges(self, info_mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
+    def _edge_mi_valid(self, src, dst, oi, train_patients, y) -> bool:
+        """edge_select's per-edge test (cohort.py:560-587, reference
+        valid_pca_mutual_info :828-874): the edge's two columns over the
+        training patients; with knn_mutual_info and omics other than 1, the
+        KSG estimator on both columns against each alone; else the MI of
+        their first principal component against each column's (the
+        config's estimator at sklearn's default 3 neighbours)."""
+        cfg = self.cfg
+        if not cfg.edge_select:
+            return True
+        df = self.omics_raw[OMICS[oi]]
+        cols = [str(src), str(dst)]
+        if not all(df.has_col(c) for c in cols):
+            return False
+        # column-major, as pandas' to_numpy gives a one-block frame
+        ed = np.asfortranarray(df.select(cols).reindex(train_patients).values)
+        rs = cfg.random_state if cfg.freeze_mutual_select_init else None
+        if cfg.knn_mutual_info and oi != 1:
+            y_arr = np.asarray(y, float)[:, None]
+            pmi = kraskov_mi(ed, y_arr)
+            smi = kraskov_mi(ed[:, :1], y_arr)
+            dmi = kraskov_mi(ed[:, 1:], y_arr)
+            return pmi > cfg.edge_select_threshold * max(smi, dmi)
+        fn = native.mi_classif if cfg.mutual_classif else native.mi_regression
+        pmi = fn(pca_one(ed), y, random_state=rs)
+        smi = fn(ed[:, :1], y, random_state=rs)
+        dmi = fn(ed[:, 1:], y, random_state=rs)
+        return bool(pmi > cfg.edge_select_threshold * max(smi, dmi))
+
+    def merge_graph2(self, device="cuda") -> Optional[Graph]:
+        """edge_type 'merge''s secondary graph (cohort.py:589-633, reference
+        process_grn_edge, multiloader.py:276-289): the GRN edges both ways,
+        in gene-index space, not the 3 * gene + omics slot space of the
+        primary edges (the reference's quirk, kept: each GRN edge lands on
+        slot gene_idx), self-looped for sage / rsage / gat, padded to a
+        multiple of 2,048 edges (fold's default edge_bucket), with the K1
+        plans on ``device``.  The same for every fold; built once per
+        device."""
+        if self.edges2 is None:
+            return None
+        key = str(device)
+        if key in self._graph2_cache:
+            return self._graph2_cache[key]
+        nm = self.node_map
+        es, ats = [], []
+        for node_id in self.edges2:
+            for (s, d), a in zip(self.edges2[node_id], self.edge_attrs2[node_id]):
+                if s in nm and d in nm:
+                    es.append([nm[s], nm[d]])
+                    ats.append([a])
+                    es.append([nm[d], nm[s]])
+                    ats.append([a])
+        ei = np.array(es, np.int32).T if es else np.zeros((2, 0), np.int32)
+        ea = np.array(ats, np.float32) if ats else np.zeros((0, 1), np.float32)
+        g = Graph.from_edges(ei, ea, self.num_nodes)
+        if self.cfg.gnn_name.lower() in ("sage", "rsage", "gat"):
+            g = g.with_self_loops()
+        g = g.pad_edges_to(max(-(-g.n_edges // 2048) * 2048, 2048))
+        g = g.with_sorted_meta(device)
+        self._graph2_cache[key] = g
+        return g
+
+    def build_edges(
+        self, info_mask: np.ndarray, train_idx: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, np.ndarray, int]:
         """MI-selected intra-omics + cross-omics edges in node-slot space
         (reference recalculate_edge_bo_selected_gene :581-700).  The selected
         sets are built and walked exactly as the JAX package's, so the edge
-        list comes out in the same order."""
+        list comes out in the same order.  With edge_select, each intra-omics
+        edge must pass _edge_mi_valid over the training patients."""
         cfg = self.cfg
         selected = [set(), set(), set()]
         for i, r in enumerate(self.rows):
             if info_mask[i, 0] > 0:
                 selected[r.omics].add(r.entrez)
+        train_patients = ([self.patients[i] for i in train_idx]
+                          if train_idx is not None else [])
+        y = self.labels()[train_idx].tolist() if train_idx is not None else []
 
         edges, attrs = [], []
         nm = self.node_map
@@ -441,6 +557,8 @@ class Cohort:
                     continue
                 for (s, d), a in zip(self.edges[e], self.edge_attrs[e]):
                     if d in sel and d in nm:
+                        if not self._edge_mi_valid(s, d, oi, train_patients, y):
+                            continue
                         edges.append([3 * nm[s] + oi, 3 * nm[d] + oi])
                         attrs.append([a])
                         if cfg.bidir_edge:
@@ -501,7 +619,7 @@ class Cohort:
                 if self.initial_reorder_idxs is not None
                 else np.arange(self.n_pathways, dtype=np.int32)
             )
-        edge_index, edge_attr, _ = self.build_edges(mask)
+        edge_index, edge_attr, _ = self.build_edges(mask, train_idx)
         t_edges = time.perf_counter()
         graph = Graph.from_edges(edge_index, edge_attr, self.num_nodes)
         if cfg.gnn_name.lower() in ("sage", "rsage", "gat"):
@@ -521,6 +639,8 @@ class Cohort:
             graph, self.gene_pca_match, self.raw_indice, mask, reorder,
             pca_seed=seed, n_pathways=self.n_pathways, device=device,
         )
+        if cfg.edge_type == "merge":
+            ctx = dataclasses.replace(ctx, graph2=self.merge_graph2(device))
         t_graph = time.perf_counter()
         pos = {p: i for i, p in enumerate(self.pca_patients)}
         return FoldData(

@@ -136,12 +136,18 @@ class KeggTable:
         self.symbol = [str(s) for s in symbol]
         self.entrez = np.asarray(entrez, np.int64)
         self._by_pathway: Dict[str, Dict[int, None]] = {}
+        self._by_entrez: Dict[int, set] = {}
         for p, e in zip(self.pathway, self.entrez.tolist()):
             self._by_pathway.setdefault(p, {}).setdefault(e, None)
+            self._by_entrez.setdefault(e, set()).add(p)
 
     def entrez_of(self, pathway: str) -> np.ndarray:
         """Unique entrez ids of one pathway, in order of first appearance."""
         return np.asarray(list(self._by_pathway.get(str(pathway), {})), np.int64)
+
+    def pathways_of(self, entrez: int) -> set:
+        """The pathways of the rows whose entrez id is ``entrez``."""
+        return self._by_entrez.get(int(entrez), set())
 
     def entrez_in(self, pathways: Sequence[str]) -> np.ndarray:
         """Unique entrez ids of the rows whose pathway is in ``pathways``."""

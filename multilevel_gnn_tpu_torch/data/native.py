@@ -28,15 +28,19 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _BUILD_DIR = _DIR / "_build"
 _LIBS = {}
+_BUILD_S = {}  # library name -> seconds its build took in this process (0.0: found built)
 _LOCK = threading.Lock()
+_MI_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
+_CSV_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off")
 
 
 def _cxx() -> str:
@@ -57,7 +61,9 @@ def _build(name: str, flags) -> ctypes.CDLL:
             h = hashlib.sha256(source.read_bytes())
             h.update(" ".join(flags).encode())
             so = _BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-            if not so.exists():
+            t0 = time.perf_counter()
+            built = not so.exists()
+            if built:
                 _BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_suffix(f".{os.getpid()}.tmp")
                 r = subprocess.run(
@@ -67,13 +73,22 @@ def _build(name: str, flags) -> ctypes.CDLL:
                 if r.returncode != 0:
                     raise RuntimeError(f"building {source.name} failed:\n{r.stderr}")
                 os.replace(tmp, so)
+            _BUILD_S[name] = time.perf_counter() - t0 if built else 0.0
             _LIBS[name] = ctypes.CDLL(str(so))
     return _LIBS[name]
 
 
+def build_libraries() -> Dict[str, float]:
+    """Build (if needed) and load both data libraries; returns {name:
+    seconds its build took} (0.0 when it was already built)."""
+    _build("mi_knn", _MI_FLAGS)
+    _build("csv_float", _CSV_FLAGS)
+    return dict(_BUILD_S)
+
+
 def _lib():
     """The MI library (csrc/mi_knn.cc)."""
-    lib = _build("mi_knn", ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread"))
+    lib = _build("mi_knn", _MI_FLAGS)
     P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     lib.mi_cd_batch.argtypes = [P, L, L, P, I, I, P, P, I]
     lib.mi_cd_batch.restype = None
@@ -88,8 +103,7 @@ def parse_csv_floats(fields) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     is 0 for a float, 1 for an integer within int64 (ints holds it), 2 for
     an NA string: pandas reads a column of integers and NA strings exactly,
     as int64.  A field that does not parse raises ValueError."""
-    lib = _build("csv_float", ("-O2", "-fPIC", "-std=c++17", "-shared",
-                               "-ffp-contract=off"))
+    lib = _build("csv_float", _CSV_FLAGS)
     fn = lib.parse_csv_floats
     fn.argtypes = [ctypes.c_char_p, ctypes.c_long] + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_long

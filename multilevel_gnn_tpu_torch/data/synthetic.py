@@ -75,14 +75,20 @@ def make_synthetic_tables(
 
 
 def make_synthetic_cohort(cfg: Config, seed: int = 0, **kw):
-    """A Cohort of make_synthetic_tables(seed, **kw)."""
+    """A Cohort of make_synthetic_tables(seed, **kw); under edge_type
+    'merge' the secondary edge set is make_synthetic_tables(seed + 1000)'s
+    (synthetic.py:78-84)."""
     from multilevel_gnn_tpu_torch.data.cohort import Cohort
 
     omics, clinical, kegg, pathways, edges, edge_attrs = make_synthetic_tables(
         seed=seed, **kw
     )
+    edges2 = attrs2 = None
+    if cfg.edge_type == "merge":
+        _, _, _, _, edges2, attrs2 = make_synthetic_tables(seed=seed + 1000, **kw)
     cfg = cfg.replace(pathway_num=len(pathways))
-    return Cohort(omics, clinical, kegg, pathways, edges, edge_attrs, cfg)
+    return Cohort(omics, clinical, kegg, pathways, edges, edge_attrs, cfg,
+                  edges2=edges2, edge_attrs2=attrs2)
 
 
 def _write_csv(path: str, df: Frame) -> None:
@@ -129,18 +135,10 @@ def write_reference_format(
                 f.write(f"{id2sym[a]}\t{id2sym[b]}\t{w!r}\n")
 
 
-def make_cohort_topology(
-    rng,
-    n_genes: int = 5135,
-    e_ppi: int = 45_000,
-    hub_frac: float = 0.10,
-    community: int = 60,
-):
-    """GBM-scale cohort-like edge list (no self loops): 90% of gene edges
-    community-banded + 10% uniform hub edges, each replicated over the 3
-    interleaved omics slots (node = 3*gene+omics), plus CNV->mRNA and
-    MT->mRNA cross-omics edges between adjacent slots.  Returns (senders,
-    receivers, n_nodes)."""
+def gene_topology(rng, n_genes: int, e_ppi: int, hub_frac: float = 0.10,
+                  community: int = 60) -> Tuple[np.ndarray, np.ndarray]:
+    """e_ppi gene pairs (src, dst gene indices): 90% community-banded, 10%
+    from 20 hub genes to uniform ones; self pairs possible."""
     n_comm = (n_genes + community - 1) // community
     e_local = int(e_ppi * (1 - hub_frac))
     c = rng.randint(0, n_comm, e_local)
@@ -153,8 +151,21 @@ def make_cohort_topology(
     hubs = rng.choice(n_genes, 20, replace=False)
     hs = hubs[rng.randint(0, 20, e_hub)]
     hd = rng.randint(0, n_genes, e_hub)
-    src_g = np.concatenate([src_g, hs])
-    dst_g = np.concatenate([dst_g, hd])
+    return np.concatenate([src_g, hs]), np.concatenate([dst_g, hd])
+
+
+def make_cohort_topology(
+    rng,
+    n_genes: int = 5135,
+    e_ppi: int = 45_000,
+    hub_frac: float = 0.10,
+    community: int = 60,
+):
+    """GBM-scale cohort-like edge list (no self loops): gene_topology's
+    pairs, each replicated over the 3 interleaved omics slots (node =
+    3*gene+omics), plus CNV->mRNA and MT->mRNA cross-omics edges between
+    adjacent slots.  Returns (senders, receivers, n_nodes)."""
+    src_g, dst_g = gene_topology(rng, n_genes, e_ppi, hub_frac, community)
     src, dst = [], []
     for oi in range(3):
         src.append(3 * src_g + oi)
@@ -165,6 +176,52 @@ def make_cohort_topology(
     src.append(3 * genes + 2)
     dst.append(3 * genes)
     return np.concatenate(src), np.concatenate(dst), 3 * n_genes
+
+
+def write_string_ppi(
+    path: str, kegg: KeggTable, seed: int = 0, e_ppi: int = 45_000,
+    cancer_type: Optional[str] = None,
+) -> None:
+    """Test data: STRING-layout PPI tables over the KEGG genes, as
+    Cytoscape exports them from STRING.  node.csv (columns "@id",
+    "query term", "node type", "display name"): one protein node per KEGG
+    symbol, id "stringdb:9606.ENSP<entrez>", plus two nodes the loader
+    drops (a compound, a symbol outside KEGG).  ppi_edges.csv (columns
+    "name", "stringdb::score", "interaction", quoted): gene_topology's
+    e_ppi pairs as "A (pp) B" rows with scores in [0.15, 1], one in 50
+    without a score (read as 0, dropped under use_column), about one in 100
+    a "(cc)" interaction, and a row naming an unknown protein; the last two
+    the loader drops.  With cancer_type the edge table
+    goes under path/<cancer_type>/."""
+    import csv
+
+    rng = np.random.RandomState(seed)
+    genes: Dict[str, int] = {}
+    for s, e in zip(kegg.symbol, kegg.entrez.tolist()):
+        genes.setdefault(s, int(e))
+    symbols = list(genes)
+    ids = [f"9606.ENSP{genes[s]:011d}" for s in symbols]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "node.csv"), "w", newline="") as f:
+        w = csv.writer(f, quoting=csv.QUOTE_ALL)
+        w.writerow(["@id", "query term", "node type", "display name"])
+        for i, s in zip(ids, symbols):
+            w.writerow([f"stringdb:{i}", s, "protein", s])
+        w.writerow(["stringdb:CIDm00000001", "ATP", "compound", "ATP"])
+        w.writerow(["stringdb:9606.ENSP99999999999", "NOTKEGG1", "protein", "NOTKEGG1"])
+    src, dst = gene_topology(rng, len(symbols), e_ppi)
+    score = np.round(0.15 + 0.85 * rng.rand(len(src)), 3)
+    missing = rng.rand(len(src)) < 0.02
+    kind = np.where(rng.rand(len(src)) < 0.01, "(cc)", "(pp)")
+    own = os.path.join(path, cancer_type) if cancer_type else path
+    os.makedirs(own, exist_ok=True)
+    with open(os.path.join(own, "ppi_edges.csv"), "w", newline="") as f:
+        w = csv.writer(f, quoting=csv.QUOTE_ALL)
+        w.writerow(["name", "stringdb::score", "interaction"])
+        for a, b, sc, miss, k in zip(src.tolist(), dst.tolist(), score.tolist(),
+                                     missing.tolist(), kind.tolist()):
+            w.writerow([f"{ids[a]} {k} {ids[b]}", "" if miss else repr(sc), k[1:-1]])
+        w.writerow([f"{ids[0]} (pp) 9606.ENSP00000000000", "0.5", "pp"])
 
 
 def make_gbm_scale_setup(

@@ -4,7 +4,8 @@ MultilevelGNN encode / gnn_stack / gather_pca_rows / learnable_pca_image
 :137-321, get_feature_loss :359-404, seed_pca_params :457-470).
 
   node embedding outer product -> GNN stack (gnn_name sage, rsage, mr or
-  edge) -> value-attention mask ->
+  edge; with edge_type merge, run once over each of the fold's two graphs
+  and concatenated) -> value-attention mask ->
   gene -> PCA-row gather -> learnable-PCA pathway contraction -> optional
   pathway reorder -> ConvHead (1x1 convs, MaxPool, flatten, age, MLP,
   softmax).
@@ -44,7 +45,6 @@ def _check_supported(cfg: Config) -> None:
         "resgnn": cfg.resgnn,
         "dense_gnn": cfg.dense_gnn,
         "repeat_mask": cfg.repeat_mask,
-        "edge_type=merge": cfg.edge_type == "merge",
         "pca_prelinear": cfg.pca_prelinear,
         "only_mrna_pred": cfg.only_mrna_pred,
         "used_omics!='012'": cfg.used_omics != "012",
@@ -192,7 +192,10 @@ class MultilevelGNN(nn.Module):
         self._init_pca(generator)
         self.input_drop = Dropout(cfg.input_drop)
         self.input_emb_drop = Dropout(cfg.input_emb_drop)
-        self.conv_head = ConvHead(cfg, cfg.final_channels, generator)
+        # merge concatenates the two graphs' features (the reference doubles
+        # final_channels for the head only; flax's head infers it)
+        head_in = cfg.final_channels * (2 if cfg.edge_type == "merge" else 1)
+        self.conv_head = ConvHead(cfg, head_in, generator)
         self.to(dev)
 
     def _init_embedding(self, g):
@@ -235,8 +238,21 @@ class MultilevelGNN(nn.Module):
         # x stays f32 here: each conv casts it to cdt where it uses it
         if cdt is not None:
             mask_x = mask_x.to(cdt)
-        for i in range(self.n_layers):
-            x = getattr(self, f"gnn_{i}")(x, ctx.graph, edge_attr, generator)
+        if cfg.edge_type == "merge":
+            if ctx.graph2 is None:
+                raise ValueError("edge_type 'merge' needs the fold's graph2")
+            # multilevel_gnn.py:197-218: the same stack (shared weights) once
+            # per graph, unweighted, the features concatenated
+            feats = []
+            for g in (ctx.graph, ctx.graph2):
+                h = x
+                for i in range(self.n_layers):
+                    h = getattr(self, f"gnn_{i}")(h, g, None, generator)
+                feats.append(h)
+            x = torch.cat(feats, dim=-1)
+        else:
+            for i in range(self.n_layers):
+                x = getattr(self, f"gnn_{i}")(x, ctx.graph, edge_attr, generator)
         if cfg.value_att_mask:
             if cfg.merge_mode == "mult":
                 x = x * mask_x[..., None]

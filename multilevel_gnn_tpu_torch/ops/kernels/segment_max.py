@@ -9,7 +9,8 @@ Hopper a row-per-block reduction reads them in place through the graph's
 receiver-sorted ``CSRPlan`` (K1's plan over the real edges): ``rowptr`` per
 destination row and ``eid``, the edge row of each entry.  A row with no
 entries gives 0 (torch_scatter's zero fill); padding edges are not in the
-plan, so they never reach the max.
+plan, so they never reach the max.  The kernel is the ``torch.library`` op
+``mgtpu::segment_max_csr``.
 """
 from __future__ import annotations
 
@@ -35,10 +36,13 @@ KERNEL = register(
 )
 
 
+def _k3_plain(msg, eid, row, n_rows: int) -> torch.Tensor:
+    return segment_max(msg.index_select(0, eid.long()).float(), row, n_rows)
+
+
 def segment_max_csr_plain(msg: torch.Tensor, plan: CSRPlan) -> torch.Tensor:
     """Plain PyTorch version of segment_max_csr (same contract)."""
-    rows = msg.index_select(0, plan.eid.long()).float()
-    return segment_max(rows, plan.row, plan.n_rows)
+    return _k3_plain(msg, plan.eid, plan.row, plan.n_rows)
 
 
 def _check_inputs(msg, plan):
@@ -53,6 +57,43 @@ def _check_inputs(msg, plan):
             raise ValueError("msg and the plan must be on one device")
 
 
+# K3 as the torch.library op mgtpu::segment_max_csr: the CPU kernel is the
+# plain version, the CUDA kernel launches K3.
+torch.library.define("mgtpu::segment_max_csr",
+                     "(Tensor msg, Tensor rowptr, Tensor eid, Tensor row) -> Tensor")
+
+
+@torch.library.impl("mgtpu::segment_max_csr", "cpu")
+def _(msg, rowptr, eid, row):
+    return _k3_plain(msg, eid, row, rowptr.shape[0] - 1)
+
+
+@torch.library.impl("mgtpu::segment_max_csr", "cuda")
+def _(msg, rowptr, eid, row):
+    n_rows, F = rowptr.shape[0] - 1, msg.shape[1]
+    out = torch.empty((n_rows, F), dtype=torch.float32, device=msg.device)
+    if out.numel() == 0:
+        return out
+    vector = F % 8 == 0 and msg.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    fn = KERNEL.fn()
+    err = fn(
+        rowptr.data_ptr(), eid.data_ptr(), msg.data_ptr(), out.data_ptr(),
+        n_rows, F, int(msg.dtype == torch.bfloat16), int(vector),
+        stream_handle(msg),
+    )
+    KERNEL.launches += 1
+    KERNEL.check(err)
+    return out
+
+
+@torch.library.register_fake("mgtpu::segment_max_csr")
+def _(msg, rowptr, eid, row):
+    return msg.new_empty((rowptr.shape[0] - 1, msg.shape[1]), dtype=torch.float32)
+
+
+segment_max_csr_op = torch.ops.mgtpu.segment_max_csr.default
+
+
 def segment_max_csr(msg: torch.Tensor, plan: CSRPlan) -> torch.Tensor:
     """out[n] = max_{e in row n} msg[eid[e]], elementwise; 0 for a row
     without entries.
@@ -61,19 +102,4 @@ def segment_max_csr(msg: torch.Tensor, plan: CSRPlan) -> torch.Tensor:
     values are elements of msg, exactly.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel."""
     _check_inputs(msg, plan)
-    if msg.device.type == "cpu":
-        return segment_max_csr_plain(msg, plan)
-    F = msg.shape[1]
-    out = torch.empty((plan.n_rows, F), dtype=torch.float32, device=msg.device)
-    if out.numel() == 0:
-        return out
-    vector = F % 8 == 0 and msg.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    fn = KERNEL.fn()
-    err = fn(
-        plan.rowptr.data_ptr(), plan.eid.data_ptr(), msg.data_ptr(),
-        out.data_ptr(), plan.n_rows, F, int(msg.dtype == torch.bfloat16),
-        int(vector), stream_handle(msg),
-    )
-    KERNEL.launches += 1
-    KERNEL.check(err)
-    return out
+    return segment_max_csr_op(msg, plan.rowptr, plan.eid, plan.row)

@@ -16,6 +16,10 @@ plain receiver-sorted CSR: ``rowptr`` per output row, the source row
 kernel visits.  Weights stay per original edge and are read through
 ``eid`` inside the kernel; with bf16 data each is rounded to bf16 first,
 as ``flat_segment_sum`` does (segment_sum.py:481-490).
+
+Each kernel is a ``torch.library`` op in namespace ``mgtpu`` whose
+arguments are tensors and ints (the plans unpacked at the call): the CPU
+kernel is the plain version, the CUDA kernel the hand-written one.
 """
 from __future__ import annotations
 
@@ -147,6 +151,14 @@ class CSRPlan:
         )
 
 
+def _k1_plain(x, w, col, eid, row, n_rows: int) -> torch.Tensor:
+    we = w.index_select(0, eid.long()).float()
+    if x.dtype == torch.bfloat16:
+        we = we.to(torch.bfloat16).float()
+    msg = x.index_select(0, col.long()).float() * we[:, None]
+    return segment_sum(msg, row, n_rows)
+
+
 def segment_spmm_csr_plain(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -154,11 +166,7 @@ def segment_spmm_csr_plain(
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of segment_spmm_csr (same contract)."""
-    we = w.index_select(0, plan.eid.long()).float()
-    if x.dtype == torch.bfloat16:
-        we = we.to(torch.bfloat16).float()
-    msg = x.index_select(0, plan.col.long()).float() * we[:, None]
-    res = segment_sum(msg, plan.row, plan.n_rows)
+    res = _k1_plain(x, w, plan.col, plan.eid, plan.row, plan.n_rows)
     return res if out is None else out.add_(res)
 
 
@@ -183,6 +191,79 @@ def _check_inputs(x, w, plan, out):
         raise ValueError("out must be a contiguous (n_rows, F) float32 tensor")
 
 
+def _k1_launch(out, x, w, rowptr, col, eid, items, long_rows, n_items: int,
+               accumulate: bool) -> None:
+    """K1 on the card into out (n_rows, F) f32: overwrite the first n_items
+    rows of items and every long row, or add into them (accumulate)."""
+    F = x.shape[1]
+    n_long = int(long_rows.shape[0])
+    if out.numel() == 0 or n_items + n_long == 0:
+        return
+    vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    fn = KERNEL.fn()
+    err = fn(
+        rowptr.data_ptr(), col.data_ptr(), eid.data_ptr(), w.data_ptr(),
+        items.data_ptr(), long_rows.data_ptr(), x.data_ptr(), out.data_ptr(),
+        n_items, n_long, F, int(x.dtype == torch.bfloat16), int(accumulate),
+        int(vector), stream_handle(x),
+    )
+    KERNEL.launches += 1
+    KERNEL.check(err)
+
+
+# K1 as the torch.library ops mgtpu::segment_spmm_csr (a new output) and
+# mgtpu::segment_spmm_csr_acc (adds into out in place, declared as a
+# mutation): tensors and ints only, so torch.export can trace them.  The CPU
+# kernel is the plain version; the CUDA kernel launches K1; the fake
+# function takes the output's shape from rowptr and x.  Defined with
+# torch.library.define / impl rather than torch.library.custom_op, whose
+# Python autograd and aliasing layers run on the host at every call
+# (probes/op_dispatch.py times a call's host cost).
+_K1_ARGS = ("Tensor x, Tensor w, Tensor rowptr, Tensor col, Tensor eid, Tensor row, "
+            "Tensor items, Tensor long_rows")
+torch.library.define("mgtpu::segment_spmm_csr", f"({_K1_ARGS}) -> Tensor")
+torch.library.define("mgtpu::segment_spmm_csr_acc",
+                     f"(Tensor(a!) out, {_K1_ARGS}, SymInt n_busy) -> ()")
+
+
+@torch.library.impl("mgtpu::segment_spmm_csr", "cpu")
+def _(x, w, rowptr, col, eid, row, items, long_rows):
+    return _k1_plain(x, w, col, eid, row, rowptr.shape[0] - 1)
+
+
+@torch.library.impl("mgtpu::segment_spmm_csr", "cuda")
+def _(x, w, rowptr, col, eid, row, items, long_rows):
+    out = torch.empty((rowptr.shape[0] - 1, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    _k1_launch(out, x, w, rowptr, col, eid, items, long_rows,
+               int(items.shape[0]), False)
+    return out
+
+
+@torch.library.register_fake("mgtpu::segment_spmm_csr")
+def _(x, w, rowptr, col, eid, row, items, long_rows):
+    return x.new_empty((rowptr.shape[0] - 1, x.shape[1]), dtype=torch.float32)
+
+
+@torch.library.impl("mgtpu::segment_spmm_csr_acc", "cpu")
+def _(out, x, w, rowptr, col, eid, row, items, long_rows, n_busy):
+    out.add_(_k1_plain(x, w, col, eid, row, rowptr.shape[0] - 1))
+
+
+@torch.library.impl("mgtpu::segment_spmm_csr_acc", "cuda")
+def _(out, x, w, rowptr, col, eid, row, items, long_rows, n_busy):
+    _k1_launch(out, x, w, rowptr, col, eid, items, long_rows, n_busy, True)
+
+
+@torch.library.register_fake("mgtpu::segment_spmm_csr_acc")
+def _(out, x, w, rowptr, col, eid, row, items, long_rows, n_busy):
+    return None
+
+
+segment_spmm_csr_op = torch.ops.mgtpu.segment_spmm_csr.default
+segment_spmm_csr_acc_op = torch.ops.mgtpu.segment_spmm_csr_acc.default
+
+
 def segment_spmm_csr(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -197,29 +278,10 @@ def segment_spmm_csr(
     CPU tensor takes the plain version; a CUDA tensor launches the
     kernel."""
     _check_inputs(x, w, plan, out)
-    if x.device.type == "cpu":
-        return segment_spmm_csr_plain(x, w, plan, out)
-    F = x.shape[1]
-    accumulate = out is not None
+    args = (plan.rowptr, plan.col, plan.eid, plan.row, plan.items, plan.long_rows)
     if out is None:
-        out = torch.empty((plan.n_rows, F), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    n_items = plan.n_busy if accumulate else int(plan.items.shape[0])
-    n_long = int(plan.long_rows.shape[0])
-    if n_items + n_long == 0:
-        return out
-    vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    fn = KERNEL.fn()
-    err = fn(
-        plan.rowptr.data_ptr(), plan.col.data_ptr(), plan.eid.data_ptr(),
-        w.data_ptr(), plan.items.data_ptr(), plan.long_rows.data_ptr(),
-        x.data_ptr(), out.data_ptr(), n_items, n_long, F,
-        int(x.dtype == torch.bfloat16), int(accumulate), int(vector),
-        stream_handle(x),
-    )
-    KERNEL.launches += 1
-    KERNEL.check(err)
+        return segment_spmm_csr_op(x, w, *args)
+    segment_spmm_csr_acc_op(out, x, w, *args, plan.n_busy)
     return out
 
 
@@ -298,28 +360,45 @@ def _check_sorted_inputs(data, plan):
         raise ValueError("data and the plan must be on one device")
 
 
+def _k4_plain(data, perm, seg, num_segments: int) -> torch.Tensor:
+    n_kept = seg.shape[0]
+    rows = data if perm is None else data.index_select(-2, perm[:n_kept].long())
+    rows = rows.narrow(-2, 0, n_kept).float()
+    out = torch.zeros(
+        data.shape[:-2] + (num_segments, data.shape[-1]),
+        dtype=torch.float32, device=data.device,
+    )
+    return out.index_add_(data.dim() - 2, seg.long(), rows)
+
+
 def sorted_segment_sum_plain(
     data: torch.Tensor, plan: SortedPlan, permuted: bool = False
 ) -> torch.Tensor:
     """Plain PyTorch version of sorted_segment_sum (permuted=False: rows in
     the plan's sorted order) and of K4 in segment_sum_by (permuted=True:
     rows in their original order, read through perm)."""
-    rows = data
-    if permuted and plan.perm is not None:
-        rows = data.index_select(-2, plan.perm[: plan.n_kept].long())
-    rows = rows.narrow(-2, 0, plan.n_kept).float()
-    out = torch.zeros(
-        data.shape[:-2] + (plan.num_segments, data.shape[-1]),
-        dtype=torch.float32, device=data.device,
-    )
-    return out.index_add_(data.dim() - 2, plan.seg.long(), rows)
+    return _k4_plain(data, plan.perm if permuted else None, plan.seg,
+                     plan.num_segments)
 
 
-def _sorted_kernel(data: torch.Tensor, plan: SortedPlan, perm) -> torch.Tensor:
+# K4 as the torch.library op mgtpu::sorted_segment_sum: perm None reads the
+# rows in sorted order, a perm reads them through it (segment_sum_by).
+torch.library.define("mgtpu::sorted_segment_sum",
+                     "(Tensor data, Tensor rowptr, Tensor? perm, Tensor seg) -> Tensor")
+
+
+@torch.library.impl("mgtpu::sorted_segment_sum", "cpu")
+def _(data, rowptr, perm, seg):
+    return _k4_plain(data, perm, seg, rowptr.shape[0] - 1)
+
+
+@torch.library.impl("mgtpu::sorted_segment_sum", "cuda")
+def _(data, rowptr, perm, seg):
     B = data.shape[0] if data.dim() == 3 else 1
     E, C = data.shape[-2], data.shape[-1]
+    num_segments = rowptr.shape[0] - 1
     out = torch.empty(
-        data.shape[:-2] + (plan.num_segments, C), dtype=torch.float32,
+        data.shape[:-2] + (num_segments, C), dtype=torch.float32,
         device=data.device,
     )
     if out.numel() == 0:
@@ -327,13 +406,22 @@ def _sorted_kernel(data: torch.Tensor, plan: SortedPlan, perm) -> torch.Tensor:
     vector = C % 8 == 0 and data.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     fn = SORTED_KERNEL.fn()
     err = fn(
-        plan.rowptr.data_ptr(), perm.data_ptr() if perm is not None else None,
-        data.data_ptr(), out.data_ptr(), B, plan.num_segments, E, C,
+        rowptr.data_ptr(), perm.data_ptr() if perm is not None else None,
+        data.data_ptr(), out.data_ptr(), B, num_segments, E, C,
         int(data.dtype == torch.bfloat16), int(vector), stream_handle(data),
     )
     SORTED_KERNEL.launches += 1
     SORTED_KERNEL.check(err)
     return out
+
+
+@torch.library.register_fake("mgtpu::sorted_segment_sum")
+def _(data, rowptr, perm, seg):
+    return data.new_empty(data.shape[:-2] + (rowptr.shape[0] - 1, data.shape[-1]),
+                          dtype=torch.float32)
+
+
+sorted_segment_sum_op = torch.ops.mgtpu.sorted_segment_sum.default
 
 
 def sorted_segment_sum(data: torch.Tensor, plan: SortedPlan) -> torch.Tensor:
@@ -342,9 +430,7 @@ def sorted_segment_sum(data: torch.Tensor, plan: SortedPlan) -> torch.Tensor:
     dropped rows (past n_kept) are ignored.  A CPU tensor takes the plain
     version; a CUDA tensor launches K4."""
     _check_sorted_inputs(data, plan)
-    if data.device.type == "cpu":
-        return sorted_segment_sum_plain(data, plan)
-    return _sorted_kernel(data, plan, None)
+    return sorted_segment_sum_op(data, plan.rowptr, None, plan.seg)
 
 
 def segment_sum_by(data: torch.Tensor, plan: SortedPlan) -> torch.Tensor:
@@ -356,6 +442,4 @@ def segment_sum_by(data: torch.Tensor, plan: SortedPlan) -> torch.Tensor:
     if data.dim() == 2:
         ones = torch.ones(plan.n_ids, dtype=torch.float32, device=data.device)
         return segment_spmm_csr(data, ones, plan.csr)
-    if data.device.type == "cpu":
-        return sorted_segment_sum_plain(data, plan, permuted=True)
-    return _sorted_kernel(data, plan, plan.perm)
+    return sorted_segment_sum_op(data, plan.rowptr, plan.perm, plan.seg)

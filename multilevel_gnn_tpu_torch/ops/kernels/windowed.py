@@ -23,7 +23,8 @@ in-window edges; the kernel is the same.
 bf16 data rounds each edge weight to bf16, sums an entry's weights in f32
 in plan order and rounds the sum to bf16, as the TPU kernel's weighted
 one-hot and adjacency cast do (windowed.py:523-533, :561); the residual
-plans' K1 rounds its weights the same way.
+plans' K1 rounds its weights the same way.  The kernel is the
+``torch.library`` op ``mgtpu::windowed_tile_spmm``.
 """
 from __future__ import annotations
 
@@ -434,6 +435,25 @@ def build_plan(
     )
 
 
+def _k2_plain(x, w, edge_eid, edge_ent, ent_src_orig, ent_dst_orig) -> torch.Tensor:
+    we = w.index_select(0, edge_eid.long()).float()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        we = we.to(torch.bfloat16).float()
+    a = segment_sum(we, edge_ent, ent_src_orig.shape[0])
+    if bf16:
+        a = a.to(torch.bfloat16).float()
+    msg = x.index_select(0, ent_src_orig.long()).float() * a[:, None]
+    return segment_sum(msg, ent_dst_orig, x.shape[0])
+
+
+def _side_args(plan: WindowPlan, transpose: bool):
+    side = plan.bwd if transpose else plan.fwd
+    return (side.tile_blk_ptr, side.blk_src, side.blk_ent_ptr, side.blk_row_ptr,
+            side.ent_pos, side.ent_edge_ptr, side.edge_eid, plan.row_of,
+            side.edge_ent, side.ent_src_orig, side.ent_dst_orig)
+
+
 def windowed_tile_spmm_plain(
     x: torch.Tensor, w: torch.Tensor, plan: WindowPlan, transpose: bool = False
 ) -> torch.Tensor:
@@ -441,15 +461,58 @@ def windowed_tile_spmm_plain(
     (bf16 x: each weight rounded to bf16, the f32 sum rounded again), then
     the weighted row sums, in f32."""
     side = plan.bwd if transpose else plan.fwd
-    we = w.index_select(0, side.edge_eid.long()).float()
-    bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        we = we.to(torch.bfloat16).float()
-    a = segment_sum(we, side.edge_ent, side.n_entries)
-    if bf16:
-        a = a.to(torch.bfloat16).float()
-    msg = x.index_select(0, side.ent_src_orig.long()).float() * a[:, None]
-    return segment_sum(msg, side.ent_dst_orig, plan.num_nodes)
+    return _k2_plain(x, w, side.edge_eid, side.edge_ent, side.ent_src_orig,
+                     side.ent_dst_orig)
+
+
+# K2 as the torch.library op mgtpu::windowed_tile_spmm, one side of the
+# plan unpacked (the forward side, or the transpose side for the backward).
+# The CPU kernel is the plain version, the CUDA kernel launches K2.
+torch.library.define(
+    "mgtpu::windowed_tile_spmm",
+    "(Tensor x, Tensor w, Tensor tile_blk_ptr, Tensor blk_src, Tensor blk_ent_ptr, "
+    "Tensor blk_row_ptr, Tensor ent_pos, Tensor ent_edge_ptr, Tensor edge_eid, "
+    "Tensor? row_of, Tensor edge_ent, Tensor ent_src_orig, Tensor ent_dst_orig) -> Tensor")
+
+
+@torch.library.impl("mgtpu::windowed_tile_spmm", "cpu")
+def _(x, w, tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
+      ent_edge_ptr, edge_eid, row_of, edge_ent, ent_src_orig, ent_dst_orig):
+    return _k2_plain(x, w, edge_eid, edge_ent, ent_src_orig, ent_dst_orig)
+
+
+@torch.library.impl("mgtpu::windowed_tile_spmm", "cuda")
+def _(x, w, tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
+      ent_edge_ptr, edge_eid, row_of, edge_ent, ent_src_orig, ent_dst_orig):
+    N, F = x.shape
+    out = torch.empty((N, F), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    n_ent = ent_pos.shape[0]
+    ent_pv = torch.empty((n_ent, 2), dtype=torch.int32, device=x.device)
+    vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    fn = KERNEL.fn()
+    err = fn(
+        tile_blk_ptr.data_ptr(), blk_src.data_ptr(), blk_ent_ptr.data_ptr(),
+        blk_row_ptr.data_ptr(), ent_pos.data_ptr(), ent_edge_ptr.data_ptr(),
+        edge_eid.data_ptr(), w.data_ptr(),
+        row_of.data_ptr() if row_of is not None else None,
+        ent_pv.data_ptr(), x.data_ptr(), out.data_ptr(),
+        tile_blk_ptr.shape[0] - 1, n_ent, N, F, int(x.dtype == torch.bfloat16),
+        int(vector), stream_handle(x),
+    )
+    KERNEL.launches += 1
+    KERNEL.check(err)
+    return out
+
+
+@torch.library.register_fake("mgtpu::windowed_tile_spmm")
+def _(x, w, tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
+      ent_edge_ptr, edge_eid, row_of, edge_ent, ent_src_orig, ent_dst_orig):
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+windowed_tile_spmm_op = torch.ops.mgtpu.windowed_tile_spmm.default
 
 
 def windowed_tile_spmm(
@@ -475,28 +538,7 @@ def windowed_tile_spmm(
         raise ValueError("w must be a contiguous (E,) float32 tensor")
     if w.device != x.device or side.tile_blk_ptr.device != x.device:
         raise ValueError("x, w and the plan must be on one device")
-    if x.device.type == "cpu":
-        return windowed_tile_spmm_plain(x, w, plan, transpose)
-    N, F = x.shape
-    out = torch.empty((N, F), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    ent_pv = torch.empty((side.n_entries, 2), dtype=torch.int32, device=x.device)
-    vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    fn = KERNEL.fn()
-    err = fn(
-        side.tile_blk_ptr.data_ptr(), side.blk_src.data_ptr(),
-        side.blk_ent_ptr.data_ptr(), side.blk_row_ptr.data_ptr(),
-        side.ent_pos.data_ptr(), side.ent_edge_ptr.data_ptr(),
-        side.edge_eid.data_ptr(), w.data_ptr(),
-        plan.row_of.data_ptr() if plan.row_of is not None else None,
-        ent_pv.data_ptr(), x.data_ptr(), out.data_ptr(),
-        side.n_tiles, side.n_entries, N, F, int(x.dtype == torch.bfloat16),
-        int(vector), stream_handle(x),
-    )
-    KERNEL.launches += 1
-    KERNEL.check(err)
-    return out
+    return windowed_tile_spmm_op(x, w, *_side_args(plan, transpose))
 
 
 def _residual_plans(plan: WindowPlan, transpose: bool):

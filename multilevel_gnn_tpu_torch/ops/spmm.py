@@ -32,6 +32,10 @@ it as (N, B*C) rows without the transpose the JAX package's
 ``_to_2d``/``_from_2d`` (:121-134) do around it; the values are the same.
 Dispatch: a graph with a window plan goes through the windowed path,
 otherwise K1 over all real edges.  Accumulation is f32; the result is f32.
+The kernels are reached through their torch.library ops (mgtpu::*), so an
+eval forward traced by torch.export under torch.no_grad() (train/export.py)
+records each Function's forward, op calls included; plain_versions() calls
+the plain Python functions directly, never the ops.
 """
 from __future__ import annotations
 

@@ -2,21 +2,25 @@
 
     python -m multilevel_gnn_tpu_torch.train.cli --config configs/gbm.yaml \\
         (--data-dir DIR | --synthetic) [--set key=value ...] [--device cpu] \\
-        [--ckpt-dir DIR [--resume]]
+        [--ckpt-dir DIR [--resume]] [--profile-dir DIR]
 
 Runs run_experiment, the num_run x 5-fold protocol, on a cohort read from
 reference-format files under --data-dir (or on a generated one with
 --synthetic) and prints one JSON line: the pooled AUC / ACC at the last
 check epoch and the wall time.  --out writes the whole result.  The device
-is CUDA unless --device cpu is given.  --ckpt-dir checkpoints every fold
+is CUDA unless --device cpu is given; the kernels (on CUDA) and the data
+libraries are built first, and the line gives each build's seconds (0.0
+for one found built, as after the warm CLI, train/warm.py).  --ckpt-dir checkpoints every fold
 (at its last epoch, or every N epochs with --set ckpt_every=N) and saves
 each finished fold's result; --resume continues an interrupted protocol
-from there.  The JAX CLI's mesh, pretrain, fold-parallel, profile and
-scaling options are not ported.
+from there.  --profile-dir writes a torch.profiler trace of the whole
+experiment (utils/profiling.py).  The JAX CLI's mesh, pretrain,
+fold-parallel and scaling options are not ported.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -121,20 +125,29 @@ def main(argv=None) -> dict:
                          "every N epochs with --set ckpt_every=N")
     ap.add_argument("--resume", action="store_true",
                     help="resume an interrupted experiment from --ckpt-dir")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the whole experiment "
+                         "into DIR (Chrome trace format)")
     ap.add_argument("--set", nargs="*", default=[], help="key=value overrides")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     from multilevel_gnn_tpu_torch.core.device import resolve_device
     from multilevel_gnn_tpu_torch.train.driver import run_experiment
+    from multilevel_gnn_tpu_torch.train.warm import warm_builds
+    from multilevel_gnn_tpu_torch.utils.profiling import trace
 
     device = resolve_device(args.device)
+    # every kernel and data library at once, before the cohort is read
+    builds = warm_builds(device)
     cfg = Config.from_yaml(args.config, **parse_overrides(args.set))
     if args.debug:
         cfg = cfg.replace(num_run=1, epochs=5, batch_size=8)
     cohort = make_cohort(cfg, args.synthetic, args.data_dir, args.debug)
-    results = run_experiment(cfg, cohort, device=device, ckpt_dir=args.ckpt_dir,
-                             resume=args.resume)
+    prof = trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    with prof:
+        results = run_experiment(cfg, cohort, device=device, ckpt_dir=args.ckpt_dir,
+                                 resume=args.resume)
     final_e = results["check_epochs"][-1]
     print(json.dumps({
         "cancer_type": cfg.cancer_type,
@@ -144,6 +157,7 @@ def main(argv=None) -> dict:
         "pooled_auc_by_loss": results["auc_by_loss"][final_e],
         "pooled_acc": results["acc"][final_e],
         "wall_time_s": results["wall_time_s"],
+        "builds": builds,
     }), flush=True)
     if args.out:
         with open(args.out, "w") as f:

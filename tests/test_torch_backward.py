@@ -36,6 +36,7 @@ from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
 
 from test_torch_windowed import CASES as FWD_CASES
 from test_torch_windowed import _plans
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 
 def _hub_case():

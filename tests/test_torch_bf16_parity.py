@@ -39,6 +39,7 @@ from multilevel_gnn_tpu_torch.interop import flax_key_to_torch
 from multilevel_gnn_tpu_torch.nn.basic import Linear, leaky_relu
 from multilevel_gnn_tpu_torch.nn.conv import GraphConvLayer
 from multilevel_gnn_tpu_torch.ops.pathway import pathway_contract
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 BF = jnp.bfloat16
 

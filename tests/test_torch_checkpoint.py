@@ -29,6 +29,7 @@ from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.train import checkpoint as C
 from multilevel_gnn_tpu_torch.train import cli, driver, explain, predict
 from multilevel_gnn_tpu_torch.train.step import make_optimizer
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 GBM = str(Path(__file__).resolve().parents[1] / "configs" / "gbm.yaml")
 SMALL = dict(node_embedding_dim=4, hidden_channels=8, final_channels=4, head_dim=16,

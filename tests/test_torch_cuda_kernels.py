@@ -26,13 +26,20 @@ K2's hub rows on both sides), accumulate mode over 3 rows of 10,000 edges
 2056 on both sides, and a dense sub-block split into blocks at the entry
 cap.  Integrated gradients with K1 / K2 against the same with the plain
 versions (windowed and composed, bf16 and f32, same tolerances), and a
-checkpoint written on the card loaded on the CPU and on the card.
+checkpoint written on the card loaded on the CPU and on the card.  The
+mgtpu custom ops: torch.library.opcheck on CUDA tensors and each op's CUDA
+kernel against its plain version (test_torch_ops.py's cases); a small bf16
+windowed fold exported on the card and loaded in a fresh process (equal
+to the live eval within 1e-6 x max(1, max|ref|), the same K1 / K2
+launches); warm_experiment building every kernel and data library.
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
 its f32 sum is taken in another order).  K3 is held to equality: a max
 selects one of its inputs.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -40,6 +47,10 @@ import torch
 from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
+from test_torch_ops import NAMES as OP_NAMES
+from test_torch_ops import _case as op_case
+
+GBM_YAML = str(Path(__file__).resolve().parents[1] / "configs" / "gbm.yaml")
 
 pytestmark = pytest.mark.cuda
 
@@ -472,3 +483,99 @@ def test_checkpoint_moves_between_devices(dev, tmp_path, name):
     g2.set_state(tree["generator"])
     torch.testing.assert_close(torch.rand(8, generator=g2, device=dev),
                                torch.rand(8, generator=gen, device=dev), rtol=0, atol=0)
+
+
+def _on(dev, a):
+    return a.to(dev) if isinstance(a, torch.Tensor) else a
+
+
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_ops_opcheck_and_plain_on_cuda(dev, name):
+    """torch.library.opcheck of each mgtpu op on CUDA tensors (schema, fake
+    function, dispatch), and the CUDA kernel against the plain version on
+    the same inputs (K3 equal)."""
+    _, op, args, _ = op_case(name)
+    args = tuple(_on(dev, a) for a in args)
+    torch.library.opcheck(op, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                    for a in args))
+    _, op, cpu_args, ref = op_case(name)
+    got = op(*args)
+    if got is None:
+        got = args[0]
+    torch.cuda.synchronize()
+    if name.startswith("k3"):
+        assert torch.equal(got.cpu(), ref)
+    else:
+        dtype = cpu_args[0].dtype if not name.startswith("k1_acc") else cpu_args[1].dtype
+        _close(got.cpu(), ref, dtype)
+
+
+def test_export_round_trip_on_card(dev, tmp_path):
+    """A small bf16 windowed fold exported on the card and loaded in a
+    fresh process: probabilities equal to the live eval_step's within
+    1e-6 x max(1, max|ref|), with K1 and K2 launching as in the live call."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from multilevel_gnn_tpu_torch.core.batch import Batch
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multilevel_gnn_tpu_torch.ops.kernels import build
+    from multilevel_gnn_tpu_torch.train import export
+    from multilevel_gnn_tpu_torch.train.step import eval_step
+
+    cfg = Config.from_yaml(GBM_YAML, num_run=1, node_embedding_dim=8,
+                           hidden_channels=16, final_channels=8, head_dim=16,
+                           windowed_min_edges=1)
+    cohort = make_synthetic_cohort(cfg, seed=3, n_patients=80, n_pathways=6)
+    ex = export.export_fold(cfg, cohort, None, device=dev)
+    st = ex["state"]
+    assert st["ctx"].graph.winplan is not None
+    out = str(tmp_path / "e")
+    export.save_exported(out, ex)
+    B = cfg.batch_size
+    idx = np.arange(B) % len(cohort.patients)
+    x, age = st["X"][idx], cohort.ages[idx]
+    for k in build.REGISTRY.values():
+        k.launches = 0
+    live, _ = eval_step(st["model"], Batch(
+        x=torch.as_tensor(x, device=dev), y=torch.zeros(B, 2, device=dev),
+        age=torch.as_tensor(age, device=dev),
+        sample_mask=torch.ones(B, dtype=torch.bool, device=dev)), st["ctx"])
+    torch.cuda.synchronize()
+    want = {k.name: k.launches for k in build.REGISTRY.values()}
+    np.savez(str(tmp_path / "in.npz"), x=x, age=age)
+    code = (
+        "import json, sys, numpy as np, torch\n"
+        "from multilevel_gnn_tpu_torch.artifact import load_exported\n"
+        "from multilevel_gnn_tpu_torch.ops.kernels import build\n"
+        "infer = load_exported(sys.argv[1]); z = np.load(sys.argv[2])\n"
+        "infer(z['x'], z['age']); torch.cuda.synchronize()\n"
+        "for k in build.REGISTRY.values(): k.launches = 0\n"
+        "p = infer(z['x'], z['age']); torch.cuda.synchronize()\n"
+        "print(json.dumps({'p': p.cpu().tolist(), "
+        "'launches': {k.name: k.launches for k in build.REGISTRY.values()}}))\n")
+    r = subprocess.run([sys.executable, "-c", code, out, str(tmp_path / "in.npz")],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=str(Path(GBM_YAML).parents[1])))
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    ref = live.cpu().numpy()
+    err = np.abs(np.asarray(got["p"]) - ref).max()
+    assert err <= 1e-6 * max(1.0, np.abs(ref).max()), err
+    assert got["launches"] == want and want["windowed_tile_spmm"] > 0
+
+
+def test_warm_builds_kernels_and_libraries(dev):
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multilevel_gnn_tpu_torch.ops.kernels import build
+    from multilevel_gnn_tpu_torch.train.warm import warm_experiment
+
+    cfg = Config.from_yaml(GBM_YAML, num_run=1)
+    cohort = make_synthetic_cohort(cfg, seed=0, n_patients=40, n_pathways=4)
+    out = warm_experiment(cfg, cohort, dev)
+    assert set(out["builds"]) == set(build.REGISTRY) | {"mi_knn", "csv_float", "fold0"}
+    assert all(k._fn is not None for k in build.REGISTRY.values())

@@ -27,6 +27,7 @@ from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 from multilevel_gnn_tpu_torch.train import driver
 
 from test_data_pipeline import gbm_like_cfg
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 PLAN_CASES = [
     dict(shuffle=True, drop_last=True),

@@ -38,6 +38,7 @@ from multilevel_gnn_tpu_torch.interop import load_flax_params
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 from multilevel_gnn_tpu_torch.train import cli
 from multilevel_gnn_tpu_torch.train import driver
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 KW = dict(num_run=1, epochs=5, batch_size=8, node_embedding_dim=4, hidden_channels=8,
           final_channels=4, head_dim=16, conv_channel_list=[8, 16],

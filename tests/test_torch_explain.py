@@ -34,6 +34,7 @@ from multilevel_gnn_tpu_torch.train.driver import iter_batches
 from multilevel_gnn_tpu_torch.utils import survival
 
 from test_torch_slice import B, G, N_PATHWAYS, P, _cfg_dict, fold  # noqa: F401  (fixture)
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 STEPS = 8
 

@@ -42,6 +42,7 @@ from multilevel_gnn_tpu_torch.nn.conv import GraphConvLayer
 
 from test_torch_slice import G, N_GENES, _cfg_dict, _run, fold  # noqa: F401
 from test_torch_train import LR, STEPS, _train
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 CONVS = ["mr", "edge"]
 CIN, COUT, B = 6, 5, 3

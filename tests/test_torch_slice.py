@@ -41,6 +41,7 @@ from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 from multilevel_gnn_tpu_torch.train.driver import evaluate, iter_batches
 from multilevel_gnn_tpu_torch.train.predict import predict_patients
 from multilevel_gnn_tpu_torch.train.step import eval_step
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 N_GENES, N_PATHWAYS, G, B, P = 120, 6, 300, 4, 10
 TOL_BF16 = 1e-5  # bf16 trunk against JAX's bf16 trunk
@@ -162,7 +163,8 @@ def test_slice_f32_matches_jax(runs, name):
 
 @pytest.mark.parametrize("option", [
     dict(resgnn=True), dict(dense_gnn=True), dict(repeat_mask=True),
-    dict(edge_type="merge"), dict(pca_prelinear=True),
+    # option3 was edge_type merge until it was ported (test_torch_merge.py)
+    dict(gnn_name="gin"), dict(pca_prelinear=True),
     dict(model="multilevel_gnn_seq", only_mrna_pred=True),
     dict(used_omics="01"), dict(reduction_method="pca_svd"),
     dict(gnn_mlp_norm="batch"), dict(gnn_name="gat"),

@@ -45,6 +45,7 @@ from multilevel_gnn_tpu_torch.train import step as pstep
 from multilevel_gnn_tpu_torch.train.driver import iter_batches
 
 from test_torch_slice import B, G, P, _cfg_dict, fold  # noqa: F401  (fixture)
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 LR = 1e-3
 STEPS = 5

@@ -33,6 +33,7 @@ import torch
 
 from multilevel_gnn_tpu.ops.pallas import windowed as JW
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as W
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 
 def _rand_graph(rng, n, e, banded=None):

@@ -1,7 +1,7 @@
 """Print the PyTorch port's measured parity errors against the JAX package.
 
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py \
-        [--protocol-only | --repairs-only | --bf16-workflows-only]
+        [--protocol-only | --repairs-only | --bf16-workflows-only | --export-sources-only]
 
 Runs the same inputs as the parity tests in tests/test_torch_*.py (CPU,
 plain versions on the port side, Pallas interpret mode on the JAX side)
@@ -414,6 +414,61 @@ def bf16_workflows(tmp):
               pooled_acc_equal=pout["acc"] == jout["acc"])
 
 
+def export_sources(tmp):
+    """Exported inference against JAX's export, the merge model, the PPI /
+    merge protocols, kraskov_mi and edge_select against JAX."""
+    import pathlib
+
+    import test_torch_export as TXP
+    import test_torch_merge as TM
+    import test_torch_ppi as TP
+    from multilevel_gnn_tpu.train import driver as jdriver
+    from multilevel_gnn_tpu_torch.train import driver as pdriver
+
+    for name, kw in (("f32", TXP.KW), ("bf16 trunk, windowed", TXP.BF16)):
+        d = pathlib.Path(tmp) / f"export_{name.split()[0]}"
+        d.mkdir()
+        got, want, _, _ = TXP.export_pair(d, kw)
+        _emit(module=f"exported artifact (fresh process) vs JAX export, {name}",
+              prob_err=_err(np.asarray(got["probs"]), want), tol=TXP.TOL,
+              port_modules_loaded=got["port_modules"])
+    fold = TM.merge_fold.__wrapped__(TS.fold.__wrapped__())
+    for bf16 in (False, True):
+        rows, _ = TM.merge_eval(fold, bf16)
+        pl, jl = TM.merge_train(fold, bf16)
+        _emit(module=f"merge MultilevelGNN, {'bf16 vs JAX bf16' if bf16 else 'f32'}",
+              prob_err=max(_err(r[0], r[1]) for r in rows),
+              loss_err=max(abs(r[2] - r[3]) for r in rows), eval_tol=TM.TOL,
+              five_step_loss_err=_err(pl, jl),
+              five_step_tol=TM.TOL_BF16_LOSS if bf16 else TM.TOL)
+    for edge_type in ("ppi", "merge"):
+        setup = TM.build_protocol(os.path.join(tmp, edge_type), edge_type)
+        mp = pytest.MonkeyPatch()
+        try:
+            TE.InitCarrier(mp)
+            jf = TE._spy_results(mp, jdriver)
+            pf = TE._spy_results(mp, pdriver)
+            jout = jdriver.run_experiment(setup["jcohort"].cfg, setup["jcohort"])
+            pout = pdriver.run_experiment(setup["cfg"], setup["cohort"], device="cpu")
+        finally:
+            mp.undo()
+        err = max(_err(getattr(a, k)[5], getattr(b, k)[5]) for a, b in zip(pf, jf)
+                  for k in ("epoch_pred", "epoch_pred_by_loss", "epoch_pred_by_epoch"))
+        _emit(module=f"run_experiment edge_type {edge_type}, f32", fold_test_score_err=err,
+              pooled_auc_equal=pout["auc"] == jout["auc"],
+              pooled_acc_equal=pout["acc"] == jout["acc"], tol=TE.TOL)
+    rel = 0.0
+    for n, dx, seed in ((30, 2, 0), (57, 1, 1), (120, 2, 2), (200, 1, 3)):
+        rng = np.random.RandomState(seed)
+        x = np.round(rng.randn(n, dx), 1)
+        y = rng.randint(0, 2, (n, 1)).astype(float)
+        for xx in (x, x[:, :1]):
+            want = TP.jkraskov(xx, y)
+            if want > 0:
+                rel = max(rel, abs(TP.kraskov_mi(xx, y) - want) / want)
+    _emit(module="kraskov_mi vs JAX (cKDTree, scipy digamma)", max_rel_err=rel, tol=1e-12)
+
+
 def _ig_errs(TX, fold, jctx, pctx):
     import flax
     from multilevel_gnn_tpu.ops import spmm as jspmm
@@ -462,6 +517,10 @@ def _optim_err(TO, name, kw):
 if __name__ == "__main__":
     import tempfile
 
+    if "--export-sources-only" in sys.argv:
+        with tempfile.TemporaryDirectory() as tmp:
+            export_sources(tmp)
+        sys.exit(0)
     if "--bf16-workflows-only" in sys.argv:
         with tempfile.TemporaryDirectory() as tmp:
             bf16_workflows(tmp)
