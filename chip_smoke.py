@@ -117,6 +117,37 @@ And after the protocol phases, on the same files:
            the same parameters in memory; ms and launches per batch of 32
   explain_cli  the explain CLI once on fold 0's checkpoint
 
+Then DeeperGCN on the same files (gbm.yaml with model=deepergcn,
+hidden_channels=128, num_layers=3: gcn_aggr max, norm layer, block res+,
+maxpool readout, bf16 trunk, B = 32, so F = B*H = 4,096 at K3 and K1):
+
+  deepergcn_fold  fold 0's gene-level graph through fold_setup: nodes,
+           edges, pathway_edge_num, in-degrees, seconds by stage
+  k3_gene  K3 on that fold's receivers at F 4,096 and 8,192 (kirc / lgg's
+           B = 64), bf16 and f32, equal to its plain version, with ms,
+           bound and scatter_reduce_(amax)'s ms
+  k1_gene  K1 as edge_segment_sum's forward (unit weights over dst_gather)
+           and as gather_src's backward (over src_gather) at F 4,096, bf16
+           and f32, and as the edge-id lookup's backward (the (E, 128) f32
+           cotangent into the table's rows, every gene edge into row 0),
+           against the plain versions (2e-3 / 1e-4 times max(1, max|ref|)),
+           with ms, bound and torch.sparse.mm's ms (index_add_'s for the
+           lookup)
+  slice_deepergcn  the eval forward with kernels against plain versions,
+           gcn_aggr max (equal) and softmax, bf16 and f32 trunks
+  serve_deepergcn / profile_deepergcn  predict_patients over 123 patients,
+           counted (K3 3 / K1 0 / K2 0 a batch); device ms by kernel and
+           the gap share of one full batch
+  train_grad_deepergcn  one step's gradients, kernels against plain
+           versions, bf16 and f32 (TOL_GRAD's limits)
+  profile_train_deepergcn  launches per step from the counters: K3 3 (one
+           a layer), K1 4 (each layer's gather_src backward and the edge-id
+           lookup's backward); kernel ms and gap share; peak memory
+  experiment_deepergcn  the train CLI's main, 1 run x 5 folds x 3 epochs,
+           bf16, counted, peak memory; then a small protocol (f32, dropout
+           off, 2 epochs) card against CPU, gcn_aggr softmax and max,
+           fold test scores within 1e-4
+
 Then the custom ops, export, the profiler trace, the PPI / merge graph
 sources and warm, each failing the run when its check fails:
 
@@ -275,16 +306,19 @@ def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3) -> float:
 
 
 def kernel_ms(fn, bound_ms: float):
-    """(ms, source) of one kernel call: device_ms(fn), unless it reads below
-    the call's bound, which the card cannot do; then CUDA events around a
-    loop of 50 calls, whose reading includes any gap between the launches.
-    On an H100, late in a long run of this script several profiled forms
-    read below their byte bound (K4a 0.1795 against 0.2254 ms), while a
-    fresh process read the same call at 0.2565 ms by the profiler and
-    0.2579 by such a loop (probes/timing_check.py)."""
+    """(ms, source) of one kernel call: device_ms(fn), unless the profiler
+    lost records, and then CUDA events around a loop of 50 calls, whose
+    reading includes any gap between the launches.  Lost records show as
+    a reading below the call's bound, which the card cannot do, or below
+    half the loop's where the loop reads over 1 ms a call (calls that long
+    keep the card busy back to back, so the loop then reads the device
+    time).  On an H100, late in a long run of this script several profiled
+    forms read below their byte bound (K4a 0.1795 against 0.2254 ms), while
+    a fresh process read the same call at 0.2565 ms by the profiler and
+    0.2579 by such a loop (probes/timing_check.py); the edge-id lookup's
+    backward read 1.08 ms by the profiler and 5.50 by events where a fresh
+    process read 5.41 by both."""
     ms = device_ms(fn)
-    if ms >= bound_ms:
-        return ms, "profiler"
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -294,7 +328,10 @@ def kernel_ms(fn, bound_ms: float):
         fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / 50, "events_loop"
+    loop = a.elapsed_time(b) / 50
+    if ms >= bound_ms and not (loop > 1.0 and ms < 0.5 * loop):
+        return ms, "profiler"
+    return loop, "events_loop"
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1824,6 +1861,256 @@ def graph_source_phase(edge_type, root, small_root):
     return launches
 
 
+# ---- DeeperGCN on the gene-level fold graph (gbm.yaml with model=deepergcn,
+# hidden_channels=128, num_layers=3: gcn_aggr max, norm layer, block res+,
+# maxpool readout, bf16 trunk)
+DGCN_SETS = ("model=deepergcn", "hidden_channels=128", "num_layers=3")
+# kernels against plain versions through the whole eval forward: max runs K3
+# only, which selects one of its inputs (equal); softmax adds K1's sums in
+# another order, which a bf16 cast can move by an ulp
+TOL_PROB_DGCN = {"f32": 1e-5, "bf16": 5e-3}
+# one step's gradients, kernels against plain versions: bf16 as TOL_GRAD;
+# f32 at K1's own limit (TOL_F32): the edge-id table's gradient sums every
+# gene edge's cotangent into row 0 (about 120k rows, K1's long-row blocks
+# against index_add_), read 9.1e-6 on an H100 where sage's step reads 6e-7
+TOL_GRAD_DGCN = {"bf16": 7e-2, "f32": TOL_F32}
+DGCN_EPOCHS = 3
+
+
+def dgcn_cfg(**kw):
+    from multilevel_gnn_tpu_torch.core.config import Config
+
+    return Config.from_yaml(GBM_YAML, model="deepergcn", hidden_channels=128,
+                            num_layers=3, **kw)
+
+
+def dgcn_fold_phase(cohort):
+    """fold 0's gene-level graph through fold_setup, timed by stage."""
+    from multilevel_gnn_tpu_torch.train import driver
+
+    cfg = dgcn_cfg()
+    tr, va, te = driver.fold_indices(cohort.labels(), cfg, 0)
+    t0 = time.perf_counter()
+    fcfg, fold, X = driver.fold_setup(cfg, cohort, tr, 0, "cuda")
+    sync("cuda")
+    setup_s = time.perf_counter() - t0
+    fcfg = fcfg.replace(pathway_num=cohort.n_pathways)
+    g = fold.ctx.graph
+    deg = g.in_degree()
+    ok = bool(g.n_nodes == cohort.node_size + cohort.n_pathways and g.n_edges > 0
+              and fcfg.pathway_edge_num == cohort.pathway_edge_num > 0
+              and X.shape == (len(cohort.patients), g.n_nodes, 3))
+    emit({"phase": "deepergcn_fold", "n_nodes": g.n_nodes, "n_genes": cohort.node_size,
+          "pathways": cohort.n_pathways, "edges": g.n_edges,
+          "pathway_edge_num": cohort.pathway_edge_num,
+          "max_in_degree": int(deg.max()), "rows_without_in_edges": int((deg == 0).sum()),
+          "setup_s": setup_s, "stage_s": fold.seconds, "ok": ok})
+    if not ok:
+        raise AssertionError("deepergcn_fold phase failed")
+    return fcfg, fold, X, (tr, va, te)
+
+
+def dgcn_kernel_phase(ctx, B, H, gen):
+    """K3 on the fold's receivers at F = B*H and 2*B*H (kirc / lgg's B),
+    bf16 and f32 (equal to plain); K1 as edge_segment_sum's forward (unit
+    weights over dst_gather) and as gather_src's backward (over
+    src_gather) at F = B*H, bf16 and f32; K1 as the edge-id lookup's
+    backward (over edge_id_gather: every gene edge's row into table row 0)
+    on the (E, H) f32 cotangent, with index_add_ as its library call."""
+    r3, r1 = {}, {}
+    graph = ctx.graph
+    E = graph.num_padded_edges
+    for F in (B * H, 2 * B * H):
+        for dt in (torch.bfloat16, torch.float32):
+            msg = torch.randn(E, F, generator=gen, device="cuda").to(dt)
+            r = time_k3(graph, msg)
+            emit({"phase": "k3_gene", **r})
+            r3[(F, r["dtype"])] = r
+            del msg
+            torch.cuda.empty_cache()
+    ones = torch.ones(E, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(E, B * H, generator=gen, device="cuda").to(dt)
+        for case, plan in (("edge_segment_sum", graph.dst_gather),
+                           ("gather_src_bwd", graph.src_gather)):
+            r = time_k1(case, plan, x, ones, False, gen)
+            emit({"phase": "k1_gene", **r})
+            r1[(case, r["dtype"])] = r
+        del x
+        torch.cuda.empty_cache()
+    plan, ids = ctx.edge_id_gather, ctx.edge_ids.long()
+    g = torch.randn(ids.shape[0], H, generator=gen, device="cuda")
+
+    def index_add():
+        return torch.zeros(plan.n_rows, H, device="cuda").index_add_(0, ids, g)
+
+    r = time_k1("edge_id_lookup_bwd", plan, g, torch.ones(ids.shape[0], device="cuda"),
+                False, gen, library=index_add)
+    emit({"phase": "k1_gene", **r, "rows": plan.n_rows,
+          "largest_row": int(torch.bincount(ids).max())})
+    r1[("edge_id_lookup_bwd", r["dtype"])] = r
+    return r3, r1
+
+
+def dgcn_batch(X, raw, cohort, idx, B):
+    from multilevel_gnn_tpu_torch.train.driver import iter_batches
+
+    return next(iter_batches(X, cohort.Y, cohort.ages, idx, B, "cuda", raw))
+
+
+def dgcn_slice_phase(fcfg, ctx, batch):
+    """The eval forward with kernels against plain versions on the card, for
+    gcn_aggr max and softmax, bf16 and f32 trunks."""
+    from multilevel_gnn_tpu_torch.models.deepergcn import DeeperGCN
+
+    for aggr in ("max", "softmax"):
+        for trunk in ("bf16", "f32"):
+            cfg = fcfg.replace(gcn_aggr=aggr,
+                               compute_dtype="bfloat16" if trunk == "bf16" else None)
+            m = DeeperGCN(cfg, device="cuda", seed=0).eval()
+            with torch.no_grad():
+                pk = m(batch, ctx)[0]
+                with spmm.plain_versions():
+                    pp = m(batch, ctx)[0]
+            torch.cuda.synchronize()
+            e = float((pk - pp).abs().max())
+            tol = 0.0 if aggr == "max" else TOL_PROB_DGCN[trunk]
+            finite = bool(torch.isfinite(pk).all())
+            ok = finite and e <= tol and float((pk.sum(-1) - 1).abs().max()) < 1e-5
+            emit({"phase": "slice_deepergcn", "aggr": aggr, "trunk": trunk,
+                  "max_abs_err_prob": e, "tol": tol, "finite": finite,
+                  "shape": list(pk.shape), "ok": ok})
+            if not ok:
+                raise AssertionError(f"slice_deepergcn {aggr} {trunk} mismatch")
+            del m
+
+
+def dgcn_serve_phase(model, ctx, X, raw, cohort, n_batches):
+    """predict_patients over N_PATIENTS, counted: K3 once a layer a batch,
+    no K1 or K2 (the gathers' forwards are index_select)."""
+    idx = np.arange(N_PATIENTS)
+    predict_patients(model, ctx, X, cohort.Y, cohort.ages, idx, raw)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = predict_patients(model, ctx, X, cohort.Y, cohort.ages, idx, raw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    L = model.cfg.num_layers
+    want = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: L * n_batches,
+            k4.name: 0}
+    prob = np.asarray(res["prob"])
+    ok = (len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
+          and bool(((prob >= 0) & (prob <= 1)).all()) and launches == want)
+    emit({"phase": "serve_deepergcn", "batches": n_batches, "patients": N_PATIENTS,
+          "ms_per_batch": dt * 1e3 / n_batches, "launches": launches,
+          "launches_expected": want, "auc": res["auc"], "loss": res["loss"], "ok": ok})
+    if not ok:
+        raise AssertionError("serve_deepergcn phase failed")
+    return launches
+
+
+def dgcn_experiment_phase(root):
+    """The train CLI's main with --set model=deepergcn hidden_channels=128
+    num_layers=3 on the protocol files, 1 run x 5 folds x DGCN_EPOCHS
+    epochs, bf16, counted, peak memory; then a small protocol (f32,
+    dropout off, 2 epochs) on the card and on the CPU, with gcn_aggr
+    softmax and max, fold test scores within TOL_PROTOCOL."""
+    from multilevel_gnn_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multilevel_gnn_tpu_torch.train import cli, driver
+
+    sync("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["--config", GBM_YAML, "--data-dir", root, "--set", *DGCN_SETS,
+                    "num_run=1", f"epochs={DGCN_EPOCHS}"])
+    sync("cuda")
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    folds = res["folds"]
+    e = res["check_epochs"][-1]
+    auc, acc = res["auc"][e], res["acc"][e]
+    ok = bool(len(folds) == 5 and launches[k1.KERNEL.name] > 0
+              and launches[k3.KERNEL.name] > 0 and launches[k2.KERNEL.name] == 0
+              and launches[k4.name] == 0 and 0.0 <= auc <= 1.0 and 0.0 <= acc <= 1.0)
+    emit({"phase": "experiment_deepergcn", "wall_s": wall,
+          "cli_wall_time_s": res["wall_time_s"],
+          "fold_setup_s": [f["setup_s"] for f in folds],
+          "fold_stage_s": [f["setup_stage_s"] for f in folds],
+          "edges": [f["edges"] for f in folds],
+          "ms_per_step_median": [f["step_ms_median"] for f in folds],
+          "host_s_per_epoch": [f["epoch_s"] for f in folds], "launches": launches,
+          "pooled_auc": auc, "pooled_acc": acc, "peak_mem_gb": peak, "ok": ok})
+    if not ok:
+        raise AssertionError("experiment_deepergcn phase failed")
+    for aggr in ("softmax", "max"):
+        cfg = dgcn_cfg(num_run=1, epochs=2, compute_dtype=None, spmm_bf16=False,
+                       feature_drop=False, dropout=0.0, gcn_aggr=aggr)
+        scores = {}
+        for dev in ("cuda", "cpu"):
+            cohort = make_synthetic_cohort(cfg, **SMALL_COHORT)
+            rec, undo = _spy_folds()
+            try:
+                out = driver.run_experiment(cfg, cohort, device=dev)
+            finally:
+                undo()
+            scores[dev] = (rec, out)
+        errs = [max(float(np.abs(a.epoch_pred[2] - b.epoch_pred[2]).max()),
+                    float(np.abs(a.epoch_pred_by_epoch[2] - b.epoch_pred_by_epoch[2]).max()))
+                for a, b in zip(scores["cuda"][0], scores["cpu"][0])]
+        ok = len(errs) == 5 and max(errs) <= TOL_PROTOCOL
+        emit({"phase": "experiment_deepergcn_small_vs_cpu", "aggr": aggr,
+              "fold_max_abs_err": errs, "tol": TOL_PROTOCOL,
+              "pooled_auc_cuda": scores["cuda"][1]["auc"][2],
+              "pooled_auc_cpu": scores["cpu"][1]["auc"][2], "ok": ok})
+        if not ok:
+            raise AssertionError(f"small deepergcn protocol ({aggr}): card vs CPU mismatch")
+    return launches, peak
+
+
+def deepergcn_phases(root, cohort, gen):
+    """Every DeeperGCN phase on the protocol files' cohort.  Returns the
+    serving and experiment launch counts, the train step's launches, and
+    the K3 / K1 gene-width forms."""
+    from multilevel_gnn_tpu_torch.models.deepergcn import DeeperGCN
+    from multilevel_gnn_tpu_torch.train import driver
+
+    fcfg, fold, X, (tr, va, te) = dgcn_fold_phase(cohort)
+    ctx, raw = fold.ctx, fold.raw
+    B, H = fcfg.batch_size, fcfg.hidden_channels
+    r3, r1 = dgcn_kernel_phase(ctx, B, H, gen)
+    batch = dgcn_batch(X, raw, cohort, tr, B)
+    dgcn_slice_phase(fcfg, ctx, batch)
+    model = driver._new_model(fcfg, ctx, 0)
+    serve = dgcn_serve_phase(model, ctx, X, raw, cohort, -(-N_PATIENTS // B))
+    profile_eval(model, ctx, batch, "profile_deepergcn")
+    cw = torch.as_tensor(fold.class_weight, dtype=torch.float32, device="cuda")
+    train_grad_checks((("bf16", model),), ctx, batch, cw, phase="train_grad_deepergcn",
+                      tol=TOL_GRAD_DGCN)
+    m32 = driver._new_model(fcfg.replace(compute_dtype=None), ctx, 0)
+    train_grad_checks((("f32", m32),), ctx, batch, cw, phase="train_grad_deepergcn",
+                      tol=TOL_GRAD_DGCN)
+    del m32
+    # a step: K3 once a layer (forward); K1 as each layer's gather_src
+    # backward and once as the edge-id lookup's backward
+    L = fcfg.num_layers
+    want_step = {k1.KERNEL.name: L + 1, k2.KERNEL.name: 0, k3.KERNEL.name: L, k4.name: 0}
+    torch.cuda.reset_peak_memory_stats()
+    per_step, step_kernel_ms = profile_train(model, ctx, batch, cw, want_step,
+                                             phase="profile_train_deepergcn")
+    emit({"phase": "train_mem_deepergcn", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "edge_tensor_gb": ctx.graph.num_padded_edges * B * H * 2 / 1e9})
+    del model, fold, ctx, batch
+    torch.cuda.empty_cache()
+    experiment, peak = dgcn_experiment_phase(root)
+    torch.cuda.empty_cache()
+    return dict(serve=serve, experiment=experiment, per_step=per_step, r3=r3, r1=r1,
+                step_kernel_ms=step_kernel_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1949,6 +2236,11 @@ def main() -> int:
         ckpt_dir = ckpt_phase(root, cohort)
         paths["predict"] = predict_phase(root, cohort, ckpt_dir)
         paths["explain_cli"] = explain_cli_phase(root, ckpt_dir)
+        # ---- DeeperGCN on the same files' gene-level fold graph
+        dg = deepergcn_phases(root, cohort, gen)
+        paths["serve_deepergcn"] = dg["serve"]
+        paths["experiment_deepergcn"] = dg["experiment"]
+        per_step["deepergcn"] = dg["per_step"]
         del cohort
         # ---- STRING PPI tables beside the GRN list: edge_type ppi and merge
         from multilevel_gnn_tpu_torch.data.loaders import read_kegg_csv
@@ -1989,6 +2281,13 @@ def main() -> int:
         k4.name: [r4[key] for key in (("K4b", "bfloat16"), ("K4a", "float32"),
                                       ("K4b", "float32"),
                                       ("segment_sum_by", "bfloat16"))]}
+    # DeeperGCN's forms on the gene-level fold: K3 at F = B*H and 2*B*H, K1
+    # as edge_segment_sum's forward and gather_src's backward at F = B*H
+    forms[k3.KERNEL.name] = [r3[(F, "float32")], r3[(cfg.batch_size * cfg.final_channels,
+                                                     "bfloat16")],
+                             r3[(cfg.batch_size * cfg.final_channels, "float32")]] + list(
+        dg["r3"].values())
+    forms[k1.KERNEL.name] += list(dg["r1"].values())
     # launches: the count on the kernel's first serving path (sage for K1
     # and K2, mr for K3); every path's count is in launches_by_path
     first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",

@@ -17,13 +17,17 @@ class Batch:
     """One batch of patients on the shared fold topology.
 
     x: (B, NODES) float32 omics value per node slot (gene-major, omics
-    interleaved).  y: (B, 2) targets (col 0 = high risk).  age: (B,).
-    sample_mask: (B,) bool, False on padding rows of a ragged last batch."""
+    interleaved), or (B, N, omics) per gene and pathway node for the
+    gene-level models (DeeperGCN).  y: (B, 2) targets (col 0 = high
+    risk).  age: (B,).  sample_mask: (B,) bool, False on padding rows of a
+    ragged last batch.  raw_data: the models' side channel or None
+    (DeeperGCN's (B, P, 3 * pca_dim) pathway node attrs)."""
 
     x: torch.Tensor
     y: torch.Tensor
     age: torch.Tensor
     sample_mask: torch.Tensor
+    raw_data: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +43,11 @@ class FoldContext:
     pca_rows (K1: rows = node slots, columns = PCA rows).  pca_seed:
     optional (G, pca_dim) float32 PCA-seeded initial value of the
     learnable PCA params (init_with_pca).  graph2: edge_type 'merge''s
-    secondary graph (Cohort.merge_graph2) or None."""
+    secondary graph (Cohort.merge_graph2) or None.  edge_ids: (E,) int64
+    edge-id table row per edge slot (the graph's last edge-attr column,
+    clipped to the table) and edge_id_gather, its lookup's backward plan
+    (CSRPlan.gather over the table's rows), for DeeperGCN's one-hot edge
+    encoder; None elsewhere."""
 
     graph: Graph
     gene_pca_match: torch.Tensor
@@ -50,6 +58,8 @@ class FoldContext:
     pca_gather: CSRPlan
     pca_seed: Optional[torch.Tensor] = None
     graph2: Optional[Graph] = None
+    edge_ids: Optional[torch.Tensor] = None
+    edge_id_gather: Optional[CSRPlan] = None
 
     @property
     def num_pca_rows(self) -> int:
@@ -69,10 +79,14 @@ def make_fold_context(
     pca_seed: Optional[np.ndarray] = None,
     n_pathways: int = 146,
     device: Union[str, torch.device] = "cuda",
+    edge_vocab: Optional[int] = None,
 ) -> FoldContext:
     """Fold context on ``device`` (batch.py:82), with the gather_rows
     backward plan built once per fold.  graph must already be on that
-    device (Graph.with_sorted_meta)."""
+    device (Graph.with_sorted_meta).  edge_vocab: the edge-id table's row
+    count; given, the edge ids (int(last edge-attr column) clipped to
+    [0, edge_vocab), deepergcn.py:158-170) and their lookup plan are
+    built."""
     dev = resolve_device(device)
     g = np.asarray(gene_pca_match, np.int64)
     if info_mask is None:
@@ -87,6 +101,14 @@ def make_fold_context(
     def t(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype).to(dev)
 
+    edge_ids = edge_id_gather = None
+    if edge_vocab is not None:
+        attr = graph.edge_attr
+        attr = attr.cpu().numpy() if isinstance(attr, torch.Tensor) else np.asarray(attr)
+        ids = np.clip(attr[:, -1].astype(np.int32), 0, edge_vocab - 1)
+        edge_ids = t(ids, torch.int64)
+        edge_id_gather = CSRPlan.gather(ids, edge_vocab).to(dev)
+
     return FoldContext(
         graph=graph,
         gene_pca_match=t(g, torch.int64),
@@ -100,4 +122,6 @@ def make_fold_context(
             if pca_seed is not None
             else None
         ),
+        edge_ids=edge_ids,
+        edge_id_gather=edge_id_gather,
     )

@@ -21,8 +21,13 @@ The same derivations, in the same order, from the same tables:
 
 Omics tables are ``data.frame.Frame``s, the KEGG table a ``KeggTable``,
 clinical data a dict of mappings {survive_time, survive_state, age} ->
-{patient: value}.  The gene-level folds (DeeperGCN, MultiOmixGCN) are not
-ported.
+{patient: value}.
+
+The gene-level variant for DeeperGCN (``gene_level_features`` :701-711,
+``gene_level_graph`` :713-748, ``deepergcn_fold`` :750-775): per-gene
+omics rows, the gene graph both ways plus gene -> pathway-node edges with
+one-hot ids, and the per-pathway PCA attrs as the batches' side channel.
+MultiOmixGCN's fold is not ported.
 """
 from __future__ import annotations
 
@@ -56,7 +61,10 @@ class PcaRow:
 @dataclasses.dataclass
 class FoldData:
     """Everything the trainer needs for one CV fold (cohort.py:63-74), and
-    the host seconds of each derivation stage (mi, pca, edges, graph)."""
+    the host seconds of each derivation stage (mi, pca, edges, graph).
+    raw: the batches' raw_data side channel of the models that take one,
+    else None: deepergcn_fold sets it to the pathway node attrs in
+    float32."""
 
     ctx: FoldContext
     info_mask: np.ndarray  # (G, 1)
@@ -67,6 +75,7 @@ class FoldData:
     reorder_idxs: Optional[np.ndarray] = None
     edge_count: int = 0
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    raw: Optional[np.ndarray] = None
 
 
 def pca_full(data: np.ndarray, n_components: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -654,4 +663,92 @@ class Cohort:
             edge_count=n_real_edges,
             seconds={"mi": t_mi - t0, "pca": t_pca - t_mi,
                      "edges": t_edges - t_pca, "graph": t_graph - t_edges},
+        )
+
+    # ------------------------------------------------------------------ #
+    # the gene-level graph (DeeperGCN)
+    # ------------------------------------------------------------------ #
+    def gene_level_features(self) -> np.ndarray:
+        """(n_patients, node_size + P, 3 [+2]) per-gene omics features, the
+        pathway rows zero (cohort.py:701-711); with cfg.mul_attr the
+        mrna*cnv and mrna*mt products are appended."""
+        x = self.X.reshape(len(self.patients), -1, 3)
+        if self.cfg.mul_attr:
+            prods = np.stack([x[..., 0] * x[..., 1], x[..., 0] * x[..., 2]], axis=-1)
+            x = np.concatenate([x, prods], axis=-1)
+        return x
+
+    def gene_level_graph(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Gene edges in both directions, then, with pathway_global_node,
+        gene -> pathway-node edges (cohort.py:713-748).  Returns
+        (edge_index (2, E) int32, edge_attr (E, 2) float32): column 0 the
+        weight, column 1 the one-hot edge id.  A gene edge's id is
+        int(weight), as the reference's long cast gives (0 for a GRNBoost2
+        weight below 1); pathway edges count up from 0 in the order of
+        used_pathways and their genes' sorted entrez ids, and
+        pathway_edge_num is set to their count."""
+        cfg, nm = self.cfg, self.node_map
+        edges, attrs = [], []
+        for src, lst in self.edges.items():
+            for (s, d), a in zip(lst, self.edge_attrs[src]):
+                if s in nm and d in nm:
+                    edges.append([nm[s], nm[d]])
+                    attrs.append([a, float(int(a))])
+                    edges.append([nm[d], nm[s]])
+                    attrs.append([a, float(int(a))])
+        count = 0
+        n_genes = self.node_size
+        if cfg.pathway_global_node:
+            for pi, pathway in enumerate(self.used_pathways):
+                entrez = self.kegg.entrez_of(pathway).astype(int)
+                for e in np.intersect1d(entrez, list(nm)):
+                    edges.append([nm[int(e)], n_genes + pi])
+                    attrs.append([float(count), float(count)])
+                    if cfg.bi_global_node:
+                        edges.append([n_genes + pi, nm[int(e)]])
+                        attrs.append([float(count), float(count)])
+                    count += 1
+        self.pathway_edge_num = count
+        return (np.array(edges, np.int32).reshape(-1, 2).T,
+                np.array(attrs, np.float32).reshape(-1, 2))
+
+    def deepergcn_fold(self, train_idx: np.ndarray, fold_i: int, device="cuda") -> FoldData:
+        """DeeperGCN's fold (cohort.py:750-775): the MI mask, the
+        per-pathway PCA attrs (over the masked rows with
+        cfg.mutual_info_pca), the gene-level graph (no self loops, no
+        padding) and, with one-hot edge attrs, the edge-id lookup plan, on
+        ``device``; seconds by stage in ``seconds``.  The context's PCA-row
+        fields are empty: they index the 3-slot node layout, which this
+        graph does not have, and DeeperGCN reads none of them (JAX passes
+        the cohort's along unread)."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        mask, mi = self.mutual_mask(train_idx, fold_i)
+        t_mi = time.perf_counter()
+        _, attr, _ = self._pathway_pca(mask if cfg.mutual_info_pca else None)
+        t_pca = time.perf_counter()
+        ei, ea = self.gene_level_graph()
+        t_edges = time.perf_counter()
+        graph = Graph.from_edges(ei, ea, self.node_size + self.n_pathways)
+        graph = graph.with_sorted_meta(device)
+        onehot = cfg.use_edge_attr and cfg.global_edge == "onehot"
+        ctx = make_fold_context(
+            graph, np.zeros(0, np.int64), np.zeros(0, np.int64),
+            n_pathways=self.n_pathways, device=device,
+            edge_vocab=max(self.pathway_edge_num, 1) if onehot else None,
+        )
+        t_graph = time.perf_counter()
+        pos = {p: i for i, p in enumerate(self.pca_patients)}
+        attr = attr[[pos[p] for p in self.patients]]
+        return FoldData(
+            ctx=ctx,
+            info_mask=mask,
+            mutual_info=mi,
+            pca_seed=np.zeros((self.num_pca_rows, cfg.pca_dim), np.float32),
+            class_weight=self.class_weight(train_idx),
+            pathway_node_attr=attr,
+            edge_count=graph.n_edges,
+            seconds={"mi": t_mi - t0, "pca": t_pca - t_mi,
+                     "edges": t_edges - t_pca, "graph": t_graph - t_edges},
+            raw=attr.astype(np.float32),
         )

@@ -50,9 +50,13 @@ def _check_supported(cfg: Config) -> None:
         "used_omics!='012'": cfg.used_omics != "012",
         "reduction_method!='linear_projection'":
             cfg.reduction_method != "linear_projection",
-        # mr and edge ignore gnn_mlp_norm, as GraphConvLayer does in JAX
+        # mr and edge ignore gnn_mlp_norm, as GraphConvLayer does in JAX;
+        # they take a string gnn_last_norm as their MLP's norm instead
         "gnn_mlp_norm": str(cfg.gnn_mlp_norm).lower() != "none"
         and cfg.gnn_name.lower() in ("sage", "rsage"),
+        "gnn_last_norm (an MLP norm)": isinstance(cfg.gnn_last_norm, str)
+        and cfg.gnn_last_norm.lower() != "none"
+        and cfg.gnn_name.lower() in ("mr", "edge"),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

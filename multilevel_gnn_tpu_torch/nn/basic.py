@@ -1,5 +1,7 @@
 """Basic NN primitives (port of multilevel_gnn_tpu/nn/basic.py: act :32,
-Linear :116, MLP :197) and flax's Dropout.
+Norm :81 with BatchNorm1d :54 and flax's LayerNorm, Linear :116,
+EmbedTable :140 with the onehot_embed lookup :161, MLP :197) and flax's
+Dropout.
 
 Initialisers follow the JAX package's: torch's nn.Linear default
 (U(+-1/sqrt(fan_in)) for weight and bias) or Xavier-uniform weights.  Random
@@ -15,6 +17,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
 
 
 def act(x: torch.Tensor, act_type: Optional[str], neg_slope: float = 0.2) -> torch.Tensor:
@@ -58,10 +61,16 @@ class _LeakyReLU(torch.autograd.Function):
         return torch.where(x >= 0, g, g * ctx.slope), None
 
 
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """value rounded to dtype, as JAX rounds a Python scalar to a bf16
+    array's dtype (a weak-typed constant) before the op."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def leaky_relu(x: torch.Tensor, neg_slope: float = 0.2) -> torch.Tensor:
     """jax.nn.leaky_relu(x, neg_slope): the slope in x's dtype, gradient 1
     at x = 0."""
-    return _LeakyReLU.apply(x, float(torch.tensor(neg_slope, dtype=x.dtype)))
+    return _LeakyReLU.apply(x, in_dtype(neg_slope, x.dtype))
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -136,10 +145,87 @@ class Linear(nn.Module):
         return y if b is None else y + b
 
 
+def flax_normalize(x, mean, var, scale, bias, eps: float, dtype):
+    """flax's _normalize (linen/normalization.py): y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias in float32, then one cast to dtype
+    (x's dtype promoted with float32 when None)."""
+    mul = torch.rsqrt(var + eps)
+    if scale is not None:
+        mul = mul * scale
+    y = (x.float() - mean) * mul
+    if bias is not None:
+        y = y + bias
+    return y.to(dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32))
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5, dtype=None) -> torch.Tensor:
+    """flax.linen.LayerNorm over the last axis: the statistics in float32
+    with var = E[x^2] - E[x]^2 (clipped at 0), then flax_normalize.
+    F.layer_norm takes the variance as E[(x - E[x])^2], which can move a
+    bf16 result."""
+    xs = x.float()
+    mean = xs.mean(-1, keepdim=True)
+    var = torch.clamp((xs * xs).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    return flax_normalize(x, mean, var, scale, bias, eps, dtype)
+
+
+class Norm(nn.Module):
+    """reference norm_layer (basic.py:81-107): 'none', 'layer' (flax's
+    LayerNorm, eps 1e-5), 'instance' (over the last axis in float32, no
+    affine) or 'batch' (BatchNorm1d over all leading axes).  The JAX
+    package's train step carries no batch_stats, so its BatchNorm reads
+    the statistics it was initialised with (mean 0, var 1) in eval mode
+    and cannot run in training mode (flax raises
+    ModifyScopeVariableError); the port does the same.  The scale and bias
+    (layer, batch) are this module's own parameters; interop.py maps the
+    flax paths onto them."""
+
+    def __init__(self, norm_type: str, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.kind, self.dtype = norm_type.lower(), dtype
+        if self.kind not in ("none", "layer", "instance", "batch"):
+            raise NotImplementedError(f"norm [{norm_type}] is not found")
+        if self.kind in ("layer", "batch"):
+            self.scale = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        if self.kind == "batch":
+            self.register_buffer("mean", torch.zeros(features))
+            self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kind
+        if k == "none":
+            return x
+        if k == "layer":
+            return layer_norm(x, self.scale, self.bias, 1e-5, self.dtype)
+        if k == "instance":
+            xs = x.float()
+            mean = xs.mean(-1, keepdim=True)
+            var = ((xs - mean) ** 2).mean(-1, keepdim=True)
+            return ((xs - mean) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+        if self.training:
+            raise RuntimeError(
+                "norm 'batch' cannot train: the JAX package's train step carries "
+                "no batch_stats, so flax refuses to update them")
+        return flax_normalize(x, self.mean, self.var, self.scale, self.bias, 1e-5,
+                              self.dtype)
+
+
+class EmbedTable(nn.Module):
+    """A raw (V, D) embedding table, flax path <name>/embedding
+    (basic.py:140-158); the caller slices rows or looks them up with
+    ops.spmm.gather_rows."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+
+
 class MLP(nn.Module):
     """reference MLP (basic.py:197): channels [in, h1, ..., out]; after each
-    Linear: norm -> act -> dropout.  Layers are named Linear_0, Linear_1,
-    ... like the flax submodules."""
+    Linear except the last one when last_lin: norm -> act -> dropout.
+    Layers are named Linear_0, Linear_1, ... and norms Norm_0, Norm_1, ...
+    like the flax submodules."""
 
     def __init__(
         self,
@@ -148,16 +234,17 @@ class MLP(nn.Module):
         norm_type: Optional[str] = None,
         use_bias: bool = True,
         drop: float = 0.0,
+        last_lin: bool = False,
         dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if norm_type is not None and str(norm_type).lower() != "none":
-            raise NotImplementedError(f"MLP norm {norm_type!r} is not ported yet")
         if act_type is not None and act_type.lower() == "prelu":
             raise NotImplementedError("MLP prelu is not ported yet")
         self.act_type = act_type
         self.n = len(channels)
+        self.last_lin = last_lin
+        norm = norm_type is not None and str(norm_type).lower() != "none"
         for i in range(1, self.n):
             self.add_module(
                 f"Linear_{i - 1}",
@@ -166,6 +253,8 @@ class MLP(nn.Module):
                     generator=generator,
                 ),
             )
+            if norm and not (i == self.n - 1 and last_lin):
+                self.add_module(f"Norm_{i - 1}", Norm(norm_type, channels[i], dtype))
         self.drop = Dropout(drop)
 
     def forward(
@@ -173,6 +262,11 @@ class MLP(nn.Module):
     ) -> torch.Tensor:
         for i in range(1, self.n):
             x = getattr(self, f"Linear_{i - 1}")(x)
+            if i == self.n - 1 and self.last_lin:
+                continue
+            norm = getattr(self, f"Norm_{i - 1}", None)
+            if norm is not None:
+                x = norm(x)
             x = act(x, self.act_type)
             x = self.drop(x, generator)
         return x

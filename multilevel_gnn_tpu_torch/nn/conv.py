@@ -1,12 +1,16 @@
 """The graph convolutions of the port (port of multilevel_gnn_tpu/nn/conv.py:
-RSAGEConv :255-313, MRConv :444-475, EdgeConv :478-510, and the sage,
-rsage, mr and edge branches of GraphConvLayer :526-595).
+MsgNorm :39-54, GenAggregate :57-142, GENConv :145-213, RSAGEConv
+:255-313, MRConv :444-475, EdgeConv :478-510, and the sage, rsage, mr and
+edge branches of GraphConvLayer :526-595).
 
 x is node-major, (N, B, C).  SAGE: the per-edge transform is commuted past
 the (linear) mean aggregation: aggr = lin_r(segment_mean(x_j * attr)), one
 SpMM and one GEMM.  MRConv and EdgeConv take a max over each node's
 in-edges (K3), of x_j - x_i and of MLP(cat(x_i, x_j - x_i)).  The graph is
-self-looped (PyG add_self_loops, fill 1.0).
+self-looped (PyG add_self_loops, fill 1.0).  GENConv's messages
+relu(x_j + e) + eps go through GenAggregate: the max through K3, the sums
+(sum, mean, softmax, power) through edge_segment_sum (K1), as on the JAX
+package's pallas backend.
 """
 from __future__ import annotations
 
@@ -16,8 +20,180 @@ import torch
 from torch import nn
 
 from multilevel_gnn_tpu_torch.core.graph import Graph
-from multilevel_gnn_tpu_torch.nn.basic import MLP, Linear
+from multilevel_gnn_tpu_torch.nn.basic import MLP, Linear, in_dtype
 from multilevel_gnn_tpu_torch.ops import spmm
+
+SOFTMAX_AGGRS = ("softmax", "softmax_sg", "softmax_sum")
+POWER_AGGRS = ("power", "power_sum")
+
+
+class _Sqrt(torch.autograd.Function):
+    """torch.sqrt with JAX's backward, g * (0.5 / sqrt(a)): in bf16 the
+    quotient and the product each round, where torch's g / (2 sqrt(a))
+    rounds once."""
+
+    @staticmethod
+    def forward(ctx, a):
+        out = torch.sqrt(a)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return g * (0.5 / out)
+
+
+class MsgNorm(nn.Module):
+    """MsgNorm (conv.py:39-54): msg / max(||msg||, 1e-12) * ||x|| * s over
+    the last axis, s the learned msg_scale or 1.  The norm of a bf16 x
+    squares in bf16, sums in float32, rounds the sum to bf16 and takes a
+    bf16 square root, as JAX's op-by-op run of jnp.linalg.norm does; under
+    jit XLA keeps it in float32 (ROADMAP section 3, R1)."""
+
+    def __init__(self, learn_msg_scale: bool = False):
+        super().__init__()
+        self.msg_scale = nn.Parameter(torch.ones(1)) if learn_msg_scale else None
+
+    @staticmethod
+    def _norm(v: torch.Tensor) -> torch.Tensor:
+        sq = (v * v).float().sum(-1, keepdim=True)
+        return _Sqrt.apply(sq.to(v.dtype))
+
+    def forward(self, x: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
+        msg = msg / torch.clamp(self._norm(msg), min=1e-12)
+        out = msg * self._norm(x)
+        return out * self.msg_scale if self.msg_scale is not None else out
+
+
+class GenAggregate(nn.Module):
+    """GENConv's generalised aggregation (conv.py:57-142) of (E, B, C)
+    edge-major messages into (N, B, C) float32 node rows: add / sum, mean,
+    max; softmax, softmax_sg, softmax_sum (temperature t, learned with
+    learn_t for softmax and softmax_sum, degree-scaled by in_degree **
+    sigmoid(y) for softmax_sum); power, power_sum (power p, learned with
+    learn_p; in float32 with JAX's clamps).  y is a parameter of the _sum
+    aggregators, frozen unless learn_y.  Softmax weights are float32, with
+    the global-max shift of segment_softmax_weights; with t not learned
+    they are computed without gradient, as the reference computes them."""
+
+    def __init__(self, aggr: str = "softmax", t: float = 1.0, learn_t: bool = False,
+                 p: float = 1.0, learn_p: bool = False, y: float = 0.0,
+                 learn_y: bool = False):
+        super().__init__()
+        if aggr not in ("add", "sum", "mean", "max") + SOFTMAX_AGGRS + POWER_AGGRS:
+            raise NotImplementedError(aggr)
+        self.aggr, self.t_value, self.p_value, self.learn_y = aggr, t, p, learn_y
+        self.t = (nn.Parameter(torch.full((1,), float(t)))
+                  if learn_t and aggr in ("softmax", "softmax_sum") else None)
+        self.p = (nn.Parameter(torch.full((1,), float(p)))
+                  if learn_p and aggr in POWER_AGGRS else None)
+        self.y = (nn.Parameter(torch.full((1,), float(y)))
+                  if aggr in ("softmax_sum", "power_sum") else None)
+
+    def _degree_scale(self, out, graph: Graph):
+        y = self.y if self.learn_y else self.y.detach()
+        deg = graph.in_degree().reshape((-1,) + (1,) * (out.dim() - 1))
+        return torch.pow(deg, torch.sigmoid(y)) * out
+
+    def forward(self, msg: torch.Tensor, graph: Graph) -> torch.Tensor:
+        a = self.aggr
+        if a in ("add", "sum"):
+            return spmm.edge_segment_sum(msg, graph)
+        if a == "mean":
+            return spmm.edge_segment_mean(msg, graph)
+        if a == "max":
+            return spmm.edge_segment_max(msg, graph.receivers, graph.edge_mask, graph.csr)
+        if a in SOFTMAX_AGGRS:
+            if self.t is not None:
+                w = spmm.segment_softmax_weights((msg * self.t).float(), graph)
+            else:
+                with torch.no_grad():
+                    z = msg * in_dtype(self.t_value, msg.dtype)
+                    w = spmm.segment_softmax_weights(z.float(), graph)
+            out = spmm.edge_segment_sum(msg * w.to(msg.dtype), graph)
+            return self._degree_scale(out, graph) if a == "softmax_sum" else out
+        min_v, max_v = 1e-7, 1e1
+        p = self.p if self.p is not None else self.p_value
+        m = torch.clamp(msg.float(), min_v, max_v)
+        out = torch.clamp(spmm.edge_segment_mean(torch.pow(m, p), graph), min_v, max_v)
+        out = torch.pow(out, 1.0 / p)
+        return self._degree_scale(out, graph) if a == "power_sum" else out
+
+
+class GENConv(nn.Module):
+    """GENeralized Graph Convolution (conv.py:145-213) on node-major x
+    (N, B, C): msg = relu(x_j + e) + eps in the compute dtype, with e the
+    (E, C) edge features broadcast over B (through the conv's own Linear
+    edge_encoder when encode_edge); m = GenAggregate(msg) (float32);
+    optional MsgNorm; h = x + m cast to x's dtype; then the feature
+    encoder: an MLP [in, 2 in, ..., emb] with norm_type after every Linear
+    but the last (gnn_encoder 'linear'), or a Linear + relu ('conv1x1').
+    pca_only skips the message passing and encodes x alone."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        emb_dim: int,
+        aggr: str = "softmax",
+        t: float = 1.0,
+        learn_t: bool = False,
+        p: float = 1.0,
+        learn_p: bool = False,
+        y: float = 0.0,
+        learn_y: bool = False,
+        msg_norm: bool = False,
+        learn_msg_scale: bool = True,
+        encode_edge: bool = False,
+        edge_feat_dim: Optional[int] = None,
+        norm_type: str = "batch",
+        mlp_layers: int = 2,
+        eps: float = 1e-7,
+        pca_only: bool = False,
+        gnn_encoder: str = "linear",
+        dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.dtype, self.eps, self.pca_only = dtype, eps, pca_only
+        self.conv1x1 = gnn_encoder == "conv1x1"
+        if self.conv1x1:
+            self.feature_encoder = Linear(in_dim, emb_dim, dtype=dtype, generator=generator)
+        else:
+            chans = [in_dim] + [in_dim * 2] * (mlp_layers - 1) + [emb_dim]
+            self.feature_encoder = MLP(chans, norm_type=norm_type, last_lin=True,
+                                       dtype=dtype, generator=generator)
+        if pca_only:
+            return
+        self.edge_encoder = (
+            Linear(edge_feat_dim, in_dim, dtype=dtype, generator=generator)
+            if encode_edge else None)
+        self.aggregate = GenAggregate(aggr, t, learn_t, p, learn_p, y, learn_y)
+        self.msg_norm = MsgNorm(learn_msg_scale) if msg_norm else None
+
+    def _encode(self, h, generator):
+        if self.conv1x1:
+            return torch.relu(self.feature_encoder(h))
+        return self.feature_encoder(h, generator)
+
+    def forward(self, x, graph: Graph, edge_attr=None, generator=None):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        if self.pca_only:
+            return self._encode(x, generator)
+        e = edge_attr
+        if self.edge_encoder is not None and edge_attr is not None:
+            e = self.edge_encoder(edge_attr)
+        msg = spmm.gather_src(x.contiguous(), graph)
+        if e is not None:
+            if e.dim() == 2 and msg.dim() == 3:
+                e = e[:, None, :]  # (E, C) over the batch axis
+            msg = msg + e.to(msg.dtype)
+        msg = torch.relu(msg) + in_dtype(self.eps, msg.dtype)
+        m = self.aggregate(msg, graph)
+        if self.msg_norm is not None:
+            m = self.msg_norm(x, m)
+        return self._encode(x + m.to(x.dtype), generator)
 
 
 class RSAGEConv(nn.Module):

@@ -5,9 +5,11 @@ Port of multilevel_gnn_tpu/ops/spmm.py: ``gather_scatter`` (:381-458) with
 the custom VJPs it reaches (the composed ``_fused_spmm_sum`` :137-192,
 ``windowed_spmm_2d``, ops/pallas/windowed.py:710-810, and
 ``edge_segment_max`` :235-274), ``edge_segment_min`` (:277),
-``gather_rows`` (:302-334) and the edge gathers ``gather_src`` /
-``gather_dst`` (:364-378).  Each custom VJP is a
-``torch.autograd.Function``:
+``gather_rows`` (:302-334), the edge gathers ``gather_src`` /
+``gather_dst`` (:364-378), and GENConv's aggregation helpers
+``edge_segment_sum`` (:195-232), ``segment_softmax_weights`` (:282-299) and
+the pallas form of the segment mean (nn/conv.py:83-87).  Each custom VJP is
+a ``torch.autograd.Function``:
 
   composed SpMM   forward K1 over csr; backward K1 over csc
   windowed SpMM   forward K2 (forward side) + K1 over the residual;
@@ -21,6 +23,9 @@ the custom VJPs it reaches (the composed ``_fused_spmm_sum`` :137-192,
                   torch ops: the full cotangent to every real edge equal to
                   its segment's max (ties each get all of it, where
                   scatter_reduce's autograd would split it)
+  segment sum     of edge rows: forward K1 over dst_gather (rows =
+                  receivers, columns = edge rows), unit weights; backward
+                  mask * g[receivers] in the rows' dtype
 
 As in the JAX package, the cotangent is cast to the forward's SpMM data
 type before the kernel (its "dtype witness"), the gradient comes back in
@@ -189,6 +194,65 @@ def edge_segment_max(
 def edge_segment_min(msg, receivers, mask, csr) -> torch.Tensor:
     """min(x) = -max(-x), with the same empty -> 0 fill (spmm.py:277)."""
     return -edge_segment_max(-msg, receivers, mask, csr)
+
+
+class _EdgeSegmentSum(torch.autograd.Function):
+    """edge_segment_sum (spmm.py:195-232) on (E, F) edge rows: K1 over the
+    receiver-sorted plan of edge rows with unit weights (f32 out); the
+    backward is mask * g[receivers], cast to the rows' dtype."""
+
+    @staticmethod
+    def forward(ctx, m2, receivers, mask, plan: CSRPlan, plain: bool):
+        ctx.save_for_backward(receivers, mask)
+        ctx.m_dtype = m2.dtype
+        ones = torch.ones(m2.shape[0], dtype=torch.float32, device=m2.device)
+        return _k1(plain)(m2, ones, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        receivers, mask = ctx.saved_tensors
+        d = g.index_select(0, receivers) * mask[:, None].to(g.dtype)
+        return d.to(ctx.m_dtype), None, None, None, None
+
+
+def edge_segment_sum(msg: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """Segment-sum of edge values into their receivers, differentiable in
+    msg.
+
+    msg: (E, ...) edge-major values, bf16 or f32, over all E edge slots;
+    returns (N, ...) float32.  Padding edges take no part and get no
+    gradient; an empty segment gives 0."""
+    shape = msg.shape
+    m2 = msg.reshape(shape[0], -1).contiguous()
+    out = _EdgeSegmentSum.apply(m2, graph.receivers, graph.edge_mask,
+                                graph.dst_gather, _PLAIN)
+    return out.reshape((graph.n_nodes,) + tuple(shape[1:]))
+
+
+def edge_segment_mean(msg: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """edge_segment_sum / max(in_degree, 1): GenAggregate's segment mean
+    on the pallas backend (nn/conv.py:83-87)."""
+    deg = torch.clamp(graph.in_degree(), min=1.0)
+    out = edge_segment_sum(msg, graph)
+    return out / deg.reshape((-1,) + (1,) * (out.dim() - 1))
+
+
+def segment_softmax_weights(z: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """Softmax of z over each receiver's in-edges, per feature column
+    (spmm.py:282-299): z is shifted by the largest finite value of the real
+    edges in its column (not by its segment's maximum), exponentiated,
+    and divided by its segment's sum, gathered back to the edges (K1 as
+    the gather's backward).  A segment far below the column's maximum
+    underflows to a zero sum, which is set to 1, so its weights are 0.
+    z: (E, ...) float32 edge-major; padding edges get weight 0."""
+    pad = ~graph.edge_mask.reshape((-1,) + (1,) * (z.dim() - 1))
+    zm = torch.where(pad, -torch.inf, z)
+    with torch.no_grad():
+        gmax = torch.where(torch.isfinite(zm), zm, -1e30).amax(dim=0, keepdim=True)
+    e = torch.where(pad, 0.0, torch.exp(zm - gmax))
+    denom = edge_segment_sum(e, graph)
+    denom = torch.where(denom == 0.0, 1.0, denom)
+    return e / gather_dst(denom, graph)
 
 
 def edge_weights(

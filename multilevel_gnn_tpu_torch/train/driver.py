@@ -17,10 +17,11 @@ cfg.ckpt_keep; a finished fold's FoldResult is saved as
 ckpt_dir/result_run{r}_fold{f}.npy, and resume=True loads finished folds
 and resumes an unfinished one at its latest complete step.  Left out of
 run_fold and run_experiment: the mesh, pretraining and pretrained transfer,
-warm_only, the deepergcn / pathcnn branches, and epoch_scan / fold_scan,
-which only change how JAX dispatches the same steps.  stratified_kfold
-reproduces sklearn 1.9's StratifiedKFold in numpy (the GPU hosts have no
-sklearn).
+warm_only, the pathcnn branch, and epoch_scan / fold_scan, which only
+change how JAX dispatches the same steps.  DeeperGCN's folds carry the
+pathway node attrs as each batch's raw_data (fold_setup's FoldData.raw).
+stratified_kfold reproduces sklearn 1.9's StratifiedKFold in numpy (the
+GPU hosts have no sklearn).
 """
 from __future__ import annotations
 
@@ -37,7 +38,9 @@ import torch
 
 from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext
 from multilevel_gnn_tpu_torch.core.config import Config
-from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN, seed_pca_params
+from multilevel_gnn_tpu_torch.models import get_model
+from multilevel_gnn_tpu_torch.models.deepergcn import DeeperGCN, apply_init_weight
+from multilevel_gnn_tpu_torch.models.multilevel_gnn import seed_pca_params
 from multilevel_gnn_tpu_torch.train import checkpoint as C
 from multilevel_gnn_tpu_torch.train import metrics as M
 from multilevel_gnn_tpu_torch.train.step import eval_step, make_optimizer, train_step
@@ -132,25 +135,29 @@ def epoch_plan(
         yield take, np.concatenate([np.ones(b, bool), np.zeros(pad, bool)]), mult
 
 
-def iter_batches(X, Y, ages, idxs, batch_size: int, device) -> Iterator[Batch]:
-    """Batches of host arrays X (P, NODES), Y (P, 2), ages (P,) on device,
-    in the order of idxs (the eval order; run_fold gathers training
-    batches on the device from epoch_plan's draws instead)."""
+def iter_batches(X, Y, ages, idxs, batch_size: int, device, raw=None) -> Iterator[Batch]:
+    """Batches of host arrays X (P, NODES) or (P, N, omics), Y (P, 2),
+    ages (P,) and raw (P, ...) or None on device, in the order of idxs
+    (the eval order; run_fold gathers training batches on the device from
+    epoch_plan's draws instead)."""
     dev = torch.device(device)
+
+    def on(a, take):
+        return torch.as_tensor(np.asarray(a[take], np.float32)).to(dev)
+
     for take, mask, _ in epoch_plan(X, idxs, batch_size):
         yield Batch(
-            x=torch.as_tensor(np.asarray(X[take], np.float32)).to(dev),
-            y=torch.as_tensor(np.asarray(Y[take], np.float32)).to(dev),
-            age=torch.as_tensor(np.asarray(ages[take], np.float32)).to(dev),
+            x=on(X, take), y=on(Y, take), age=on(ages, take),
             sample_mask=torch.as_tensor(mask).to(dev),
+            raw_data=on(raw, take) if raw is not None else None,
         )
 
 
-def evaluate(model, ctx: FoldContext, X, Y, ages, idxs, batch_size: int):
+def evaluate(model, ctx: FoldContext, X, Y, ages, idxs, batch_size: int, raw=None):
     """Score idxs in order; returns (auc, acc, y_true, score0, mean loss)
     like the JAX driver's evaluate."""
     preds, losses = [], []
-    for batch in iter_batches(X, Y, ages, idxs, batch_size, ctx.device):
+    for batch in iter_batches(X, Y, ages, idxs, batch_size, ctx.device, raw):
         pred, loss = eval_step(model, batch, ctx)
         m = batch.sample_mask.cpu().numpy()
         preds.append(pred.float().cpu().numpy()[m])
@@ -169,11 +176,19 @@ def class_weight(Y: np.ndarray, train_idx, weight_power: float = 1.0) -> np.ndar
     return (counts.max() / counts) ** weight_power
 
 
-def _new_model(cfg: Config, ctx: FoldContext, seed: int) -> MultilevelGNN:
-    """A fold's model with its initial parameters drawn from ``seed`` (the
-    tests replace this to start from the JAX package's parameters)."""
-    return MultilevelGNN(cfg, ctx.graph.n_nodes, ctx.num_pca_rows,
-                         device=ctx.device, seed=seed)
+def _new_model(cfg: Config, ctx: FoldContext, seed: int) -> torch.nn.Module:
+    """A fold's model of cfg.model with its initial parameters drawn from
+    ``seed``; DeeperGCN's then re-initialised by apply_init_weight under
+    all_init / head_init, as driver.py:327-334 does (the tests replace
+    this function to start from the JAX package's parameters)."""
+    cls = get_model(cfg.model)
+    if cls is not DeeperGCN:
+        return cls(cfg, ctx.graph.n_nodes, ctx.num_pca_rows, device=ctx.device, seed=seed)
+    model = DeeperGCN(cfg, device=ctx.device, seed=seed)
+    if cfg.all_init or cfg.head_init:
+        apply_init_weight(model, torch.Generator().manual_seed(seed + 7),
+                          head_only=not cfg.all_init)
+    return model
 
 
 @dataclasses.dataclass
@@ -209,15 +224,17 @@ def run_fold(
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
     interrupt_after: Optional[List[int]] = None,
+    raw: Optional[np.ndarray] = None,
 ) -> FoldResult:
     """Train one prepared fold for cfg.epochs and score it (driver.py:243-739,
     per-step path), with the seeds of (run_i, fold_i).
 
-    ctx: the fold context on its device; X (P, NODES), Y (P, 2), ages (P,)
+    ctx: the fold context on its device; X (P, NODES) or (P, N, omics),
+    Y (P, 2), ages (P,) and raw (P, ...) or None (the batches' raw_data)
     host arrays; fold_class_weight: (2,) class_weight of the training rows.
-    model: a MultilevelGNN with its initial parameters, or None to build
-    one from the fold seed.  Per epoch: the training steps, then evaluate on
-    valid and test; best-by-valid-AUC and best-by-valid-loss test scores
+    model: a model of cfg.model with its initial parameters, or None to
+    build one from the fold seed.  Per epoch: the training steps, then
+    evaluate on valid and test; best-by-valid-AUC and best-by-valid-loss test scores
     are kept, and recorded at each check epoch (with the current epoch's
     scores as the fallback when no improvement was seen).
 
@@ -254,6 +271,8 @@ def run_fold(
         "y": torch.as_tensor(np.asarray(Y, np.float32)).to(dev),
         "age": torch.as_tensor(np.asarray(ages, np.float32)).to(dev),
     }
+    if raw is not None:
+        data["raw"] = torch.as_tensor(np.asarray(raw, np.float32)).to(dev)
     timed = dev.type == "cuda"
     results = dict(highest_valid=-1.0, highest_valid_loss=100.0, result_y=None,
                    result_y_by_loss=None, epoch={}, epoch_by_loss={},
@@ -322,6 +341,7 @@ def run_fold(
                     y=data["y"].index_select(0, take),
                     age=data["age"].index_select(0, take),
                     sample_mask=masks[s],
+                    raw_data=data["raw"].index_select(0, take) if raw is not None else None,
                 )
                 if timed:
                     ev = (torch.cuda.Event(enable_timing=True),
@@ -335,10 +355,10 @@ def run_fold(
             out.step_ms += [a.elapsed_time(b) for a, b in events]
             step_i += len(plan)
         valid_auc, valid_acc, _, _, valid_loss = evaluate(
-            model, ctx, X, Y, ages, valid_idx, cfg.batch_size
+            model, ctx, X, Y, ages, valid_idx, cfg.batch_size, raw
         )
         _, _, out.y_true, test_score, _ = evaluate(
-            model, ctx, X, Y, ages, test_idx, cfg.batch_size
+            model, ctx, X, Y, ages, test_idx, cfg.batch_size, raw
         )
         record(epoch, valid_auc, valid_acc, valid_loss, test_score)
         out.epoch_valid.append((valid_auc, valid_acc, valid_loss))
@@ -362,10 +382,18 @@ def run_fold(
 
 def fold_setup(cfg: Config, cohort, train_idx, fold_i: int, device="cuda"):
     """The per-fold derivation shared by training and prediction
-    (driver.py:206-240, the multilevel_gnn branch): Cohort.fold on
-    ``device`` and the config's node count.  Returns (cfg, fold, X)."""
-    if cfg.model != "multilevel_gnn":
-        raise NotImplementedError(f"model {cfg.model!r} is not ported (multilevel_gnn is)")
+    (driver.py:206-240) on ``device``, with the config's node counts.
+    multilevel_gnn: Cohort.fold, X (P, NODES).  deepergcn: the gene-level
+    Cohort.deepergcn_fold (whose fold.raw carries the pathway node attrs),
+    X (P, N, omics) from gene_level_features, node_num = genes + pathway
+    nodes and pathway_edge_num = max(the cohort's pathway edges, 1).
+    Returns (cfg, fold, X)."""
+    get_model(cfg.model)  # raises for a model the port does not have
+    if cfg.model == "deepergcn":
+        fold = cohort.deepergcn_fold(np.asarray(train_idx), fold_i, device=device)
+        cfg = cfg.replace(pathway_edge_num=max(cohort.pathway_edge_num, 1),
+                          node_num=cohort.node_size + cohort.n_pathways)
+        return cfg, fold, cohort.gene_level_features()
     fold = cohort.fold(np.asarray(train_idx), fold_i, device=device)
     return cfg.replace(node_num=cohort.num_nodes // 3), fold, cohort.X
 
@@ -485,7 +513,7 @@ def run_experiment(
                         cohort.Y, cohort.ages, train_idx, valid_idx, test_idx,
                         fold.class_weight, check_epochs, run_i=run_i, fold_i=fold_i,
                         ckpt_dir=ckpt_dir, resume=resume,
-                        interrupt_after=interrupt_after,
+                        interrupt_after=interrupt_after, raw=fold.raw,
                     )
                     if done is not None:
                         os.makedirs(ckpt_dir, exist_ok=True)

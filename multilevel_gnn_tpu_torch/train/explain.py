@@ -38,7 +38,10 @@ def integrated_gradients(
     mask).  One forward and backward at a time, the gradients added in
     place, so memory holds one step's activations; the parameters take no
     gradient meanwhile, so the backward computes the input's only.
-    Returns (B, NODES)."""
+    Returns (B, NODES).  Only MultilevelGNN is explained (DeeperGCN's
+    attributions are not ported yet)."""
+    if model.cfg.model != "multilevel_gnn":
+        raise NotImplementedError(f"explain of model {model.cfg.model!r} is not ported")
     x = batch.x.detach()
     x0 = torch.zeros_like(x) if baseline is None else baseline
     alphas = ((np.arange(steps) + 0.5) / steps).astype(np.float32)

@@ -82,7 +82,10 @@ class FoldInference(nn.Module):
 def export_program(model: nn.Module, ctx, batch_size: int, n_nodes: int):
     """torch.export program of FoldInference(model, ctx) at a fixed batch
     size, traced under torch.no_grad(); the model is put in eval mode and
-    its parameters frozen (requires_grad False)."""
+    its parameters frozen (requires_grad False).  Only MultilevelGNN is
+    exported (DeeperGCN's export is not ported yet)."""
+    if model.cfg.model != "multilevel_gnn":
+        raise NotImplementedError(f"export of model {model.cfg.model!r} is not ported")
     model.eval()
     for p in model.parameters():
         p.requires_grad_(False)

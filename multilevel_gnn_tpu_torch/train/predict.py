@@ -43,7 +43,8 @@ def load_fold_state(
     model: a model in memory to use instead of a checkpoint (the tests'
     train -> save -> predict round trips).  With neither, the model is the
     seed-0 one, as JAX's is PRNGKey(0)'s.  Returns a dict with cfg, fold,
-    ctx, X, model and splits (test / valid / train / all index arrays)."""
+    ctx, X, raw (the batches' side channel, fold.raw), model and splits
+    (test / valid / train / all index arrays)."""
     labels = cohort.labels()
     train_idx, valid_idx, test_idx = driver.fold_indices(labels, cfg, fold_i)
     splits = {"test": test_idx, "valid": valid_idx, "train": train_idx,
@@ -57,8 +58,8 @@ def load_fold_state(
             tree, _ = C.load_checkpoint(
                 os.path.join(ckpt_dir, f"run{run_i}_fold{fold_i}"), step)
             model.load_state_dict(tree["model"])
-    return {"cfg": cfg, "fold": fold, "ctx": ctx, "X": X, "model": model,
-            "splits": splits}
+    return {"cfg": cfg, "fold": fold, "ctx": ctx, "X": X, "raw": fold.raw,
+            "model": model, "splits": splits}
 
 
 def predict_fold(
@@ -75,24 +76,26 @@ def predict_fold(
     """Score one (run, fold)'s ``split`` patients with its checkpoint."""
     st = load_fold_state(cfg, cohort, ckpt_dir, run_i, fold_i, step, model, device)
     idx = st["splits"][split]
-    out = predict_patients(st["model"], st["ctx"], st["X"], cohort.Y, cohort.ages, idx)
+    out = predict_patients(st["model"], st["ctx"], st["X"], cohort.Y, cohort.ages, idx,
+                           st["raw"])
     out.update(run=run_i, fold=fold_i, split=split,
                patients=[cohort.patients[i] for i in np.asarray(idx)])
     return out
 
 
 def predict_patients(
-    model, ctx: FoldContext, X: np.ndarray, Y: np.ndarray, ages: np.ndarray, idx
+    model, ctx: FoldContext, X: np.ndarray, Y: np.ndarray, ages: np.ndarray, idx,
+    raw: Optional[np.ndarray] = None,
 ) -> Dict:
     """Probabilities of class 0 and AUC/ACC/loss for patients ``idx``, in
     batches of the model config's batch_size.
 
-    X (P, NODES), Y (P, 2), ages (P,) are host arrays; the model and ctx
-    sit on the device they run on.  "patients" lists the scored row
-    indices."""
+    X (P, NODES) or (P, N, omics), Y (P, 2), ages (P,) and raw (P, ...) or
+    None (the batches' raw_data) are host arrays; the model and ctx sit on
+    the device they run on.  "patients" lists the scored row indices."""
     idx = np.asarray(idx)
     auc, acc, y_true, score, loss = driver.evaluate(
-        model, ctx, X, Y, ages, idx, model.cfg.batch_size
+        model, ctx, X, Y, ages, idx, model.cfg.batch_size, raw
     )
     return {
         "patients": [int(i) for i in idx],

@@ -231,17 +231,21 @@ def make_optimizer(
 
 def make_loss_fn(cfg: Config) -> Callable:
     """The training loss (step.py:185-209): classification loss of the
-    training-mode forward plus the feature losses.  Returns
-    loss_fn(model, batch, ctx, class_weight, generator) -> (loss, pred)."""
+    training-mode forward plus, for the learnable-PCA models, the feature
+    losses (DeeperGCN returns no features and has no PCA parameters).
+    Returns loss_fn(model, batch, ctx, class_weight, generator) ->
+    (loss, pred)."""
 
     def loss_fn(model, batch: Batch, ctx: FoldContext, class_weight, generator):
         pred, feat = model(batch, ctx, generator)
         loss = classification_loss(
             pred, batch.y, class_weight, batch.sample_mask, cfg
         )
-        loss = loss + get_feature_loss(
-            model.learnable_pca_params, ctx, feat, cfg, batch.sample_mask
-        )
+        pca_params = getattr(model, "learnable_pca_params", None)
+        if pca_params is not None and feat is not None:
+            loss = loss + get_feature_loss(
+                pca_params, ctx, feat, cfg, batch.sample_mask
+            )
         return loss, pred
 
     return loss_fn

@@ -579,3 +579,74 @@ def test_warm_builds_kernels_and_libraries(dev):
     out = warm_experiment(cfg, cohort, dev)
     assert set(out["builds"]) == set(build.REGISTRY) | {"mi_knn", "csv_float", "fold0"}
     assert all(k._fn is not None for k in build.REGISTRY.values())
+
+
+def _gene_graph(dev, n=1200, e=9000):
+    """A gene-level-like Graph on the card: edges both ways, a hub pathway
+    node with more than 256 in-edges, rows without in-edges."""
+    from multilevel_gnn_tpu_torch.core.graph import Graph
+
+    s, d = _graph(7, n, e // 2, hub=True)
+    ei = np.concatenate([np.stack([s, d]), np.stack([d, s])], axis=1)
+    hub = np.stack([np.arange(400), np.full(400, n - 1)])  # a pathway node
+    ei = np.concatenate([ei, hub], axis=1)
+    attr = np.random.RandomState(8).rand(ei.shape[1]).astype(np.float32)
+    return Graph.from_edges(ei, attr, n).with_sorted_meta(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [4096, 8192])
+def test_k3_at_genconv_widths_equals_plain(dev, dtype, F):
+    """K3 at GENConv's F = B * H (32 x 128 and 64 x 128), where a row's
+    edges are read in two or four 2,048-feature passes."""
+    g = _gene_graph(dev)
+    msg = torch.randn(g.num_padded_edges, F, generator=torch.Generator(device=dev)
+                      .manual_seed(F), device=dev).to(dtype)
+    out = k3.segment_max_csr(msg, g.csr)
+    assert torch.equal(out, k3.segment_max_csr_plain(msg, g.csr))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_genconv_forms_at_4096_match_plain(dev, dtype):
+    """K1 as edge_segment_sum's forward (unit weights over dst_gather) and
+    as gather_src's backward (unit weights over src_gather) at F = 4096."""
+    g = _gene_graph(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(g.num_padded_edges, 4096, generator=gen, device=dev).to(dtype)
+    ones = torch.ones(g.num_padded_edges, device=dev)
+    for plan in (g.dst_gather, g.src_gather):
+        _close(k1.segment_spmm_csr(x, ones, plan), k1.segment_spmm_csr_plain(x, ones, plan),
+               dtype)
+
+
+@pytest.mark.parametrize("aggr", ["max", "softmax", "power"])
+def test_genconv_kernels_match_plain(dev, aggr):
+    """A bf16 GENConv's forward and gradients with K3 / K1 against the same
+    with the plain versions (B = 4, H = 32)."""
+    from multilevel_gnn_tpu_torch.nn.conv import GENConv
+    from multilevel_gnn_tpu_torch.ops import spmm
+
+    g = _gene_graph(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x0 = torch.randn(g.n_nodes, 4, 32, generator=gen, device=dev)
+    e0 = torch.randn(g.num_padded_edges, 32, generator=gen, device=dev)
+    cot = torch.randn(g.n_nodes, 4, 32, generator=gen, device=dev)
+    layer = GENConv(32, 32, aggr=aggr, learn_t=True, learn_p=True, encode_edge=True,
+                    edge_feat_dim=32, norm_type="layer", dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(0)).to(dev)
+    res = []
+    for plain in (False, True):
+        layer.zero_grad(set_to_none=True)
+        x, e = x0.clone().requires_grad_(True), e0.clone().requires_grad_(True)
+        if plain:
+            with spmm.plain_versions():
+                out = layer(x, g, e)
+                out.backward(cot.to(out.dtype))
+        else:
+            out = layer(x, g, e)
+            out.backward(cot.to(out.dtype))
+        res.append([out.detach().float(), x.grad, e.grad]
+                   + [p.grad for p in layer.parameters()])
+    for a, b in zip(*res):
+        err = float((a - b).abs().max())
+        assert err <= 7e-2 * max(1.0, float(b.abs().max())), err
