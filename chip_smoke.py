@@ -56,11 +56,15 @@ each:
            scatter_reduce amax library call; k1_bwd also times K1 as the
            backward of the two edge gathers (src_gather, dst_gather)
 
-Then, for each of gnn_name mr (MRConv) and edge (EdgeConv) on the same fold,
-with a model of the same widths:
+Then, for each of gnn_name mr (MRConv), edge (EdgeConv), gat (GATConv, the
+Config's default, f32 with gbm.yaml's final_head 4), gcn (GCNConv) and gin
+(GINConv) on the same fold, with a model of the same widths (launches as
+conv_launches says: mr / edge K3 2 a batch, K3 2 / K1 5 a step; gat K1 4 a
+batch, K1 13 a step; gcn / gin as sage, K2 2 / K1 2 a batch, K2 4 / K1 7
+a step):
 
   serve_<conv>  predict_patients over the 123 patients, launch counts
-           zeroed just before and read just after: K3 2, K1 0, K2 0 a batch
+           zeroed just before and read just after
   profile_<conv>  device time by kernel per eval step of one full batch,
            and the share of the CUDA-event-timed eval step with no kernel
   slice_<conv>  the forward with kernels against plain versions (bf16 and
@@ -70,8 +74,25 @@ with a model of the same widths:
   train_<conv>  run_fold for 2 epochs (gbm.yaml's optimizer and dropouts),
            launches counted over it; ms per step
   profile_train_<conv>  as profile_train, on one batch: launches per step
-           from the counters, K3 2, K1 5 (the two edge-gather backwards of
-           each layer and the PCA gather's), K2 0
+           from the counters
+
+and then, on the same fold:
+
+  export_gat  the export phase for a GAT fold (K1 4 a call, K2 0)
+  k1_zoo / k2_zoo  the K1 and K2 forms of gat, gcn and gin at gbm.yaml's
+           widths against their plain versions, with ms, bound, plain and
+           library ms: GAT's edge_segment_sum of its messages (F = B*64 and
+           B*32, f32) and softmax terms (F = B*8 and B*4), its gather
+           backwards (src_gather / dst_gather, F = B*8; src_gather B*64);
+           GCN's K2 forward (F = B*64, B*32) and transpose and its K1
+           residual with the weights dinv[s] * dinv[r], bf16; GIN's K2
+  options_<option>  each model option on the sage path alone (resgnn,
+           dense_gnn, repeat_mask, pca_prelinear, used_omics 01,
+           multilevel_gnn_seq, gnn_mlp_norm layer, prelu): one eval forward
+           with kernels against plain versions, its launches (sage's), one
+           step's gradients against plain versions and one train_step,
+           counted; pca_svd and pca_lowrank in f32, eval only, with the ms
+           of one forward
 
 Then the sorted segment-sum and the protocol from files:
 
@@ -174,6 +195,10 @@ sources and warm, each failing the run when its check fails:
            plans predict, merge running the stack over both graphs); a
            small protocol (f32, dropout off, 2 epochs) card against CPU
            within 1e-4
+  gat_protocol_vs_cpu  (after merge) the train CLI on small
+           reference-format files with gnn_name gat (f32, dropout off, 1 run
+           x 5 folds x 2 epochs) on the card and on the CPU: fold test scores
+           within 1e-4, pooled AUC / ACC equal
   warm     the warm CLI in a copy of the package with nothing built (its
            builds' seconds), then the train CLI from that copy: every
            kernel and data library found built (0.0 s)
@@ -257,7 +282,17 @@ N_TRAIN_PATIENTS = 256  # 192 train (6 steps an epoch), 32 valid, 32 test
 # against index_add_'s atomics.  Readings on an H100 (PERF.md): 1.4e-3 (bf16, edge), 4.0e-7 (f32); limits
 # about ten times.
 TOL_GRAD_MAX = {"bf16": 1.4e-2, "f32": 4e-6}
+# gat, gcn, gin.  Readings on an H100 in the f32 trunk: GCN 9.2e-4
+# (learnable_pca_params; Conv_1's gradients agree within 2e-7 and Conv_0's
+# do not, so the first head conv's relu / max-pool choices moved under a
+# 1e-7 change of the image); GAT 8.9e-7 to 5.6e-4 from run to run (its
+# attention parameters: the softmax shifted by the column max, as JAX
+# shifts it, leaves some segments' denominators tiny, and the plain
+# version adds with index_add_'s atomics, in a varying order); limits
+# about twice the largest
+TOL_GRAD_ZOO = {"bf16": 7e-2, "f32": 2e-3}
 CONV_EPOCHS = 2
+GBM_FINAL_HEAD = 4  # gbm.yaml's final_head: GAT's last layer's heads
 
 
 def emit(obj) -> None:
@@ -615,6 +650,53 @@ def kernel_bwd(graph, ctx, w, F, F_gather, gen):
     return r1, r2
 
 
+def kernel_zoo(graph, B, C, final, heads, gen):
+    """The K1 / K2 forms that gat, gcn and gin give the GBM fold at gbm.yaml's
+    widths (B, hidden C, final channels, final_head heads), each against its
+    plain version: GAT's edge_segment_sum of f32 messages (K1 over
+    dst_gather, unit weights) at F = B*C and B*final, and of its softmax
+    terms at F = B*8 and B*heads; the backward of its gathers, K1 over
+    src_gather / dst_gather at F = B*8 (a_src, a_dst, the denominators) and
+    over src_gather at F = B*C (the messages); GCN's K2 forward and
+    transpose and its K1 residual with the weights dinv[s] * dinv[r], bf16,
+    F = B*C and B*final; GIN's K2 forward with unit weights, F = B*C.
+    Libraries: torch.sparse.mm, and index_add_ for a gather's backward."""
+    plan = graph.winplan
+    E = graph.num_padded_edges
+    ones = torch.ones(E, device="cuda")
+    coef = spmm.edge_weights(graph, "sum", graph.gcn_coef)
+    out = {}
+    for case, F in (("gat_messages", B * C), ("gat_messages", B * final),
+                    ("gat_softmax", B * 8), ("gat_softmax", B * heads)):
+        x = torch.randn(E, F, generator=gen, device="cuda")
+        out[(case, F)] = time_k1(f"{case} F={F}", graph.dst_gather, x, ones, False, gen)
+        emit({"phase": "k1_zoo", **out[(case, F)]})
+        del x
+    for case, p, ids, F in (("gat_src_gather_bwd", graph.src_gather, graph.senders, B * 8),
+                            ("gat_dst_gather_bwd", graph.dst_gather, graph.receivers, B * 8),
+                            ("gat_src_gather_bwd", graph.src_gather, graph.senders, B * C)):
+        g = torch.randn(E, F, generator=gen, device="cuda")
+        dst = torch.zeros(graph.n_nodes, F, device="cuda")
+        out[(case, F)] = time_k1(f"{case} F={F}", p, g, ones, False, gen,
+                                 library=lambda ids=ids, g=g, dst=dst:
+                                 dst.zero_().index_add_(0, ids, g))
+        emit({"phase": "k1_zoo", **out[(case, F)]})
+        del g, dst
+    for F in (B * C, B * final):
+        x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(torch.bfloat16)
+        out[("gcn_residual", F)] = time_k1(f"gcn_residual F={F}", plan.res, x, coef, True, gen)
+        emit({"phase": "k1_zoo", **out[("gcn_residual", F)]})
+        out[("gcn_k2", F)] = time_k2(f"gcn forward F={F}", plan, x, coef, False)
+        emit({"phase": "k2_zoo", **out[("gcn_k2", F)]})
+        del x
+    x = torch.randn(graph.n_nodes, B * C, generator=gen, device="cuda").to(torch.bfloat16)
+    out[("gcn_k2_t", B * C)] = time_k2(f"gcn transpose F={B * C}", plan, x, coef, True)
+    emit({"phase": "k2_zoo", **out[("gcn_k2_t", B * C)]})
+    out[("gin_k2", B * C)] = time_k2(f"gin forward F={B * C}", plan, x, ones, False)
+    emit({"phase": "k2_zoo", **out[("gin_k2", B * C)]})
+    return out
+
+
 def launch_counts():
     return {k.name: k.launches for k in build.REGISTRY.values()}
 
@@ -812,9 +894,8 @@ def train_phase(cfg, ctx, model_seed_state):
     launches = launch_counts()
     n_steps = len(res.step_losses)
     n_eval = 3 * 2  # valid + test, one batch each, per epoch
-    k1_step = 2 * (plan.n_res > 0) + 2 * ((plan.n_tres > 0) + (plan.n_res > 0)) + 1
-    want = {k1.KERNEL.name: n_steps * k1_step + n_eval * 2 * (plan.n_res > 0),
-            k2.KERNEL.name: n_steps * 4 + n_eval * 2, k3.KERNEL.name: 0, k4.name: 0}
+    per_batch, per_step = conv_launches("sage", plan)
+    want = {k: per_step[k] * n_steps + per_batch[k] * n_eval for k in per_step}
     moved = max(float((p.detach() - before[n]).abs().max())
                 for n, p in model.named_parameters())
     valid_auc = [v[0] for v in res.epoch_valid]
@@ -830,9 +911,7 @@ def train_phase(cfg, ctx, model_seed_state):
     emit({"phase": "train", "epochs": 3, "steps": n_steps,
           "ms_per_step_median": step_ms, "step_ms": res.step_ms,
           "host_s_per_epoch": res.epoch_times, "launches": launches,
-          "launches_expected": want,
-          "launches_per_step_expected": {k1.KERNEL.name: k1_step, k2.KERNEL.name: 4,
-                                         k3.KERNEL.name: 0, k4.name: 0},
+          "launches_expected": want, "launches_per_step_expected": per_step,
           "losses": res.step_losses, "max_param_move": moved,
           "valid_auc": valid_auc, "valid_loss": [v[2] for v in res.epoch_valid],
           "test_auc_at_check": {
@@ -842,8 +921,7 @@ def train_phase(cfg, ctx, model_seed_state):
           "ok": ok})
     if not ok:
         raise AssertionError("train phase failed")
-    return dict(per_step={k1.KERNEL.name: k1_step, k2.KERNEL.name: 4,
-                          k3.KERNEL.name: 0, k4.name: 0},
+    return dict(per_step=per_step,
                 batch=next(iter_batches(X, Y, ages, tr, cfg.batch_size, "cuda")),
                 model=model, cw=torch.as_tensor(cw, dtype=torch.float32, device="cuda"))
 
@@ -925,9 +1003,29 @@ def profile_eval(model, ctx, batch, phase, n_timed=10, n_prof=3):
     return busy
 
 
+def conv_launches(conv, plan):
+    """(per serving batch, per train step) launches of each kernel with
+    gnn_name conv on a fold whose window plan is plan.  mr / edge: K3 a
+    layer, K1 as the two edge gathers' backwards a layer and the PCA
+    gather's.  gat: K1 twice a layer (the softmax denominators and the
+    messages, edge_segment_sum), and as the backward of its four gathers a
+    layer (a_src, a_dst, the denominators, the messages) and the PCA
+    gather's.  sage / gcn / gin: K2 a layer with the K1 residual, and in
+    the backward K2's transpose with K1 over tres and res_csc, and the PCA
+    gather's K1."""
+    zero = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: 0, k4.name: 0}
+    if conv in ("mr", "edge"):
+        return {**zero, k3.KERNEL.name: 2}, {**zero, k3.KERNEL.name: 2, k1.KERNEL.name: 5}
+    if conv == "gat":
+        return {**zero, k1.KERNEL.name: 4}, {**zero, k1.KERNEL.name: 13}
+    res, tres = int(plan.n_res > 0), int(plan.n_tres > 0)
+    return ({**zero, k1.KERNEL.name: 2 * res, k2.KERNEL.name: 2},
+            {**zero, k1.KERNEL.name: 2 * res + 2 * (tres + res) + 1, k2.KERNEL.name: 4})
+
+
 def serve_conv(conv, model, ctx, n_batches):
-    """The max-aggregation serving path: predict_patients over N_PATIENTS,
-    counted: K3 twice a batch (one per layer), no K1 or K2."""
+    """One conv's serving path: predict_patients over N_PATIENTS, counted,
+    launches as conv_launches says a batch."""
     X, Y, ages = patients(ctx.graph.n_nodes)
     idx = np.arange(N_PATIENTS)
     predict_patients(model, ctx, X, Y, ages, idx)  # warm-up, not counted
@@ -938,8 +1036,8 @@ def serve_conv(conv, model, ctx, n_batches):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
-    want = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: 2 * n_batches,
-            k4.name: 0}
+    per_batch = conv_launches(conv, ctx.graph.winplan)[0]
+    want = {k: v * n_batches for k, v in per_batch.items()}
     prob = np.asarray(res["prob"])
     ok = (len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
           and bool(((prob >= 0) & (prob <= 1)).all())
@@ -954,9 +1052,9 @@ def serve_conv(conv, model, ctx, n_batches):
 
 
 def train_conv(conv, cfg, ctx):
-    """run_fold with a max-aggregation conv for CONV_EPOCHS epochs, counted;
-    then profile_train on one batch, which reads the launches per step from
-    the counters: K3 2, K1 5, K2 0."""
+    """run_fold with one conv for CONV_EPOCHS epochs, counted; then
+    profile_train on one batch, which reads the launches per step from
+    the counters (conv_launches)."""
     X, Y, ages = patients(ctx.graph.n_nodes, n=N_TRAIN_PATIENTS, seed=2)
     tr, va, te = np.arange(192), np.arange(192, 224), np.arange(224, 256)
     cw = class_weight(Y, tr, cfg.weight_power)
@@ -973,8 +1071,8 @@ def train_conv(conv, cfg, ctx):
     n_steps = len(res.step_losses)
     bs = cfg.batch_size
     n_eval = CONV_EPOCHS * (-(-len(va) // bs) + -(-len(te) // bs))
-    want = {k1.KERNEL.name: 5 * n_steps, k2.KERNEL.name: 0,
-            k3.KERNEL.name: 2 * (n_steps + n_eval), k4.name: 0}
+    per_batch, per_step = conv_launches(conv, ctx.graph.winplan)
+    want = {k: per_step[k] * n_steps + per_batch[k] * n_eval for k in per_step}
     moved = max(float((p.detach() - before[n]).abs().max())
                 for n, p in model.named_parameters())
     losses = np.asarray(res.step_losses)
@@ -992,37 +1090,198 @@ def train_conv(conv, cfg, ctx):
         raise AssertionError(f"train_{conv} phase failed")
     batch = next(iter_batches(X, Y, ages, tr, cfg.batch_size, "cuda"))
     cwt = torch.as_tensor(cw, dtype=torch.float32, device="cuda")
-    want_step = {k1.KERNEL.name: 5, k2.KERNEL.name: 0, k3.KERNEL.name: 2, k4.name: 0}
-    return profile_train(model, ctx, batch, cwt, want_step,
+    return profile_train(model, ctx, batch, cwt, per_step,
                          phase=f"profile_train_{conv}")[0]
 
 
 def conv_paths(conv, cfg, ctx, batch, n_batches):
-    """Every phase of one max-aggregation conv on the GBM fold; cfg is the
-    training config (gbm.yaml's optimizer and dropouts, bf16 trunk)."""
-    ccfg = cfg.replace(gnn_name=conv)
+    """Every phase of one conv on the GBM fold; cfg is the training config
+    (gbm.yaml's optimizer and dropouts, bf16 trunk).  mr / edge differ from
+    their plain versions only in K3, which is exact; gat runs in f32, so
+    its bf16 trunk is held like the f32 one; gcn / gin run the bf16 SpMMs
+    as sage does."""
+    ccfg = cfg.replace(gnn_name=conv, final_head=GBM_FINAL_HEAD)
     n, G = ctx.graph.n_nodes, ctx.num_pca_rows
 
     def make(c):
         return lambda: MultilevelGNN(c, n, G, device="cuda", seed=0)
 
     f32 = ccfg.replace(compute_dtype=None, spmm_bf16=False)
+    tol_img = TOL_IMAGE_BF16 if conv in ("gcn", "gin") else TOL_IMAGE_F32
+    tol_grad = TOL_GRAD_MAX if conv in ("mr", "edge") else TOL_GRAD_ZOO
     model = make(ccfg)()
     serve = serve_conv(conv, model, ctx, n_batches)
     profile_eval(model, ctx, batch, f"profile_{conv}")
-    forward_vs_plain(f"slice_{conv}", (("bf16", TOL_IMAGE_F32, lambda: model),
+    forward_vs_plain(f"slice_{conv}", (("bf16", tol_img, lambda: model),
                                        ("f32", TOL_IMAGE_F32, make(f32))), ctx, batch)
     cw = torch.tensor([1.0, 1.5], device="cuda")
     train_grad_checks((("bf16", model),), ctx, batch, cw,
-                      phase=f"train_grad_{conv}", tol=TOL_GRAD_MAX)
+                      phase=f"train_grad_{conv}", tol=tol_grad)
     del model
     m32 = make(f32)()
     train_grad_checks((("f32", m32),), ctx, batch, cw,
-                      phase=f"train_grad_{conv}", tol=TOL_GRAD_MAX)
+                      phase=f"train_grad_{conv}", tol=tol_grad)
     del m32
     per_step = train_conv(conv, ccfg.replace(epochs=CONV_EPOCHS), ctx)
     torch.cuda.empty_cache()
     return serve, per_step
+
+
+# The model options of the sage path, each on its own at gbm.yaml's widths:
+# resgnn with final_channels = hidden (64), so x + layer(x) adds; repeat_mask
+# with repeat_cyclic 1, so the mask repeats after layer 0 of two; the
+# runtime PCA reductions in f32 (the JAX package refuses a bf16 SVD or QR)
+# and eval only.  An SVD's singular vectors follow its input's tiny changes
+# in sign, and by rotation where singular values lie close: with the
+# kernels' f32 sums in another order than the plain versions', an H100 read
+# 4 sign flips of 28,032 (channel, slot, column)s and 2.5e-3 of max|image|
+# after aligning the signs.  So the kernels are held where they act, on the
+# rows the reduction takes, and the image's differences are reported
+OPTIONS = {
+    "resgnn": dict(resgnn=True, final_channels=64),
+    "dense_gnn": dict(dense_gnn=True),
+    "repeat_mask": dict(repeat_mask=True, repeat_norm=True, repeat_cyclic=1),
+    "pca_prelinear": dict(pca_prelinear=True),
+    "used_omics_01": dict(used_omics="01"),
+    "multilevel_gnn_seq": dict(model="multilevel_gnn_seq", only_mrna_pred=True),
+    "gnn_mlp_norm_layer": dict(gnn_mlp_norm="layer"),
+    "prelu": dict(gnn_act="prelu"),
+    "pca_svd": dict(reduction_method="pca_svd", compute_dtype=None, spmm_bf16=False),
+    "pca_lowrank": dict(reduction_method="pca_lowrank", compute_dtype=None, spmm_bf16=False),
+}
+TOL_PCA_ROWS = 1e-6  # times max|rows|: the reduction's input, kernels against plain
+
+
+def pca_vs_plain(phase, m, ctx, batch):
+    """A runtime-PCA forward with kernels against plain versions: the rows
+    the reduction takes within TOL_PCA_ROWS; the image's sign flips, its
+    difference after the signs are aligned and the probabilities'
+    difference are reported (they follow the solver)."""
+    rows = []
+    reduce = m.runtime_pca_image
+    m.runtime_pca_image = lambda xg: (rows.append(xg), reduce(xg))[1]
+    m.eval()
+    try:
+        with torch.no_grad():
+            pk, ik = m(batch, ctx)
+            with spmm.plain_versions():
+                pp, ip = m(batch, ctx)
+    finally:
+        del m.runtime_pca_image
+    torch.cuda.synchronize()
+    err, rmax = err_of(rows[0], rows[1])
+    B, C = ik.shape[:2]
+    a = ik.reshape(B, C, -1, m.cfg.pca_dim)
+    b = ip.reshape(B, C, -1, m.cfg.pca_dim)
+    sign = torch.sign((a * b).sum(0))
+    sign[sign == 0] = 1
+    img_err, im = err_of(a * sign, b)
+    finite = bool(torch.isfinite(pk).all() and torch.isfinite(ik).all())
+    ok = finite and rmax > 0 and err <= TOL_PCA_ROWS * rmax
+    emit({"phase": phase, "trunk": "f32", "max_abs_err_rows": err, "rows_max": rmax,
+          "tol_rows": TOL_PCA_ROWS, "sign_flips": int((sign < 0).sum()),
+          "columns": int(sign.numel()), "max_abs_err_image_aligned": img_err,
+          "image_max": im, "max_abs_err_prob": float((pk - pp).abs().max()),
+          "finite": finite, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase}: kernels vs plain on the reduction's rows")
+
+
+def options_phase(cfg, ctx, batch):
+    """Each option of OPTIONS on the sage path of the GBM fold: one eval
+    forward with kernels against plain versions (forward_vs_plain's
+    limits), launches counted over one eval_step (K2 2 and the K1 residual
+    2, as sage); then, but for the PCA reductions, one step's gradients
+    against plain versions (TOL_GRAD) and one train_step, counted (sage's
+    launches a step).  The PCA reductions' forward ms (a Python loop over
+    the 438 slots' SVDs or QRs in both packages)."""
+    slots = tuple(int(c) for c in np.bincount(ctx.raw_indice.cpu().numpy(),
+                                              minlength=3 * cfg.pathway_num))
+    n, G = ctx.graph.n_nodes, ctx.num_pca_rows
+    per_batch, per_step = conv_launches("sage", ctx.graph.winplan)
+    cw = torch.tensor([1.0, 1.5], device="cuda")
+    res = {}
+    for name, kw in OPTIONS.items():
+        c = cfg.replace(slot_sizes=slots, **kw)
+        trunk = "bf16" if c.compute_dtype else "f32"
+        m = MultilevelGNN(c, n, G, device="cuda", seed=0)
+        pca = c.reduction_method != "linear_projection"
+        if pca:
+            pca_vs_plain(f"options_{name}", m, ctx, batch)
+        else:
+            tol_img = TOL_IMAGE_BF16 if trunk == "bf16" else TOL_IMAGE_F32
+            forward_vs_plain(f"options_{name}", ((trunk, tol_img, lambda: m),), ctx, batch)
+        m.eval()
+        torch.cuda.synchronize()
+        zero_launches()
+        probs = eval_step(m, batch, ctx)[0]
+        torch.cuda.synchronize()
+        eval_launches = launch_counts()
+        row = {"phase": f"options_{name}_counts", "trunk": trunk, "eval_launches": eval_launches,
+               "finite": bool(torch.isfinite(probs).all())}
+        ok = row["finite"] and eval_launches == per_batch
+        if pca:
+            with torch.no_grad():
+                # one call (pca_vs_plain warmed it): pca_svd's 438 slots of
+                # batched SVDs take seconds on an H100
+                row["forward_ms"] = cuda_ms(lambda: m(batch, ctx), iters=1, warmup=0)
+        else:
+            train_grad_checks(((trunk, m),), ctx, batch, cw, phase=f"options_grad_{name}")
+            opt = make_optimizer(m, c, 6)
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            torch.cuda.synchronize()
+            zero_launches()
+            loss = train_step(m, opt, batch, ctx, cw, gen)
+            torch.cuda.synchronize()
+            row["step_launches"], row["loss"] = launch_counts(), float(loss)
+            ok = ok and row["step_launches"] == per_step and bool(np.isfinite(row["loss"]))
+        row["ok"] = ok
+        emit(row)
+        if not ok:
+            raise AssertionError(f"options_{name} failed")
+        res[name] = row
+        del m
+        torch.cuda.empty_cache()
+    return res
+
+
+def gat_protocol_phase(small_root):
+    """The train CLI on the small reference-format files with gnn_name gat
+    (f32, dropout off, 1 run x 5 folds x 2 epochs), on the card and on the
+    CPU: each fold's test scores within TOL_PROTOCOL, pooled AUC and ACC
+    equal; the card's run counted (K1 only: the small folds are composed)."""
+    from multilevel_gnn_tpu_torch.train import cli
+
+    sets = ["gnn_name=gat", "final_head=4", "num_run=1", "epochs=2",
+            "compute_dtype=null", "spmm_bf16=false", "feature_drop=false",
+            "head_drop_rate=0.0", "gnn_dropout=0.0"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sync("cuda")
+        zero_launches()
+        rec, undo = _spy_folds()
+        try:
+            res = cli.main(["--config", GBM_YAML, "--data-dir", small_root, "--device", dev,
+                            "--set", *sets])
+        finally:
+            undo()
+        sync("cuda")
+        out[dev] = (rec, res, launch_counts())
+    (rc, resc, launches), (rp, resp, _) = out["cuda"], out["cpu"]
+    errs = [max(float(np.abs(a.epoch_pred[2] - b.epoch_pred[2]).max()),
+                float(np.abs(a.epoch_pred_by_epoch[2] - b.epoch_pred_by_epoch[2]).max()))
+            for a, b in zip(rc, rp)]
+    ok = bool(len(errs) == 5 and max(errs) <= TOL_PROTOCOL
+              and resc["auc"][2] == resp["auc"][2] and resc["acc"][2] == resp["acc"][2]
+              and launches[k1.KERNEL.name] > 0 and launches[k2.KERNEL.name] == 0
+              and launches[k3.KERNEL.name] == 0)
+    emit({"phase": "gat_protocol_vs_cpu", "fold_max_abs_err": errs, "tol": TOL_PROTOCOL,
+          "pooled_auc": [resc["auc"][2], resp["auc"][2]],
+          "pooled_acc": [resc["acc"][2], resp["acc"][2]], "launches_cuda": launches,
+          "wall_s": [resc["wall_time_s"], resp["wall_time_s"]], "ok": ok})
+    if not ok:
+        raise AssertionError("gat protocol: card vs CPU mismatch")
+    return launches
 
 
 TOL_K4 = 1e-5  # times max(1, max|plain|): both sum the same exact values in f32
@@ -1635,12 +1894,13 @@ def ops_phase(graph, gen):
     emit({"phase": "ops", "checked": list(seconds), "seconds": seconds, "ok": True})
 
 
-def export_phase(model, ctx, batch):
-    """The GBM sage fold's eval forward exported (torch.export), saved,
-    and loaded in a fresh process: its probabilities against the live
-    eval_step on the same batch, its launches per call against the live
-    call's, the artifact's bytes, load and first-call seconds, and the
-    device ms of an exported call against a live one."""
+def export_phase(model, ctx, batch, phase="export", want=None):
+    """A GBM fold's eval forward exported (torch.export), saved, and loaded
+    in a fresh process: its probabilities against the live eval_step on
+    the same batch, its launches per call against the live call's (want:
+    K1 2 / K2 2, sage's, when None), the artifact's bytes, load and
+    first-call seconds, and the device ms of an exported call against a
+    live one."""
     from multilevel_gnn_tpu_torch.train.export import export_program, save_exported
 
     B, n_nodes = batch.x.shape
@@ -1674,9 +1934,10 @@ def export_phase(model, ctx, batch):
     got = np.asarray(child["probs"])
     err = float(np.abs(got - ref).max())
     lim = TOL_EXPORT * max(1.0, float(np.abs(ref).max()))
+    want = want or {k1.KERNEL.name: 2, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
     ok = (got.shape == ref.shape and err <= lim and child["launches"] == live_launches
-          and live_launches[k1.KERNEL.name] == 2 and live_launches[k2.KERNEL.name] == 2)
-    emit({"phase": "export", "n_nodes": n_nodes, "n_edges": ctx.graph.n_edges, "batch": B,
+          and live_launches == want)
+    emit({"phase": phase, "gnn_name": model.cfg.gnn_name, "n_nodes": n_nodes, "n_edges": ctx.graph.n_edges, "batch": B,
           "export_s": export_s, "artifact_bytes": artifact_bytes,
           "n_tensors": meta["n_tensors"],
           "load_s": child["load_s"], "import_torch_s": child["import_torch_s"],
@@ -1691,7 +1952,7 @@ def export_phase(model, ctx, batch):
                                            if "auto_functionalized" in k),
           "ok": ok})
     if not ok:
-        raise AssertionError("export: the exported call differs from the live one")
+        raise AssertionError(f"{phase}: the exported call differs from the live one")
     return child["launches"]
 
 
@@ -2217,11 +2478,22 @@ def main() -> int:
     optim_phase()
     torch.cuda.empty_cache()
 
-    # ---- the max-aggregation convs (MRConv, EdgeConv) on the same fold
+    # ---- the other convs on the same fold: the max aggregations (MRConv,
+    # EdgeConv), then GAT (the Config's default conv), GCN and GIN
     per_step = {"sage": train_per_step}
-    for conv in ("mr", "edge"):
+    for conv in ("mr", "edge", "gat", "gcn", "gin"):
         paths[f"serve_{conv}"], per_step[conv] = conv_paths(
             conv, tcfg, ctx, batch, n_batches)
+    gat = MultilevelGNN(tcfg.replace(gnn_name="gat", final_head=GBM_FINAL_HEAD),
+                        graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0)
+    paths["export_gat"] = export_phase(gat, ctx, batch, "export_gat",
+                                       conv_launches("gat", graph.winplan)[0])
+    del gat
+    torch.cuda.empty_cache()
+    rz = kernel_zoo(graph, cfg.batch_size, cfg.hidden_channels, cfg.final_channels,
+                    GBM_FINAL_HEAD, gen)
+    options_phase(tcfg, ctx, batch)
+    torch.cuda.empty_cache()
 
     # ---- K4 (sorted segment-sum): no path of the package reaches it
     r4 = kernel_k4(graph, cfg.batch_size, cfg.node_embedding_dim, F, gen)
@@ -2256,6 +2528,7 @@ def main() -> int:
         for edge_type in ("ppi", "merge"):
             paths[edge_type] = graph_source_phase(edge_type, root, small)
             torch.cuda.empty_cache()
+        paths["gat_protocol"] = gat_protocol_phase(small)
     warm_phase()
 
     main_k1 = r1[("residual", "bfloat16")]
@@ -2288,6 +2561,10 @@ def main() -> int:
                              r3[(cfg.batch_size * cfg.final_channels, "float32")]] + list(
         dg["r3"].values())
     forms[k1.KERNEL.name] += list(dg["r1"].values())
+    # the forms of gat, gcn and gin on the GBM fold (kernel_zoo)
+    forms[k1.KERNEL.name] += [r for key, r in rz.items() if key[0].startswith(("gat", "gcn_res"))]
+    forms[k2.KERNEL.name] += [r for key, r in rz.items() if key[0] in ("gcn_k2", "gcn_k2_t",
+                                                                      "gin_k2")]
     # launches: the count on the kernel's first serving path (sage for K1
     # and K2, mr for K3); every path's count is in launches_by_path
     first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",

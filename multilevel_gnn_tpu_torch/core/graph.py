@@ -59,6 +59,8 @@ class Graph:
     src_gather: Optional[object] = None
     dst_gather: Optional[object] = None
     in_deg: Optional[torch.Tensor] = None
+    gcn_coef: Optional[torch.Tensor] = None
+    gcn_self: Optional[torch.Tensor] = None
     winplan: Optional[object] = None
 
     @staticmethod
@@ -189,6 +191,13 @@ class Graph:
         src_gather = CSRPlan.build(send[eid], eid, eid, self.n_nodes)
         dst_gather = CSRPlan.build(recv[eid], eid, eid, self.n_nodes)
         deg = np.bincount(recv[mask], minlength=self.n_nodes).astype(np.float32)
+        # GCNConv's symmetric normalisation of A + I (conv.py:335-337), once
+        # per graph: it depends on the topology only
+        dinv = torch.rsqrt(torch.from_numpy(deg) + 1.0)
+        coef = torch.zeros(len(send), dtype=torch.float32)
+        s_real = torch.from_numpy(send[eid]).long()
+        r_real = torch.from_numpy(recv[eid]).long()
+        coef[torch.from_numpy(eid)] = dinv[s_real] * dinv[r_real]
 
         def t(a, dtype):
             return torch.as_tensor(np.array(a), dtype=dtype).to(dev)
@@ -208,6 +217,8 @@ class Graph:
             src_gather=src_gather.to(dev),
             dst_gather=dst_gather.to(dev),
             in_deg=t(deg, torch.float32),
+            gcn_coef=coef.to(dev),
+            gcn_self=(dinv * dinv).to(dev),
             winplan=self.winplan.to(dev) if self.winplan is not None else None,
         )
 

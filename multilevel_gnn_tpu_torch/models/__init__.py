@@ -7,7 +7,12 @@ def get_model(name: str):
     from multilevel_gnn_tpu_torch.models.deepergcn import DeeperGCN
     from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 
-    registry = {"multilevel_gnn": MultilevelGNN, "deepergcn": DeeperGCN}
+    registry = {
+        "multilevel_gnn": MultilevelGNN,
+        # MultilevelGNNSeq: the same model, with the only_mrna_pred head
+        "multilevel_gnn_seq": MultilevelGNN,
+        "deepergcn": DeeperGCN,
+    }
     if name not in registry:
         raise NotImplementedError(f"model {name!r} is not ported (ported: {sorted(registry)})")
     return registry[name]

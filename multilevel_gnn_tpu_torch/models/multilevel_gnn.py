@@ -1,23 +1,26 @@
 """MultilevelGNN, the flagship model, eval and training forward (port of
 multilevel_gnn_tpu/models/multilevel_gnn.py: ConvHead :64-134,
-MultilevelGNN encode / gnn_stack / gather_pca_rows / learnable_pca_image
-:137-321, get_feature_loss :359-404, seed_pca_params :457-470).
+MultilevelGNN encode / gnn_stack / gather_pca_rows / learnable_pca_image /
+runtime_pca_image :137-356, get_feature_loss :359-404, seed_pca_params
+:457-470).
 
-  node embedding outer product -> GNN stack (gnn_name sage, rsage, mr or
-  edge; with edge_type merge, run once over each of the fold's two graphs
-  and concatenated) -> value-attention mask ->
-  gene -> PCA-row gather -> learnable-PCA pathway contraction -> optional
-  pathway reorder -> ConvHead (1x1 convs, MaxPool, flatten, age, MLP,
-  softmax).
+  node embedding outer product -> GNN stack (gnn_name sage, rsage, gcn,
+  gat, gin, mr or edge; resgnn, dense_gnn and repeat_mask between the
+  layers; with edge_type merge, run once over each of the fold's two
+  graphs and concatenated) -> value-attention mask -> gene -> PCA-row
+  gather -> learnable-PCA pathway contraction, or the runtime per-slot
+  PCA (reduction_method pca_svd / pca_lowrank) -> optional pathway
+  reorder -> ConvHead (optional pre-linear, convs, the used_omics columns
+  or only_mrna_pred's first two, MaxPool, flatten, age, MLP, softmax).
 
-The trunk is node-major, (N, B, C), and runs in cfg.compute_dtype; the
-image, head and outputs are float32.  Parameter names follow the flax
-module paths (gnn_0.gconv.lin_r, conv_head.Conv_0, ...) so interop.py maps
-one onto the other.  In ``model.train()`` the dropouts the shipped configs
-reach (input_drop, input_emb_drop, the SAGE MLP's gnn_dropout, the head's
-feature_drop and head_drop_rate) draw their masks from the generator
-passed to forward; mr and edge take no gnn_dropout, as in JAX.  Branches
-outside the ported paths raise NotImplementedError.
+The trunk is node-major, (N, B, C), and runs in cfg.compute_dtype (GAT in
+float32, as in JAX); the image, head and outputs are float32.  Parameter
+names follow the flax module paths (gnn_0.gconv.lin_r, conv_head.Conv_0,
+...) so interop.py maps one onto the other.  In ``model.train()`` the
+dropouts (input_drop, input_emb_drop, the SAGE MLP's gnn_dropout, the
+head's feature_drop and head_drop_rate) draw their masks from the
+generator passed to forward; only sage / rsage take gnn_dropout, as in
+JAX.
 """
 from __future__ import annotations
 
@@ -33,34 +36,12 @@ from multilevel_gnn_tpu_torch.core.device import resolve_device
 from multilevel_gnn_tpu_torch.nn.basic import Dropout, Linear, uniform_, xavier_bound
 from multilevel_gnn_tpu_torch.nn.conv import GraphConvLayer
 from multilevel_gnn_tpu_torch.ops.pathway import pathway_contract, slot_onehot, slots_to_image
+from multilevel_gnn_tpu_torch.ops.pca import pca_lowrank, pca_svd
 from multilevel_gnn_tpu_torch.ops.spmm import gather_rows
 
 
 def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.compute_dtype in ("bfloat16", "bf16") else None
-
-
-def _check_supported(cfg: Config) -> None:
-    unported = {
-        "resgnn": cfg.resgnn,
-        "dense_gnn": cfg.dense_gnn,
-        "repeat_mask": cfg.repeat_mask,
-        "pca_prelinear": cfg.pca_prelinear,
-        "only_mrna_pred": cfg.only_mrna_pred,
-        "used_omics!='012'": cfg.used_omics != "012",
-        "reduction_method!='linear_projection'":
-            cfg.reduction_method != "linear_projection",
-        # mr and edge ignore gnn_mlp_norm, as GraphConvLayer does in JAX;
-        # they take a string gnn_last_norm as their MLP's norm instead
-        "gnn_mlp_norm": str(cfg.gnn_mlp_norm).lower() != "none"
-        and cfg.gnn_name.lower() in ("sage", "rsage"),
-        "gnn_last_norm (an MLP norm)": isinstance(cfg.gnn_last_norm, str)
-        and cfg.gnn_last_norm.lower() != "none"
-        and cfg.gnn_name.lower() in ("mr", "edge"),
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"MultilevelGNN options not ported yet: {bad}")
 
 
 class _Conv2d(torch.autograd.Function):
@@ -90,15 +71,33 @@ class _Conv2d(torch.autograd.Function):
         return dx, dw, db, None
 
 
+def _omics_columns(cfg: Config) -> Optional[list]:
+    """The image columns of cfg.used_omics (each omics' pca_dim columns),
+    or None when all three are used (multilevel_gnn.py:104-109)."""
+    if len(cfg.used_omics) == 3:
+        return None
+    return [c for i in cfg.used_omics
+            for c in range(int(i) * cfg.pca_dim, (int(i) + 1) * cfg.pca_dim)]
+
+
 class ConvHead(nn.Module):
-    """PathCNN-style head on the (B, C, P, 3K) NCHW image: conv stack,
-    MaxPool (window = stride = (pathway_pool_dim, pca_pool_dim), floor),
-    feature dropout, NCHW flatten, age concat, MLP, softmax."""
+    """PathCNN-style head on the (B, C, P, 3K) NCHW image: optional
+    pre-linear over the 3K axis (pre_0..pre_2, pca_prelinear), conv stack,
+    then either only_mrna_pred's first two columns (no feature dropout) or
+    the used_omics columns, MaxPool (window = stride = (pathway_pool_dim,
+    pca_pool_dim), floor), feature dropout, NCHW flatten, age concat, MLP,
+    softmax.  head_0's width follows from those shapes, as flax infers
+    it."""
 
     def __init__(self, cfg: Config, in_channels: int, generator=None):
         super().__init__()
         self.cfg = cfg
-        ch = in_channels
+        width = 3 * cfg.pca_dim
+        if cfg.pca_prelinear:
+            self.pre_0 = Linear(width, 32, kernel_init="xavier", generator=generator)
+            self.pre_1 = Linear(32, 32, kernel_init="xavier", generator=generator)
+            self.pre_2 = Linear(32, width, kernel_init="xavier", generator=generator)
+        ch, h = in_channels, cfg.pathway_num
         self.n_conv = len(cfg.conv_channel_list)
         for i, (out_ch, k) in enumerate(
             zip(cfg.conv_channel_list, cfg.conv_kernel_list)
@@ -108,10 +107,16 @@ class ConvHead(nn.Module):
             nn.init.zeros_(conv.bias)
             self.add_module(f"Conv_{i}", conv)
             ch = out_ch
-        h = cfg.pathway_num // cfg.pathway_pool_dim
-        w = (3 * cfg.pca_dim) // cfg.pca_pool_dim
-        flat = ch * h * w + (1 if cfg.use_age else 0)
-        self.feature_drop = Dropout(0.25 if cfg.feature_drop else 0.0)
+            h, width = h + 2 * (k // 2) - k + 1, width + 2 * (k // 2) - k + 1
+        self.cols = None if cfg.only_mrna_pred else _omics_columns(cfg)
+        if cfg.only_mrna_pred:
+            width = min(width, 2)
+        elif self.cols is not None:
+            width = len(self.cols)
+        flat = ch * (h // cfg.pathway_pool_dim) * (width // cfg.pca_pool_dim)
+        flat += 1 if cfg.use_age else 0
+        self.feature_drop = Dropout(
+            0.25 if cfg.feature_drop and not cfg.only_mrna_pred else 0.0)
         self.head_0 = Linear(flat, cfg.head_dim, kernel_init="xavier", generator=generator)
         self.head_drop = Dropout(cfg.head_drop_rate)
         self.head_1 = Linear(cfg.head_dim, 2, kernel_init="xavier", generator=generator)
@@ -121,10 +126,17 @@ class ConvHead(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.pca_prelinear:
+            z = F.relu(self.pre_1(F.relu(self.pre_0(x))))
+            x = self.pre_2(z)
         h = x
         for i in range(self.n_conv):
             conv = getattr(self, f"Conv_{i}")
             h = F.relu(_Conv2d.apply(h, conv.weight, conv.bias, conv.padding[0]))
+        if cfg.only_mrna_pred:
+            h = h[..., :2]
+        elif self.cols is not None:
+            h = h[..., self.cols]
         h = F.max_pool2d(
             h,
             kernel_size=(cfg.pathway_pool_dim, cfg.pca_pool_dim),
@@ -156,7 +168,6 @@ class MultilevelGNN(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        _check_supported(cfg)
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
@@ -179,26 +190,39 @@ class MultilevelGNN(nn.Module):
             + [(cfg.hidden_channels, cfg.final_channels)]
         )
         self.n_layers = len(dims)
-        for i, (cin, cout) in enumerate(dims):
+        width, widths = emb_dim, []
+        for i, (_, cout) in enumerate(dims):
             last = i == self.n_layers - 1
-            self.add_module(
-                f"gnn_{i}",
-                GraphConvLayer(
-                    cin, cout, conv=cfg.gnn_name, act_type=cfg.gnn_act,
-                    norm=cfg.gnn_last_norm if last else None,
-                    mlp_norm=cfg.gnn_mlp_norm, drop=cfg.gnn_dropout,
-                    dtype=cdt, spmm_dtype=spmm_dtype, generator=generator,
-                ),
+            # flax infers each layer's input width; a GAT layer returns
+            # (out // heads) * heads of them
+            layer = GraphConvLayer(
+                width, cout, conv=cfg.gnn_name, act_type=cfg.gnn_act,
+                norm=cfg.gnn_last_norm if last else None,
+                heads=cfg.final_head if last else 8,
+                mlp_norm=cfg.gnn_mlp_norm, drop=cfg.gnn_dropout,
+                dtype=cdt, spmm_dtype=spmm_dtype, generator=generator,
             )
-        self.learnable_pca_params = nn.Parameter(
-            torch.empty(num_pca_rows, cfg.pca_dim)
-        )
-        self._init_pca(generator)
+            self.add_module(f"gnn_{i}", layer)
+            width = layer.out_width
+            widths.append(width)
+        if cfg.reduction_method == "linear_projection":
+            self.learnable_pca_params = nn.Parameter(
+                torch.empty(num_pca_rows, cfg.pca_dim)
+            )
+            self._init_pca(generator)
+        else:
+            self.register_parameter("learnable_pca_params", None)
+            if cfg.slot_sizes is None:
+                raise ValueError("runtime PCA reduction needs cfg.slot_sizes "
+                                 "(set it from Cohort.slot_sizes())")
         self.input_drop = Dropout(cfg.input_drop)
         self.input_emb_drop = Dropout(cfg.input_emb_drop)
         # merge concatenates the two graphs' features (the reference doubles
-        # final_channels for the head only; flax's head infers it)
-        head_in = cfg.final_channels * (2 if cfg.edge_type == "merge" else 1)
+        # final_channels for the head only), dense_gnn every layer's
+        if cfg.edge_type == "merge":
+            head_in = 2 * widths[-1]
+        else:
+            head_in = sum(widths) if cfg.dense_gnn else widths[-1]
         self.conv_head = ConvHead(cfg, head_in, generator)
         self.to(dev)
 
@@ -239,24 +263,46 @@ class MultilevelGNN(nn.Module):
         cfg = self.cfg
         cdt = compute_dtype(cfg)
         edge_attr = ctx.graph.edge_attr if cfg.weighted_edge else None
-        # x stays f32 here: each conv casts it to cdt where it uses it
+        # x stays f32 here: each conv casts it to cdt where it uses it.  GAT
+        # promotes its input to f32, so it gets JAX's cast of the trunk
+        # input to cdt first (multilevel_gnn.py:170)
         if cdt is not None:
             mask_x = mask_x.to(cdt)
+            if cfg.gnn_name.lower() == "gat":
+                x = x.to(cdt)
+        layers = [getattr(self, f"gnn_{i}") for i in range(self.n_layers)]
         if cfg.edge_type == "merge":
             if ctx.graph2 is None:
                 raise ValueError("edge_type 'merge' needs the fold's graph2")
             # multilevel_gnn.py:197-218: the same stack (shared weights) once
-            # per graph, unweighted, the features concatenated
+            # per graph, unweighted, the features concatenated, no
+            # resgnn / dense_gnn / repeat_mask
             feats = []
             for g in (ctx.graph, ctx.graph2):
                 h = x
-                for i in range(self.n_layers):
-                    h = getattr(self, f"gnn_{i}")(h, g, None, generator)
+                for layer in layers:
+                    h = layer(h, g, None, generator)
                 feats.append(h)
             x = torch.cat(feats, dim=-1)
         else:
-            for i in range(self.n_layers):
-                x = getattr(self, f"gnn_{i}")(x, ctx.graph, edge_attr, generator)
+            feats = []
+            for i, layer in enumerate(layers):
+                h = layer(x, ctx.graph, edge_attr, generator)
+                if cfg.dense_gnn:
+                    feats.append(h)
+                elif cfg.resgnn:
+                    # JAX adds the trunk input in cdt
+                    h = h + (x.to(cdt) if i == 0 and cdt is not None else x)
+                x = h
+                if (i + 1 != self.n_layers and cfg.repeat_mask
+                        and (i + 1) % cfg.repeat_cyclic == 0):
+                    if cfg.repeat_norm:
+                        # the norm's statistics in f32, the division in x's dtype
+                        n2 = torch.sqrt((x.float() ** 2).sum(-1))[..., None]
+                        x = x / n2.to(x.dtype)
+                    x = x * mask_x[..., None]
+            if cfg.dense_gnn:
+                x = torch.cat(feats, dim=-1)
         if cfg.value_att_mask:
             if cfg.merge_mode == "mult":
                 x = x * mask_x[..., None]
@@ -302,8 +348,35 @@ class MultilevelGNN(nn.Module):
         h = self.input_emb_drop(h, generator)
         h = self.gnn_stack(h, mask_x, ctx, generator)
         xg = self.gather_pca_rows(h, ctx)
-        image = self.learnable_pca_image(xg, ctx)
+        if cfg.reduction_method == "linear_projection":
+            image = self.learnable_pca_image(xg, ctx)
+        else:
+            image = self.runtime_pca_image(xg)
         return image.float()
+
+    def runtime_pca_image(self, xg):
+        """The per-slot PCA reduction of the gathered rows (G, B, C) into
+        the (B, C, P, 3K) image (multilevel_gnn.py:323-356): each slot's
+        (C, B, n_s) block projected onto its top min(K, n_s) directions
+        (pca_lowrank, or pca_svd uncentred, for any other method), padded
+        to K; slot extents from cfg.slot_sizes.  A Python loop over the
+        3P slots, as in JAX."""
+        cfg = self.cfg
+        x = xg.permute(2, 1, 0)  # (C, B, G), the reference's permute
+        outs, start = [], 0
+        for ns in cfg.slot_sizes:
+            sl = x[:, :, start:start + ns]
+            start += ns
+            k = min(cfg.pca_dim, ns)
+            if ns == 0:
+                red = x.new_zeros(x.shape[:2] + (0,))
+            elif cfg.reduction_method == "pca_lowrank":
+                red = pca_lowrank(sl, k, niter=cfg.pca_lowrank_niter)
+            else:
+                red = pca_svd(sl, k, center=False)
+            outs.append(F.pad(red, (0, cfg.pca_dim - k)))
+        out = torch.stack(outs).permute(2, 1, 0, 3)  # (B, C, S, K)
+        return out.reshape(out.shape[0], out.shape[1], cfg.pathway_num, 3 * cfg.pca_dim)
 
 
 def get_feature_loss(
@@ -352,6 +425,8 @@ def seed_pca_params(model: MultilevelGNN, pca_seed: torch.Tensor) -> None:
     """Replace the learnable PCA params with the PCA-seeded value in place
     (multilevel_gnn.py:457-470, reference set_pca_params)."""
     p = model.learnable_pca_params
+    if p is None:  # a runtime PCA reduction has no PCA params
+        return
     if tuple(p.shape) != tuple(pca_seed.shape):
         raise ValueError(f"pca_seed {tuple(pca_seed.shape)} vs params {tuple(p.shape)}")
     p.copy_(pca_seed.to(p.device, p.dtype))

@@ -225,7 +225,10 @@ class MLP(nn.Module):
     """reference MLP (basic.py:197): channels [in, h1, ..., out]; after each
     Linear except the last one when last_lin: norm -> act -> dropout.
     Layers are named Linear_0, Linear_1, ... and norms Norm_0, Norm_1, ...
-    like the flax submodules."""
+    like the flax submodules.  act_type 'prelu' learns one slope per
+    activated layer, prelu_1, prelu_2, ... (initialised to 0.2; flax's
+    param names), and where(x >= 0, x, slope * x) with the float32 slope
+    gives a float32 result, as JAX promotes a bf16 x (basic.py:228-232)."""
 
     def __init__(
         self,
@@ -239,9 +242,8 @@ class MLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if act_type is not None and act_type.lower() == "prelu":
-            raise NotImplementedError("MLP prelu is not ported yet")
         self.act_type = act_type
+        self.prelu = act_type is not None and act_type.lower() == "prelu"
         self.n = len(channels)
         self.last_lin = last_lin
         norm = norm_type is not None and str(norm_type).lower() != "none"
@@ -253,8 +255,12 @@ class MLP(nn.Module):
                     generator=generator,
                 ),
             )
-            if norm and not (i == self.n - 1 and last_lin):
+            if i == self.n - 1 and last_lin:
+                continue
+            if norm:
                 self.add_module(f"Norm_{i - 1}", Norm(norm_type, channels[i], dtype))
+            if self.prelu:
+                self.register_parameter(f"prelu_{i}", nn.Parameter(torch.full((1,), 0.2)))
         self.drop = Dropout(drop)
 
     def forward(
@@ -267,6 +273,10 @@ class MLP(nn.Module):
             norm = getattr(self, f"Norm_{i - 1}", None)
             if norm is not None:
                 x = norm(x)
-            x = act(x, self.act_type)
+            if self.prelu:
+                slope = getattr(self, f"prelu_{i}")
+                x = torch.where(x >= 0, x, slope * x)
+            else:
+                x = act(x, self.act_type)
             x = self.drop(x, generator)
         return x

@@ -1,7 +1,8 @@
 """The graph convolutions of the port (port of multilevel_gnn_tpu/nn/conv.py:
 MsgNorm :39-54, GenAggregate :57-142, GENConv :145-213, RSAGEConv
-:255-313, MRConv :444-475, EdgeConv :478-510, and the sage, rsage, mr and
-edge branches of GraphConvLayer :526-595).
+:255-313, GCNConv :316-350, GATConv :353-414 (its pallas branch),
+GINConv :417-441, MRConv :444-475, EdgeConv :478-510, and GraphConvLayer
+:526-595).
 
 x is node-major, (N, B, C).  SAGE: the per-edge transform is commuted past
 the (linear) mean aggregation: aggr = lin_r(segment_mean(x_j * attr)), one
@@ -10,7 +11,11 @@ in-edges (K3), of x_j - x_i and of MLP(cat(x_i, x_j - x_i)).  The graph is
 self-looped (PyG add_self_loops, fill 1.0).  GENConv's messages
 relu(x_j + e) + eps go through GenAggregate: the max through K3, the sums
 (sum, mean, softmax, power) through edge_segment_sum (K1), as on the JAX
-package's pallas backend.
+package's pallas backend.  GCN and GIN sum their neighbours with the SpMM
+(K2 + the K1 residual on a windowed graph, K1 otherwise), GCN with the
+graph's precomputed normalisation as edge weights; GAT gathers its
+per-head logits and messages to the edges and sums them with
+edge_segment_sum (K1), in float32.
 """
 from __future__ import annotations
 
@@ -20,7 +25,16 @@ import torch
 from torch import nn
 
 from multilevel_gnn_tpu_torch.core.graph import Graph
-from multilevel_gnn_tpu_torch.nn.basic import MLP, Linear, in_dtype
+from multilevel_gnn_tpu_torch.nn.basic import (
+    MLP,
+    Linear,
+    Norm,
+    act,
+    in_dtype,
+    leaky_relu,
+    uniform_,
+    xavier_bound,
+)
 from multilevel_gnn_tpu_torch.ops import spmm
 
 SOFTMAX_AGGRS = ("softmax", "softmax_sg", "softmax_sum")
@@ -261,6 +275,127 @@ class RSAGEConv(nn.Module):
         return out
 
 
+class GCNConv(nn.Module):
+    """Kipf-Welling GCN over A + I with symmetric normalisation:
+    lin(x) summed over the in-edges with weights dinv[s] * dinv[r]
+    (graph.gcn_coef), plus lin(x) * dinv ** 2 (graph.gcn_self), plus bias,
+    act, then Norm when norm_type.  As in JAX, the graph the model hands it
+    is self-looped, so a node's own row enters twice (ROADMAP section 3).
+    Under a bf16 compute dtype the product and the SpMM's sum are bf16 and
+    the float32 bias promotes the rest to float32 (conv.py:331-349)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        act_type: Optional[str] = "relu",
+        norm_type: Optional[str] = None,
+        use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
+        spmm_dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.act_type, self.spmm_dtype = act_type, spmm_dtype
+        self.lin = Linear(in_channels, out_channels, use_bias=False, kernel_init="xavier",
+                          dtype=dtype, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
+        self.Norm_0 = Norm(norm_type, out_channels) if norm_type else None
+
+    def forward(self, x, graph: Graph, edge_attr=None, generator=None):
+        xw = self.lin(x)
+        agg = spmm.spmm_sum(xw, graph, edge_weight=graph.gcn_coef,
+                            dtype=self.spmm_dtype).to(xw.dtype)
+        dinv2 = graph.gcn_self.reshape((-1,) + (1,) * (xw.dim() - 1))
+        agg = agg + xw * dinv2.to(xw.dtype)
+        if self.bias is not None:
+            agg = agg + self.bias
+        out = act(agg, self.act_type)
+        return self.Norm_0(out) if self.Norm_0 is not None else out
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention (PyG GATConv semantics) in float32, as
+    JAX keeps it (flax's Dense promotes a bf16 x): xw = lin(x) per head,
+    edge logits leaky_relu(a_src[s] + a_dst[r]) softmaxed over each
+    receiver's in-edges (segment_softmax_weights, the column-max shift of
+    JAX's pallas branch), messages xw[s] * alpha summed per receiver
+    (edge_segment_sum, K1), then bias, act, Norm.  The node -> edge
+    gathers take K1 as their backward, as JAX's gather_rows does."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_per_head: int,
+        heads: int = 8,
+        act_type: Optional[str] = "relu",
+        norm_type: Optional[str] = None,
+        use_bias: bool = True,
+        negative_slope: float = 0.2,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        H, D = heads, out_per_head
+        self.heads, self.out_per_head = H, D
+        self.act_type, self.negative_slope = act_type, negative_slope
+        self.lin = Linear(in_channels, H * D, use_bias=False, kernel_init="xavier",
+                          generator=generator)
+        # flax's glorot_uniform on (1, H, D): fan_in H, fan_out D
+        self.att_src = nn.Parameter(torch.empty(1, H, D))
+        self.att_dst = nn.Parameter(torch.empty(1, H, D))
+        for p in (self.att_src, self.att_dst):
+            uniform_(p, xavier_bound(H, D), generator)
+        self.bias = nn.Parameter(torch.zeros(H * D)) if use_bias else None
+        self.Norm_0 = Norm(norm_type, H * D) if norm_type else None
+
+    def forward(self, x, graph: Graph, edge_attr=None, generator=None):
+        H, D = self.heads, self.out_per_head
+        xw = self.lin(x.float())  # (N, B, H*D)
+        xh = xw.reshape(xw.shape[:-1] + (H, D))
+        a_src = (xh * self.att_src).sum(-1)  # (N, B, H)
+        a_dst = (xh * self.att_dst).sum(-1)
+        alpha = spmm.gather_src(a_src, graph) + spmm.gather_dst(a_dst, graph)
+        alpha = leaky_relu(alpha, self.negative_slope)
+        alpha = spmm.segment_softmax_weights(alpha, graph)  # (E, B, H)
+        msg = spmm.gather_src(xw, graph)
+        msg = (msg.reshape(msg.shape[:-1] + (H, D)) * alpha[..., None]).reshape(msg.shape)
+        out = spmm.edge_segment_sum(msg, graph)
+        if self.bias is not None:
+            out = out + self.bias
+        out = act(out, self.act_type)
+        return self.Norm_0(out) if self.Norm_0 is not None else out
+
+
+class GINConv(nn.Module):
+    """GIN: MLP((1 + eps) x + sum_j x_j), the unweighted sum through the
+    SpMM, in the compute dtype ((1 + eps) is a weak Python float, so a
+    bf16 x stays bf16, conv.py:437-438)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        act_type: str = "relu",
+        norm_type: Optional[str] = None,
+        use_bias: bool = True,
+        eps: float = 0.0,
+        dtype: Optional[torch.dtype] = None,
+        spmm_dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.eps, self.dtype, self.spmm_dtype = eps, dtype, spmm_dtype
+        self.nn = MLP([in_channels, out_channels], act_type=act_type, norm_type=norm_type,
+                      use_bias=use_bias, dtype=dtype, generator=generator)
+
+    def forward(self, x, graph: Graph, edge_attr=None, generator=None):
+        # each use of an f32 x casts it on its own, as in RSAGEConv.forward
+        dt = x.dtype if self.dtype is None else self.dtype
+        agg = spmm.spmm_sum(x.to(dt), graph, dtype=self.spmm_dtype).to(dt)
+        h = x.to(dt) * in_dtype(1.0 + self.eps, dt) + agg
+        return self.nn(h, generator)
+
+
 def _node_rows(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """x in the compute dtype with whole node rows contiguous: the edge
     gathers copy node rows, and index_select takes its vectorized kernel
@@ -325,9 +460,12 @@ class EdgeConv(_MaxConv):
 
 
 class GraphConvLayer(nn.Module):
-    """Static graph conv dispatcher; the port has the sage, rsage, mr and
-    edge convs.  As in JAX, mr and edge take no dropout and no mlp_norm;
-    their MLP norm is ``norm`` when that is a string (conv.py:584-595)."""
+    """Static graph conv dispatcher (conv.py:526-595) for sage, rsage, gcn,
+    gat, gin, mr and edge.  As in JAX: only sage / rsage take dropout and
+    mlp_norm and read ``norm`` as the L2-normalise flag; the others take
+    ``norm`` as their Norm (gcn, gat) or MLP norm (gin, mr, edge) when it
+    is a string; GAT splits out_channels over ``heads`` (out_channels //
+    heads each) and runs in float32.  out_width is the width it returns."""
 
     def __init__(
         self,
@@ -337,6 +475,7 @@ class GraphConvLayer(nn.Module):
         act_type: str = "relu",
         norm: Optional[object] = None,
         use_bias: bool = True,
+        heads: int = 8,
         mlp_norm: Optional[str] = None,
         drop: float = 0.0,
         dtype: Optional[torch.dtype] = None,
@@ -345,20 +484,29 @@ class GraphConvLayer(nn.Module):
     ):
         super().__init__()
         c = conv.lower()
+        norm_str = norm if isinstance(norm, str) else None
+        self.out_width = out_channels
         if c in ("sage", "rsage"):
             self.gconv = RSAGEConv(
                 in_channels, out_channels, act_type, bool(norm), mlp_norm,
                 use_bias, c == "rsage", drop, dtype, spmm_dtype, generator,
             )
+        elif c == "gcn":
+            self.gconv = GCNConv(in_channels, out_channels, act_type, norm_str, use_bias,
+                                 dtype, spmm_dtype, generator)
+        elif c == "gat":
+            self.gconv = GATConv(in_channels, out_channels // heads, heads, act_type,
+                                 norm_str, use_bias, generator=generator)
+            self.out_width = (out_channels // heads) * heads
+        elif c == "gin":
+            self.gconv = GINConv(in_channels, out_channels, act_type, norm_str, use_bias,
+                                 dtype=dtype, spmm_dtype=spmm_dtype, generator=generator)
         elif c in ("mr", "edge"):
             cls = MRConv if c == "mr" else EdgeConv
-            self.gconv = cls(
-                in_channels, out_channels, act_type,
-                norm if isinstance(norm, str) else None, use_bias, dtype,
-                generator,
-            )
+            self.gconv = cls(in_channels, out_channels, act_type, norm_str, use_bias, dtype,
+                             generator)
         else:
-            raise NotImplementedError(f"conv {conv} is not ported yet")
+            raise NotImplementedError(f"conv {conv} is not implemented")
 
     def forward(self, x, graph, edge_attr=None, generator=None):
         return self.gconv(x, graph, edge_attr, generator)

@@ -33,6 +33,7 @@ from torch import nn
 
 from multilevel_gnn_tpu_torch.artifact import load_exported, save_exported
 from multilevel_gnn_tpu_torch.core.batch import Batch
+from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 
 __all__ = ["export_fold", "export_program", "save_exported", "load_exported", "main"]
 
@@ -84,7 +85,7 @@ def export_program(model: nn.Module, ctx, batch_size: int, n_nodes: int):
     size, traced under torch.no_grad(); the model is put in eval mode and
     its parameters frozen (requires_grad False).  Only MultilevelGNN is
     exported (DeeperGCN's export is not ported yet)."""
-    if model.cfg.model != "multilevel_gnn":
+    if not isinstance(model, MultilevelGNN):
         raise NotImplementedError(f"export of model {model.cfg.model!r} is not ported")
     model.eval()
     for p in model.parameters():

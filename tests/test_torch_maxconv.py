@@ -12,7 +12,8 @@ port through interop.load_flax_params.
   (dropout off) from the same flax params, as
   test_torch_train.py::test_five_train_steps_f32_match_jax holds them.
 - mr and edge ignore gnn_mlp_norm and gnn_dropout, as JAX's GraphConvLayer
-  does; the convs that are not ported yet raise.
+  does, and take a string gnn_last_norm as the last MLP's norm; gen raises
+  in GraphConvLayer, as in JAX (gat, gcn and gin: test_torch_convzoo*.py).
 
 Tolerances:
   f32:  max|port - jax| <= 1e-5 * max(1, max|jax|) (layers; the model's
@@ -183,11 +184,14 @@ def test_mr_edge_ignore_mlp_norm_and_dropout(conv):
     for i in range(model.n_layers):
         mlp = getattr(model, f"gnn_{i}").gconv.nn
         assert mlp.drop.rate == 0.0
-    with pytest.raises(NotImplementedError):  # a string norm is the MLP norm
-        MultilevelGNN(cfg.replace(gnn_last_norm="batch"), 3 * N_GENES, G, device="cpu")
+    # a string gnn_last_norm is the last layer's MLP norm (its parity with
+    # JAX: test_torch_options_head.py)
+    model = MultilevelGNN(cfg.replace(gnn_last_norm="batch"), 3 * N_GENES, G, device="cpu")
+    assert model.gnn_1.gconv.nn.Norm_0.kind == "batch"
+    assert not hasattr(model.gnn_0.gconv.nn, "Norm_0")
 
 
-@pytest.mark.parametrize("conv", ["gat", "gcn", "gin", "gen"])
+@pytest.mark.parametrize("conv", ["gen"])
 def test_unported_convs_raise(conv):
     with pytest.raises(NotImplementedError):
         MultilevelGNN(Config.from_dict(_cfg_dict(gnn_name=conv)), 3 * N_GENES, G,

@@ -65,6 +65,11 @@ def _cfg_dict(**kw):
 
 @pytest.fixture(scope="module")
 def fold():
+    return make_fold()
+
+
+def make_fold():
+    """The small windowed fold on both sides (see the module docstring)."""
     rng = np.random.RandomState(0)
     send, recv, n = make_cohort_topology(
         rng, n_genes=N_GENES, e_ppi=1200, community=20
@@ -159,20 +164,6 @@ def test_slice_f32_matches_jax(runs, name):
     assert r["pp"].shape == (3, B, 2) and np.isfinite(r["pp"]).all()
     np.testing.assert_allclose(r["pp"], r["jp"], rtol=0, atol=1e-5)
     np.testing.assert_allclose(r["pl"], r["jl"], rtol=0, atol=1e-5)
-
-
-@pytest.mark.parametrize("option", [
-    dict(resgnn=True), dict(dense_gnn=True), dict(repeat_mask=True),
-    # option3 was edge_type merge until it was ported (test_torch_merge.py)
-    dict(gnn_name="gin"), dict(pca_prelinear=True),
-    dict(model="multilevel_gnn_seq", only_mrna_pred=True),
-    dict(used_omics="01"), dict(reduction_method="pca_svd"),
-    dict(gnn_mlp_norm="batch"), dict(gnn_name="gat"),
-])
-def test_unported_branches_raise(option):
-    cfg = Config.from_dict(_cfg_dict(**option))
-    with pytest.raises(NotImplementedError):
-        MultilevelGNN(cfg, 3 * N_GENES, G, device="cpu")
 
 
 def test_slice_evaluate_auc_acc_equal(runs):
