@@ -844,31 +844,37 @@ def grads_of(model, batch, ctx, cw, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     loss, _ = make_loss_fn(model.cfg)(model, batch, ctx, cw, gen)
     loss.backward()
-    return float(loss.detach()), {n: p.grad.detach().clone()
-                         for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return float(loss.detach()), grads, {n for n, _ in model.named_parameters()} - set(grads)
 
 
-def train_grad_checks(models, ctx, batch, cw, phase="train_grad", tol=TOL_GRAD):
+def train_grad_checks(models, ctx, batch, cw, phase="train_grad", tol=TOL_GRAD,
+                      no_grad=frozenset()):
     """One step's gradients with kernels against the same step with plain
     versions (forward and backward), same params, same dropout masks.
-    models: (trunk name, model) pairs."""
+    models: (trunk name, model) pairs.  no_grad: the parameters the loss
+    does not reach; on both sides exactly these have no gradient."""
     for name, m in models:
-        lk, gk = grads_of(m, batch, ctx, cw, seed=5)
+        lk, gk, nk = grads_of(m, batch, ctx, cw, seed=5)
         with spmm.plain_versions():
-            lp, gp = grads_of(m, batch, ctx, cw, seed=5)
+            lp, gp, np_ = grads_of(m, batch, ctx, cw, seed=5)
         torch.cuda.synchronize()
         rel = {}
-        for n in gk:
+        for n in gk.keys() & gp.keys():
             gmax = float(gp[n].abs().max())
             rel[n] = float((gk[n] - gp[n]).abs().max()) / max(gmax, 1e-30)
         worst = max(rel.values())
         finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
-        ok = finite and worst <= tol[name]
+        same_keys = nk == np_ == set(no_grad)
+        ok = finite and same_keys and worst <= tol[name]
         emit({"phase": phase, "trunk": name, "loss": lk,
               "loss_plain": lp, "max_rel_err": worst, "tol": tol[name],
-              "rel_err_by_param": rel, "finite": finite, "ok": ok})
+              "rel_err_by_param": rel, "no_grad": sorted(nk), "no_grad_plain": sorted(np_),
+              "no_grad_expected": sorted(no_grad), "finite": finite, "ok": ok})
         if not ok:
-            raise AssertionError(f"{phase} {name}: kernels vs plain {worst}")
+            raise AssertionError(f"{phase} {name}: kernels vs plain {worst}, "
+                                 f"without a gradient {sorted(nk)} / {sorted(np_)}")
         m.zero_grad(set_to_none=True)
 
 
@@ -926,46 +932,63 @@ def train_phase(cfg, ctx, model_seed_state):
                 model=model, cw=torch.as_tensor(cw, dtype=torch.float32, device="cuda"))
 
 
+def timed_steps(step, n):
+    """(CUDA-event ms of each of n calls of step(), launches per call)."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    zero_launches()
+    events = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events], {k: v / n for k, v in launch_counts().items()}
+
+
+def profiled(step, n=3):
+    """(device ms of kernels per call, kernels per call, kernel_rows) of n
+    calls of step() under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, n)
+    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+
+def top_rows(rows, n):
+    return [{"name": nm, "ms": t, "calls": c} for nm, t, c in rows[:n]]
+
+
 def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3,
                   phase="profile_train"):
     """One batch and one optimizer: n_timed train steps timed with CUDA
     events and their kernel launches counted (per step), then n_prof steps
     under the profiler for device time by kernel.  The gap share is the
     part of the median timed step with no kernel running."""
-    from torch.profiler import ProfilerActivity, profile
-
     opt = make_optimizer(model, model.cfg, 6)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    for _ in range(2):
+
+    def step():
         train_step(model, opt, batch, ctx, cw, gen)
-    torch.cuda.synchronize()
-    zero_launches()
-    events = []
-    for _ in range(n_timed):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        train_step(model, opt, batch, ctx, cw, gen)
-        b.record()
-        events.append((a, b))
-    torch.cuda.synchronize()
-    ms = [a.elapsed_time(b) for a, b in events]
-    per_step = {k: v / n_timed for k, v in launch_counts().items()}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            train_step(model, opt, batch, ctx, cw, gen)
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof, n_prof)
-    busy = sum(r[1] for r in rows)
+
+    ms, per_step = timed_steps(step, n_timed)
+    busy, n_kernels, rows = profiled(step, n_prof)
     step_ms = float(np.median(ms))
     ok = per_step == want_per_step
     emit({"phase": phase, "kernel_ms_per_step": busy,
-          "kernels_per_step": sum(r[2] for r in rows),
+          "kernels_per_step": n_kernels,
           "step_ms": ms, "step_ms_median": step_ms,
           "gap_share": 1 - busy / step_ms,
           "port_kernel_ms_per_step": port_kernel_ms(rows),
           "launches_per_step": per_step, "launches_per_step_expected": want_per_step,
-          "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:16]],
-          "ok": ok})
+          "top": top_rows(rows, 16), "ok": ok})
     if not ok:
         raise AssertionError(f"{phase}: launches per step {per_step}, want {want_per_step}")
     return per_step, busy
@@ -975,8 +998,6 @@ def profile_eval(model, ctx, batch, phase, n_timed=10, n_prof=3):
     """Device time by kernel over n_prof eval steps of one full batch, and
     the share of the median CUDA-event-timed eval step (n_timed of them)
     with no kernel running."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(2):
         eval_step(model, batch, ctx)
     torch.cuda.synchronize()
@@ -989,17 +1010,12 @@ def profile_eval(model, ctx, batch, phase, n_timed=10, n_prof=3):
         events.append((a, b))
     torch.cuda.synchronize()
     step_ms = float(np.median([a.elapsed_time(b) for a, b in events]))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            eval_step(model, batch, ctx)
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof, n_prof)
-    busy = sum(r[1] for r in rows)
+    busy, n_kernels, rows = profiled(lambda: eval_step(model, batch, ctx), n_prof)
     emit({"phase": phase, "kernel_ms_per_batch": busy,
-          "kernels_per_batch": sum(r[2] for r in rows),
+          "kernels_per_batch": n_kernels,
           "port_kernel_ms_per_batch": port_kernel_ms(rows),
           "eval_step_ms_median": step_ms, "gap_share": 1 - busy / step_ms,
-          "top": [{"name": n, "ms": t, "calls": c} for n, t, c in rows[:14]]})
+          "top": top_rows(rows, 14)})
     return busy
 
 
@@ -1027,21 +1043,10 @@ def serve_conv(conv, model, ctx, n_batches):
     """One conv's serving path: predict_patients over N_PATIENTS, counted,
     launches as conv_launches says a batch."""
     X, Y, ages = patients(ctx.graph.n_nodes)
-    idx = np.arange(N_PATIENTS)
-    predict_patients(model, ctx, X, Y, ages, idx)  # warm-up, not counted
-    torch.cuda.synchronize()
-    zero_launches()
-    t0 = time.perf_counter()
-    res = predict_patients(model, ctx, X, Y, ages, idx)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = launch_counts()
+    res, launches, dt, ok = serve_counted(model, ctx, X, Y, ages)
     per_batch = conv_launches(conv, ctx.graph.winplan)[0]
     want = {k: v * n_batches for k, v in per_batch.items()}
-    prob = np.asarray(res["prob"])
-    ok = (len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
-          and bool(((prob >= 0) & (prob <= 1)).all())
-          and np.isfinite(res["loss"]) and launches == want)
+    ok = bool(ok and launches == want)
     emit({"phase": f"serve_{conv}", "batches": n_batches, "patients": N_PATIENTS,
           "ms_per_batch": dt * 1e3 / n_batches, "launches": launches,
           "launches_expected": want, "auc": res["auc"], "acc": res["acc"],
@@ -2372,22 +2377,375 @@ def deepergcn_phases(root, cohort, gen):
                 step_kernel_ms=step_kernel_ms)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
+# ---- PathCNN, the pretraining models and the VAE classifier on the GBM fold
+PRETRAIN_STEPS = 5  # timed and counted steps of each pretraining model
+# the VAE classifier reads mu only: its enc_log_sigma has no gradient
+VAE_FINETUNE_NO_GRAD = frozenset({"enc_log_sigma.weight", "enc_log_sigma.bias"})
+# PathCNN on a small fold, the card against the CPU (f32): the probabilities
+# (TOL_PROB_CPU), the image, and the VJP's gradients at a fixed cotangent in
+# eval mode (the dropout masks come from each device's generator), times
+# max(1, max|ref|).  Its softmax saturates (the raw age enters the head), so
+# the loss's own gradient would measure f32 rounding, not the port (R6).
+TOL_CPU_PATHCNN = 1e-4
+
+
+def zero_counts():
+    return {k: 0 for k in launch_counts()}
+
+
+def serve_counted(model, ctx, X, Y, ages, raw=None):
+    """predict_patients over N_PATIENTS, warmed up, then counted and timed."""
+    idx = np.arange(N_PATIENTS)
+    predict_patients(model, ctx, X, Y, ages, idx, raw)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = predict_patients(model, ctx, X, Y, ages, idx, raw)
+    torch.cuda.synchronize()
+    prob = np.asarray(res["prob"])
+    ok = (len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
+          and bool(((prob >= 0) & (prob <= 1)).all()) and np.isfinite(res["loss"]))
+    return res, launch_counts(), time.perf_counter() - t0, ok
+
+
+def pathcnn_vs_cpu():
+    """A small fold's PathCNN (learnable PCA) on the card against the CPU."""
+    from multilevel_gnn_tpu_torch.models.pathcnn import PathCNN
+
+    rng = np.random.RandomState(8)
+    raw = (rng.randn(8, 900) * 0.5).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        cfg, _, _, c, b = make_gbm_scale_setup(node_num=300, n_pathways=12, batch=8,
+                                               gene_rows=900, topology="cohort", device=dev)
+        m = PathCNN(cfg.replace(model="pathcnn", learnable_pca=True), c.graph.n_nodes,
+                    c.num_pca_rows, device=dev, seed=0)
+        m.eval()
+        b = dataclasses.replace(b, raw_data=torch.as_tensor(raw, device=dev))
+        pred, img = m(b, c)
+        cot = np.random.RandomState(9)
+        torch.autograd.backward([pred, img], [
+            torch.as_tensor(cot.randn(*pred.shape).astype(np.float32), device=dev),
+            torch.as_tensor(cot.randn(*img.shape).astype(np.float32), device=dev)])
+        res[dev] = (pred.detach().cpu(), img.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in m.named_parameters()})
+    (pc, ic, gc), (pp, ip, gp) = res["cuda"], res["cpu"]
+    e_prob = float((pc - pp).abs().max())
+    e_img = err_of(ic, ip)[0] / max(1.0, float(ip.abs().max()))
+    e_grad = {n: float((gc[n] - g).abs().max()) / max(1.0, float(g.abs().max()))
+              for n, g in gp.items()}
+    ok = e_prob <= TOL_PROB_CPU and e_img <= TOL_CPU_PATHCNN and max(e_grad.values()) <= TOL_CPU_PATHCNN
+    emit({"phase": "pathcnn_vs_cpu", "max_abs_err_prob": e_prob, "tol_prob": TOL_PROB_CPU,
+          "rel_err_image": e_img, "rel_err_grad_by_param": e_grad, "tol": TOL_CPU_PATHCNN,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("pathcnn: card vs CPU mismatch")
+
+
+def pathcnn_phase(cfg, ctx):
+    """PathCNN at gbm.yaml's widths on the GBM fold, with learnable PCA on
+    the PCA-row values (G = 25,015) and on the precomputed pathway attrs:
+    serving the N_PATIENTS and PRETRAIN_STEPS train steps, each counted (no
+    port kernel: the contraction is the dense pathway product)."""
+    from multilevel_gnn_tpu_torch.models.pathcnn import PathCNN
+
+    n, G = ctx.graph.n_nodes, ctx.num_pca_rows
+    X, Y, ages = patients(n)
+    rng = np.random.RandomState(4)
+    cw = torch.tensor([1.0, 1.5], device="cuda")
+    out = {}
+    for learnable, name in ((True, "pathcnn"), (False, "pathcnn_attrs")):
+        pcfg = cfg.replace(model="pathcnn", learnable_pca=learnable)
+        width = G if learnable else cfg.pathway_num * 3 * cfg.pca_dim
+        raw = (rng.randn(N_PATIENTS, width) * 0.5).astype(np.float32)
+        model = PathCNN(pcfg, n, G, device="cuda", seed=0)
+        res, serve, dt, ok = serve_counted(model, ctx, X, Y, ages, raw)
+        batch = next(iter_batches(X, Y, ages, np.arange(cfg.batch_size), cfg.batch_size,
+                                  "cuda", raw))
+        eval_ms = cuda_ms(lambda: eval_step(model, batch, ctx))
+        eval_kms = profiled(lambda: eval_step(model, batch, ctx))[0]
+        opt = make_optimizer(model, pcfg, 4)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        losses = []
+        ms, per_step = timed_steps(
+            lambda: losses.append(train_step(model, opt, batch, ctx, cw, gen)), PRETRAIN_STEPS)
+        kms, n_k, rows = profiled(lambda: train_step(model, opt, batch, ctx, cw, gen))
+        losses = [float(v) for v in losses]
+        ok = ok and serve == zero_counts() and per_step == zero_counts() and bool(
+            np.isfinite(losses).all())
+        emit({"phase": name, "patients": N_PATIENTS, "serve_ms_per_batch": dt * 1e3 / 4,
+              "eval_step_ms": eval_ms, "eval_kernel_ms": eval_kms,
+              "launches_serve": serve, "step_ms": ms, "step_ms_median": float(np.median(ms)),
+              "kernel_ms_per_step": kms, "kernels_per_step": n_k,
+              "gap_share": 1 - kms / float(np.median(ms)), "top": top_rows(rows, 8),
+              "launches_per_step": per_step,
+              "losses": losses, "auc": res["auc"], "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} phase failed")
+        out[name] = (serve, per_step)
+        del model, opt
+    pathcnn_vs_cpu()
+    return out
+
+
+def seed_codebook(model, batch, ctx):
+    """The codebook set to rows of another batch's latent (patients of
+    seed 7, eval mode, kernels), so that many codes compete for each latent
+    row: at init every latent is nearest to one code."""
+    x = torch.as_tensor(patients(batch.x.shape[1], n=batch.x.shape[0], seed=7)[0],
+                        device="cuda").to(batch.x.dtype)
+    cb = model.quantizer.embedding
+    with torch.no_grad():
+        model.eval()
+        z = model(dataclasses.replace(batch, x=x), ctx)["z"].reshape(-1, cb.shape[1])
+        rows = np.random.RandomState(7).choice(z.shape[0], cb.shape[0], replace=False)
+        cb.copy_(z[torch.as_tensor(rows, device="cuda")].float())
+
+
+def vq_flips(model, batch, ctx):
+    """The nearest codes of the kernels' latent against the plain versions'
+    (eval mode).  A row whose code differs (a flip) is explained when the
+    kernels' distance gap between the two codes is within what the latent's
+    difference can move it, 2 |z_k - z_p| |c_k - c_p|, plus the f32
+    rounding of the two distances.  closest_tie: the smallest gap between
+    a row's nearest and second-nearest code (kernels)."""
+    cb = model.quantizer.embedding
+
+    def dist(z):
+        f = z.reshape(-1, z.shape[-1]).float()
+        return f, (f ** 2).sum(1, keepdim=True) + (cb ** 2).sum(1)[None] - 2.0 * f @ cb.T
+
+    with torch.no_grad():
+        model.eval()
+        fk, dk = dist(model(batch, ctx)["z"])
+        with spmm.plain_versions():
+            fp, dp = dist(model(batch, ctx)["z"])
+        ck, cp = dk.argmin(1), dp.argmin(1)
+        two = dk.topk(2, dim=1, largest=False).values
+        tie = float((two[:, 1] - two[:, 0]).min())
+        rows = torch.nonzero(ck != cp).flatten()
+        gap = dk[rows, cp[rows]] - dk[rows, ck[rows]]
+        reach = (2.0 * (fk[rows] - fp[rows]).norm(dim=1) * (cb[ck[rows]] - cb[cp[rows]]).norm(dim=1)
+                 + 4e-7 * ((fk[rows] ** 2).sum(1) + (cb[ck[rows]] ** 2).sum(1)
+                           + (cb[cp[rows]] ** 2).sum(1)))
+    each = [{"row": int(r), "code": int(ck[r]), "code_plain": int(cp[r]),
+             "distance_gap": float(g), "reach": float(m)}
+            for r, g, m in zip(rows.tolist(), gap.tolist(), reach.tolist())]
+    return {"flips": len(each), "rows": int(ck.numel()), "codes_used": int(ck.unique().numel()),
+            "closest_tie": tie,
+            "explained": bool((gap <= reach).all()), "each": each[:32],
+            "codes_flipped": sorted(set(ck[rows].tolist()) | set(cp[rows].tolist()))}
+
+
+def pretrain_phase(kind, cfg, ctx, batch, decoder="flatten", n_steps=PRETRAIN_STEPS):
+    """One pretraining model at gbm.yaml's widths on the GBM fold (bf16
+    trunk): a loss's gradients with the kernels against the plain versions
+    (the VAE's draws shared; the VQ codes compared, any flip reported with
+    its distance gap), then n_steps pretrain steps counted and timed, and
+    the peak memory."""
+    from multilevel_gnn_tpu_torch.train import pretrain as P
+
+    n, G, B = ctx.graph.n_nodes, ctx.num_pca_rows, cfg.batch_size
+    sizes = tuple(int(c) for c in torch.bincount(
+        ctx.raw_indice, minlength=3 * cfg.pathway_num).cpu())
+    kcfg = cfg.replace(model=kind, decoder_type=decoder, slot_sizes=sizes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = P.KINDS[kind](kcfg, n, G, device="cuda", seed=0)
+    n_dec = sum(p.numel() for name, p in model.named_parameters() if name.startswith("dec_"))
+    rng = np.random.RandomState(5)
+    b = dataclasses.replace(batch, raw_data=torch.as_tensor(
+        (rng.randn(B, G) * 0.5).astype(np.float32), device="cuda"))
+    std_w = torch.as_tensor(rng.rand(G).astype(np.float32) + 0.5, device="cuda")
+    S, H = model.latent_shape(cfg.final_channels)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    eps = torch.randn((B, S, H), generator=g, device="cuda")
+    prior = torch.randn((S, B, H), generator=g, device="cuda")
+
+    def grads():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, parts = P.pretrain_loss(model, kind, b, ctx, std_w, eps=eps, prior=prior)
+        loss.backward()
+        return float(loss.detach()), {nm: p.grad.clone()
+                                      for nm, p in model.named_parameters()}, parts
+
+    flips = None
+    if kind == "vq_vae":
+        seed_codebook(model, b, ctx)
+        flips = vq_flips(model, b, ctx)
+    lk, gk, pk = grads()
+    with spmm.plain_versions():
+        lp, gp, pp = grads()
+    model.zero_grad(set_to_none=True)
+    if flips is not None:
+        # a flipped latent moves its codebook gradient from one code to the
+        # other: those codes' rows are compared only through the flip report
+        keep = torch.ones(gk["quantizer.embedding"].shape[0], dtype=torch.bool, device="cuda")
+        keep[flips["codes_flipped"]] = False
+        gk["quantizer.embedding"] = gk["quantizer.embedding"][keep]
+        gp["quantizer.embedding"] = gp["quantizer.embedding"][keep]
+    rel = {nm: float((gk[nm] - gp[nm]).abs().max()) / max(float(gp[nm].abs().max()), 1e-30)
+           for nm in gk}
+    del gk, gp
+    opt = P.make_pretrain_optimizer(model, kcfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses = []
+    ms, per_step = timed_steps(
+        lambda: losses.append(P.pretrain_step(model, opt, kind, b, ctx, std_w, gen)), n_steps)
+    kms, n_k, rows = profiled(lambda: P.pretrain_step(model, opt, kind, b, ctx, std_w, gen),
+                              min(n_steps, 3))
+    losses = [float(v) for v in losses]
+    want = conv_launches("sage", ctx.graph.winplan)[1]
+    worst = max(rel.values())
+    ok = (per_step == want and bool(np.isfinite(losses).all()) and np.isfinite(lk)
+          and worst <= TOL_GRAD["bf16"] and len(set(losses)) > 1
+          and (flips is None or (flips["codes_used"] > 1 and flips["explained"])))
+    phase = f"pretrain_{kind}" + ("" if decoder == "flatten" else f"_{decoder}")
+    emit({"phase": phase, "decoder": decoder, "decoder_params": n_dec,
+          "decoder_slots": len(getattr(model, "dec_slots", [])), "loss": lk,
+          "loss_plain": lp, "max_rel_err_grad": worst, "tol": TOL_GRAD["bf16"],
+          "rel_err_by_param": rel, "vq_codes": flips, "step_ms": ms,
+          "step_ms_median": float(np.median(ms)), "kernel_ms_per_step": kms,
+          "kernels_per_step": n_k, "gap_share": 1 - kms / float(np.median(ms)), "top": top_rows(rows, 8),
+          "launches_per_step": per_step,
+          "launches_per_step_expected": want, "losses": losses,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase} phase failed")
+    del model, opt
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def vae_finetune_phase(cfg, ctx, batch):
+    """VAEClassifier at gbm.yaml's widths on the GBM fold (bf16 trunk), its
+    DiffPool head over a 146 x 146 pathway adjacency (a correlation + I)
+    and its ConvHead (foreach latent, so the image has 3 columns): serving
+    counted, the forward and one step's gradients with kernels against
+    plain versions, and train steps counted (profile_train)."""
+    from multilevel_gnn_tpu_torch.models.vae import VAEClassifier
+
+    n, G, P = ctx.graph.n_nodes, ctx.num_pca_rows, cfg.pathway_num
+    corr = np.corrcoef(np.random.RandomState(6).randn(P, 64)) + np.eye(P)
+    vctx = dataclasses.replace(ctx, pathway_adj=torch.as_tensor(
+        corr.astype(np.float32), device="cuda"))
+    X, Y, ages = patients(n)
+    per_batch, want_step = conv_launches("sage", ctx.graph.winplan)
+    cw = torch.tensor([1.0, 1.5], device="cuda")
+    out = {}
+    for head, kw in (("diff_pooling", dict(reorder_type="diff_pooling")),
+                     ("conv_head", dict(decoder_type="foreach"))):
+        vcfg = cfg.replace(model="vae_finetune", **kw)
+        model = VAEClassifier(vcfg, n, G, device="cuda", seed=0)
+        res, serve, dt, ok = serve_counted(model, vctx, X, Y, ages)
+        want = {k: v * 4 for k, v in per_batch.items()}
+        with torch.no_grad():
+            model.eval()
+            pk, ik, xk = model(batch, vctx)
+            with spmm.plain_versions():
+                pp, ip, xp = model(batch, vctx)
+        e_prob = float((pk - pp).abs().max())
+        e_img, im = err_of(ik, ip)
+        ok = (ok and serve == want and e_prob <= TOL_PROB and e_img <= TOL_IMAGE_BF16 * im
+              and bool(torch.isfinite(torch.as_tensor(xk)).all()))
+        emit({"phase": f"vae_finetune_{head}", "serve_ms_per_batch": dt * 1e3 / 4,
+              "launches_serve": serve, "launches_serve_expected": want,
+              "max_abs_err_prob": e_prob, "tol_prob": TOL_PROB, "max_abs_err_image": e_img,
+              "image_max": im, "tol_image": TOL_IMAGE_BF16,
+              "link_entropy": float(xk), "link_entropy_plain": float(xp), "auc": res["auc"],
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"vae_finetune_{head} phase failed")
+        train_grad_checks((("bf16", model),), vctx, batch, cw,
+                          phase=f"train_grad_vae_finetune_{head}", no_grad=VAE_FINETUNE_NO_GRAD)
+        per_step = profile_train(model, vctx, batch, cw, want_step,
+                                 phase=f"profile_train_vae_finetune_{head}")[0]
+        out[head] = (serve, per_step)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def pretrain_protocol_phase(small_root):
+    """The train CLI with --pretrain autoencoder --pretrain-epochs 2 on the
+    small reference-format files (f32, dropout off, 1 run x 5 folds x 2
+    epochs), on the card and on the CPU: each fold's test scores within
+    TOL_PROTOCOL, pooled AUC and ACC equal; then the pathcnn protocol on the
+    card (its fixed dropouts draw from the device's generator), counted."""
+    from multilevel_gnn_tpu_torch.train import cli
+
+    sets = ["num_run=1", "epochs=2", "compute_dtype=null", "spmm_bf16=false",
+            "feature_drop=false", "head_drop_rate=0.0", "gnn_dropout=0.0"]
+    base = ["--config", GBM_YAML, "--data-dir", small_root]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sync("cuda")
+        zero_launches()
+        rec, undo = _spy_folds()
+        try:
+            res = cli.main(base + ["--device", dev, "--pretrain", "autoencoder",
+                                   "--pretrain-epochs", "2", "--set", *sets])
+        finally:
+            undo()
+        sync("cuda")
+        out[dev] = (rec, res, launch_counts())
+    (rc, resc, launches), (rp, resp, _) = out["cuda"], out["cpu"]
+    errs = [max(float(np.abs(a.epoch_pred[2] - b.epoch_pred[2]).max()),
+                float(np.abs(a.epoch_pred_by_epoch[2] - b.epoch_pred_by_epoch[2]).max()))
+            for a, b in zip(rc, rp)]
+    ok = bool(len(errs) == 5 and max(errs) <= TOL_PROTOCOL
+              and resc["auc"][2] == resp["auc"][2] and resc["acc"][2] == resp["acc"][2]
+              and launches[k1.KERNEL.name] > 0 and launches[k2.KERNEL.name] == 0
+              and launches[k3.KERNEL.name] == 0)
+    emit({"phase": "pretrain_protocol_vs_cpu", "fold_max_abs_err": errs, "tol": TOL_PROTOCOL,
+          "pooled_auc": [resc["auc"][2], resp["auc"][2]],
+          "pooled_acc": [resc["acc"][2], resp["acc"][2]], "launches_cuda": launches,
+          "wall_s": [resc["wall_time_s"], resp["wall_time_s"]], "ok": ok})
+    if not ok:
+        raise AssertionError("pretrain protocol: card vs CPU mismatch")
+    sync("cuda")
+    zero_launches()
+    res = cli.main(base + ["--set", "model=pathcnn", *sets])
+    sync("cuda")
+    pl = launch_counts()
+    ok = bool(pl == zero_counts() and np.isfinite(res["auc"][2]))
+    emit({"phase": "pathcnn_protocol", "pooled_auc": res["auc"][2], "launches": pl,
+          "wall_s": res["wall_time_s"], "ok": ok})
+    if not ok:
+        raise AssertionError("pathcnn protocol failed")
+    return launches, pl
+
+
+def slice10_phases(cfg, ctx, batch):
+    """This slice's GBM-fold phases; returns ({path: serving launches},
+    {path: launches per train step})."""
+    serve, per_step = {}, {}
+    for name, (sv, st) in pathcnn_phase(cfg, ctx).items():
+        serve[f"serve_{name}"], per_step[name] = sv, st
+    for kind in ("autoencoder", "vae", "vq_vae"):
+        per_step[f"pretrain_{kind}"] = pretrain_phase(kind, cfg, ctx, batch)
+    per_step["pretrain_autoencoder_foreach"] = pretrain_phase(
+        "autoencoder", cfg, ctx, batch, decoder="foreach", n_steps=3)
+    for head, (sv, st) in vae_finetune_phase(cfg, ctx, batch).items():
+        serve[f"serve_vae_finetune_{head}"] = sv
+        per_step[f"vae_finetune_{head}"] = st
+    return serve, per_step
+
+
+def card_setup() -> str:
+    """TF32 off for matmuls and cuDNN; the card's nvidia-smi name and power
+    limit."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "matmul_tf32": False, "cudnn_tf32": False})
 
+
+def build_phase() -> None:
+    """Every kernel built from the checkout's sources, in parallel."""
     t0 = time.perf_counter()
     times = build.build_all()
     regs = {
@@ -2398,11 +2756,48 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": times, "ptxas": regs})
 
+
+def gbm_fold():
+    """The GBM cohort fold at gbm.yaml's widths, bf16 trunk, B = 32:
+    (cfg, model, graph, ctx, batch)."""
+    return make_gbm_scale_setup(topology="cohort", windowed=True, batch=32,
+                                compute_dtype="bfloat16", spmm_bf16=True, device="cuda")
+
+
+def train_setup(cfg, ctx):
+    """(training cfg, ctx with a PCA seed): gbm.yaml's optimizer (Adam, lr
+    1e-4, no clip, no StepLR, no wd) and dropouts (feature_drop 0.25, head
+    dropout 0.5), 3 epochs, init_with_pca."""
+    rng = np.random.RandomState(3)
+    pca_seed = (rng.randn(ctx.num_pca_rows, cfg.pca_dim) * 0.05).astype(np.float32)
+    ctx = dataclasses.replace(ctx, pca_seed=torch.as_tensor(pca_seed, device="cuda"))
+    return cfg.replace(epochs=3, init_with_pca=True), ctx
+
+
+def small_files(root) -> str:
+    """The small reference-format files (SMALL_COHORT) under root/small."""
+    from multilevel_gnn_tpu_torch.data.synthetic import write_reference_format
+
+    small = f"{root}/small"
+    write_reference_format(small, cancer_type="gbm", **SMALL_COHORT)
+    return small
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    smi = card_setup()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "matmul_tf32": False, "cudnn_tf32": False})
+
+    build_phase()
+
     t0 = time.perf_counter()
-    cfg, model, graph, ctx, batch = make_gbm_scale_setup(
-        topology="cohort", windowed=True, batch=32,
-        compute_dtype="bfloat16", spmm_bf16=True, device="cuda",
-    )
+    cfg, model, graph, ctx, batch = gbm_fold()
     torch.cuda.synchronize()
     F = cfg.batch_size * cfg.node_embedding_dim  # B*C at the SpMMs
     emit({"phase": "setup", "seconds": time.perf_counter() - t0,
@@ -2450,12 +2845,7 @@ def main() -> int:
 
     # ---- the training path
     b1, b2 = kernel_bwd(graph, ctx, w, F, cfg.batch_size * cfg.final_channels, gen)
-    rng = np.random.RandomState(3)
-    pca_seed = (rng.randn(ctx.num_pca_rows, cfg.pca_dim) * 0.05).astype(np.float32)
-    ctx = dataclasses.replace(ctx, pca_seed=torch.as_tensor(pca_seed, device="cuda"))
-    # gbm.yaml's optimizer (Adam, lr 1e-4, no clip, no StepLR, no wd) and
-    # dropouts (feature_drop 0.25, head dropout 0.5), 3 epochs
-    tcfg = cfg.replace(epochs=3, init_with_pca=True)
+    tcfg, ctx = train_setup(cfg, ctx)
     f32_model = MultilevelGNN(
         tcfg.replace(compute_dtype=None, spmm_bf16=False),
         graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0,
@@ -2494,6 +2884,10 @@ def main() -> int:
                     GBM_FINAL_HEAD, gen)
     options_phase(tcfg, ctx, batch)
     torch.cuda.empty_cache()
+    # ---- PathCNN, the AE / VAE / VQ-VAE pretraining models, vae_finetune
+    serve10, step10 = slice10_phases(tcfg, ctx, batch)
+    paths.update(serve10)
+    per_step.update(step10)
 
     # ---- K4 (sorted segment-sum): no path of the package reaches it
     r4 = kernel_k4(graph, cfg.batch_size, cfg.node_embedding_dim, F, gen)
@@ -2516,19 +2910,18 @@ def main() -> int:
         del cohort
         # ---- STRING PPI tables beside the GRN list: edge_type ppi and merge
         from multilevel_gnn_tpu_torch.data.loaders import read_kegg_csv
-        from multilevel_gnn_tpu_torch.data.synthetic import (
-            write_reference_format, write_string_ppi)
+        from multilevel_gnn_tpu_torch.data.synthetic import write_string_ppi
 
         write_string_ppi(root, read_kegg_csv(f"{root}/kegg.csv"), seed=3, e_ppi=PPI_EDGES,
                          cancer_type="gbm")
-        small = f"{root}/small"
-        write_reference_format(small, cancer_type="gbm", **SMALL_COHORT)
+        small = small_files(root)
         write_string_ppi(small, read_kegg_csv(f"{small}/kegg.csv"), seed=3, e_ppi=800,
                          cancer_type="gbm")
         for edge_type in ("ppi", "merge"):
             paths[edge_type] = graph_source_phase(edge_type, root, small)
             torch.cuda.empty_cache()
         paths["gat_protocol"] = gat_protocol_phase(small)
+        paths["pretrain_protocol"], paths["pathcnn_protocol"] = pretrain_protocol_phase(small)
     warm_phase()
 
     main_k1 = r1[("residual", "bfloat16")]

@@ -47,7 +47,9 @@ class FoldContext:
     edge-id table row per edge slot (the graph's last edge-attr column,
     clipped to the table) and edge_id_gather, its lookup's backward plan
     (CSRPlan.gather over the table's rows), for DeeperGCN's one-hot edge
-    encoder; None elsewhere."""
+    encoder; None elsewhere.  pathway_adj: (P, P) float32 pathway
+    correlation + I of the fold's PCA (Cohort.fold), the DiffPool head's
+    adjacency (batch.py:75)."""
 
     graph: Graph
     gene_pca_match: torch.Tensor
@@ -60,6 +62,7 @@ class FoldContext:
     graph2: Optional[Graph] = None
     edge_ids: Optional[torch.Tensor] = None
     edge_id_gather: Optional[CSRPlan] = None
+    pathway_adj: Optional[torch.Tensor] = None
 
     @property
     def num_pca_rows(self) -> int:

@@ -36,6 +36,7 @@ import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from multilevel_gnn_tpu_torch.core.batch import FoldContext, make_fold_context
 from multilevel_gnn_tpu_torch.core.config import Config
@@ -224,7 +225,7 @@ class Cohort:
         self.initial_reorder_idxs: Optional[np.ndarray] = None
         if cfg.reorder_pathway:
             # initial (unmasked) reorder pass (reference :512-528 first call)
-            _, _, reorder = self._pathway_pca(None)
+            _, _, reorder, _ = self._pathway_pca(None)
             self.initial_reorder_idxs = reorder
 
     # ------------------------------------------------------------------ #
@@ -272,14 +273,19 @@ class Cohort:
         self.raw_indice = np.array([r.slot for r in rows], np.int32)
 
         # raw_datas: mean-centered per-column values of the PCA population,
-        # mean = sum / n as pandas takes it
+        # and gene_std_value their std, as pandas takes them (mean = sum / n;
+        # var = sum((mean - x)^2) / (n - 1), cohort.py:246-255)
         n_pca = len(self.pca_patients)
         mats = np.empty((len(rows), n_pca), np.float64)
+        stds = np.empty(len(rows), np.float64)
         for i, r in enumerate(rows):
             colT, _, colidx, _ = self._omics_cols(OMICS[r.omics])
             col = colT[colidx[r.entrez]]
-            mats[i] = col - col.sum() / n_pca
+            mean = col.sum() / n_pca
+            mats[i] = col - mean
+            stds[i] = np.sqrt(((mean - col) ** 2).sum() / (n_pca - 1))
         self.raw_datas = np.ascontiguousarray(mats.T)  # (n_pca, G)
+        self.gene_std_value = stds.astype(np.float32)
         self.tf_token = np.array(
             [(str(r.omics) in self.cfg.remain_tf_nums) and (r.entrez in self.edges)
              for r in rows],
@@ -388,7 +394,9 @@ class Cohort:
         """Per-(pathway, omics) PCA (reference prepare_pca_result).
 
         Returns (pca_seed (G, pca_dim), pathway_node_attr
-        (n_pca_patients, P, 3*pca_dim), reorder_idxs or None)."""
+        (n_pca_patients, P, 3*pca_dim), reorder_idxs or None, pathway_adj
+        (P, P) float32: the pathways' correlation over their PCA matrices,
+        NaN as 0, plus I, cohort.py:519-531)."""
         cfg = self.cfg
         G = self.num_pca_rows
         n_pca = len(self.pca_patients)
@@ -452,17 +460,23 @@ class Cohort:
         reorder = None
         if cfg.reorder_pathway and (cfg.selected_similarity or info_mask is None):
             reorder = self._reorder_from_matrix(pathway_matrix)
-        return seed, attr, reorder
+        with np.errstate(invalid="ignore", divide="ignore"):
+            corr = np.corrcoef(self._pathway_rows(pathway_matrix))
+        adj = (np.nan_to_num(corr, nan=0.0) + np.eye(self.n_pathways)).astype(np.float32)
+        return seed, attr, reorder, adj
+
+    def _pathway_rows(self, pathway_matrix: List[np.ndarray]) -> np.ndarray:
+        """(P, 3 * n * pca_sim_dim): each pathway's three PCA matrices, flat."""
+        return np.stack([
+            np.concatenate([pathway_matrix[3 * ppi + oi].reshape(-1) for oi in range(3)])
+            for ppi in range(self.n_pathways)
+        ])
 
     def _reorder_from_matrix(self, pathway_matrix: List[np.ndarray]) -> np.ndarray:
         """Greedy correlation-chain pathway ordering (reference :512-528)."""
         P = self.n_pathways
-        cat = np.stack([
-            np.concatenate([pathway_matrix[3 * ppi + oi].reshape(-1) for oi in range(3)])
-            for ppi in range(P)
-        ])
         with np.errstate(invalid="ignore", divide="ignore"):
-            corr = np.corrcoef(cat) - np.eye(P)
+            corr = np.corrcoef(self._pathway_rows(pathway_matrix)) - np.eye(P)
         corr = np.nan_to_num(corr, nan=-1.0)
         mx = corr.argmax()
         order = [mx // P, mx % P]
@@ -620,7 +634,7 @@ class Cohort:
         t0 = time.perf_counter()
         mask, mi = self.mutual_mask(train_idx, fold_i)
         t_mi = time.perf_counter()
-        seed, attr, reorder = self._pathway_pca(mask)
+        seed, attr, reorder, pathway_adj = self._pathway_pca(mask)
         t_pca = time.perf_counter()
         if reorder is None:
             reorder = (
@@ -648,6 +662,7 @@ class Cohort:
             graph, self.gene_pca_match, self.raw_indice, mask, reorder,
             pca_seed=seed, n_pathways=self.n_pathways, device=device,
         )
+        ctx = dataclasses.replace(ctx, pathway_adj=torch.as_tensor(pathway_adj).to(ctx.device))
         if cfg.edge_type == "merge":
             ctx = dataclasses.replace(ctx, graph2=self.merge_graph2(device))
         t_graph = time.perf_counter()
@@ -725,7 +740,7 @@ class Cohort:
         t0 = time.perf_counter()
         mask, mi = self.mutual_mask(train_idx, fold_i)
         t_mi = time.perf_counter()
-        _, attr, _ = self._pathway_pca(mask if cfg.mutual_info_pca else None)
+        _, attr, _, _ = self._pathway_pca(mask if cfg.mutual_info_pca else None)
         t_pca = time.perf_counter()
         ei, ea = self.gene_level_graph()
         t_edges = time.perf_counter()

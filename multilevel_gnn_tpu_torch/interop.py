@@ -1,5 +1,7 @@
-"""Carry the JAX package's MultilevelGNN and DeeperGCN parameters into the
-port.
+"""Carry the JAX package's parameters into the port: MultilevelGNN,
+DeeperGCN, PathCNN, AutoEncoder, VAE, VQVAE and VAEClassifier (DiffPool
+included; the foreach decoders' dec_slot{s}_* keep their slot index in
+both).
 
 Input: a flat dict of numpy arrays keyed by flax path, e.g.
 ``params/gnn_0/gconv/lin_r/kernel`` (the caller flattens the flax tree, so
@@ -17,8 +19,10 @@ no jax type reaches this module).  Conversions:
 Path mapping: drop the leading ``params`` (or ``batch_stats``, whose mean
 and var are the port's BatchNorm buffers), drop the ``Dense_0`` that the
 JAX Linear wrapper adds and the ``LayerNorm_0`` / ``BatchNorm1d_0`` /
-``BatchNorm_0`` that the JAX Norm wraps (so ``norm_0/LayerNorm_0/scale``
-is ``norm_0.scale``), ``kernel`` -> ``weight``, ``/`` -> ``.``.  Unknown or
+``BatchNorm_0`` that the JAX Norm and BatchNorm1d wrap (so
+``norm_0/LayerNorm_0/scale`` is ``norm_0.scale`` and DiffPool's
+``bn_0/BatchNorm_0/scale`` is ``bn_0.scale``), ``kernel`` -> ``weight``,
+``/`` -> ``.``.  Unknown or
 missing keys raise.
 """
 from __future__ import annotations
@@ -30,7 +34,7 @@ import re
 import numpy as np
 import torch
 
-_NORM = re.compile(r"^(norm|Norm)_\d+$")
+_NORM = re.compile(r"^(norm|Norm|bn)_\d+$")
 _NORM_INNER = ("LayerNorm_0", "BatchNorm1d_0", "BatchNorm_0")
 
 

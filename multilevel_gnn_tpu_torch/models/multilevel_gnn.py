@@ -1,5 +1,6 @@
 """MultilevelGNN, the flagship model, eval and training forward (port of
-multilevel_gnn_tpu/models/multilevel_gnn.py: ConvHead :64-134,
+multilevel_gnn_tpu/models/multilevel_gnn.py: _node_embedding_init :35,
+_pca_param_init :51, ConvHead :64-134,
 MultilevelGNN encode / gnn_stack / gather_pca_rows / learnable_pca_image /
 runtime_pca_image :137-356, get_feature_loss :359-404, seed_pca_params
 :457-470).
@@ -86,13 +87,14 @@ class ConvHead(nn.Module):
     then either only_mrna_pred's first two columns (no feature dropout) or
     the used_omics columns, MaxPool (window = stride = (pathway_pool_dim,
     pca_pool_dim), floor), feature dropout, NCHW flatten, age concat, MLP,
-    softmax.  head_0's width follows from those shapes, as flax infers
-    it."""
+    softmax.  width: the image's last axis (3K by default); head_0's
+    width follows from those shapes, as flax infers it."""
 
-    def __init__(self, cfg: Config, in_channels: int, generator=None):
+    def __init__(self, cfg: Config, in_channels: int, generator=None,
+                 width: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
-        width = 3 * cfg.pca_dim
+        width = 3 * cfg.pca_dim if width is None else width
         if cfg.pca_prelinear:
             self.pre_0 = Linear(width, 32, kernel_init="xavier", generator=generator)
             self.pre_1 = Linear(32, 32, kernel_init="xavier", generator=generator)
@@ -137,11 +139,13 @@ class ConvHead(nn.Module):
             h = h[..., :2]
         elif self.cols is not None:
             h = h[..., self.cols]
-        h = F.max_pool2d(
-            h,
-            kernel_size=(cfg.pathway_pool_dim, cfg.pca_pool_dim),
-            stride=(cfg.pathway_pool_dim, cfg.pca_pool_dim),
-        )
+        pool = (cfg.pathway_pool_dim, cfg.pca_pool_dim)
+        if h.shape[-2] < pool[0] or h.shape[-1] < pool[1]:
+            # flax's VALID pooling of a smaller image is empty (a VAE
+            # classifier's one-column image under pca_pool_dim 2)
+            h = h.new_zeros(h.shape[:2] + (h.shape[-2] // pool[0], h.shape[-1] // pool[1]))
+        else:
+            h = F.max_pool2d(h, kernel_size=pool, stride=pool)
         h = self.feature_drop(h, generator)
         h = h.reshape(h.shape[0], -1)
         if cfg.use_age:
@@ -172,13 +176,23 @@ class MultilevelGNN(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
         self.cfg = cfg
+        self._build_head(self._build_encoder(n_nodes, num_pca_rows, generator), generator)
+        self.to(dev)
+
+    def _learnable_pca(self) -> bool:
+        return self.cfg.reduction_method == "linear_projection"
+
+    def _build_encoder(self, n_nodes: int, num_pca_rows: int, generator) -> int:
+        """The node embedding, the GNN stack and the learnable PCA params;
+        returns the trunk's output width (the image's channels)."""
+        cfg = self.cfg
         cdt = compute_dtype(cfg)
         spmm_dtype = torch.bfloat16 if cfg.spmm_bf16 else None
         if cfg.node_embedding:
             self.node_embedding = nn.Parameter(
                 torch.empty(n_nodes, cfg.node_embedding_dim)
             )
-            self._init_embedding(generator)
+            _node_embedding_init(self.node_embedding, cfg, generator)
             emb_dim = cfg.node_embedding_dim
         else:
             self.node_embedding = None
@@ -205,11 +219,11 @@ class MultilevelGNN(nn.Module):
             self.add_module(f"gnn_{i}", layer)
             width = layer.out_width
             widths.append(width)
-        if cfg.reduction_method == "linear_projection":
+        if self._learnable_pca():
             self.learnable_pca_params = nn.Parameter(
                 torch.empty(num_pca_rows, cfg.pca_dim)
             )
-            self._init_pca(generator)
+            _pca_param_init(self.learnable_pca_params, cfg, generator)
         else:
             self.register_parameter("learnable_pca_params", None)
             if cfg.slot_sizes is None:
@@ -220,34 +234,11 @@ class MultilevelGNN(nn.Module):
         # merge concatenates the two graphs' features (the reference doubles
         # final_channels for the head only), dense_gnn every layer's
         if cfg.edge_type == "merge":
-            head_in = 2 * widths[-1]
-        else:
-            head_in = sum(widths) if cfg.dense_gnn else widths[-1]
-        self.conv_head = ConvHead(cfg, head_in, generator)
-        self.to(dev)
+            return 2 * widths[-1]
+        return sum(widths) if cfg.dense_gnn else widths[-1]
 
-    def _init_embedding(self, g):
-        cfg, p = self.cfg, self.node_embedding
-        with torch.no_grad():
-            t = cfg.embedding_init_type
-            if t == "xavier":
-                uniform_(p, xavier_bound(p.shape[1], p.shape[0]), g)
-            elif t == "ones":
-                p.fill_(1.0)
-            elif t == "constant":
-                p.fill_(cfg.emb_val)
-            else:
-                p.uniform_(0.0, 1.0, generator=g)
-
-    def _init_pca(self, g):
-        cfg, p = self.cfg, self.learnable_pca_params
-        with torch.no_grad():
-            if cfg.pca_init_type is None:
-                uniform_(p, xavier_bound(p.shape[1], p.shape[0]), g)
-            elif cfg.pca_init_type == "orthogonal":
-                nn.init.orthogonal_(p, generator=g)
-            else:
-                p.uniform_(0.0, 1.0, generator=g)
+    def _build_head(self, width: int, generator) -> None:
+        self.conv_head = ConvHead(self.cfg, width, generator)
 
     def forward(
         self, batch: Batch, ctx: FoldContext,
@@ -258,8 +249,11 @@ class MultilevelGNN(nn.Module):
         image = self.encode(batch, ctx, generator)
         return self.conv_head(image, batch.age, generator), image
 
-    def gnn_stack(self, x, mask_x, ctx: FoldContext, generator=None):
-        """x: (N, B, D) node-major; mask_x: (N, B)."""
+    def gnn_stack(self, x, mask_x, ctx: FoldContext, generator=None,
+                  apply_value_mask: bool = True):
+        """x: (N, B, D) node-major; mask_x: (N, B).  apply_value_mask=False:
+        no value-attention mask at the end (the AE / VAE encoders,
+        multilevel_gnn.py:153-158)."""
         cfg = self.cfg
         cdt = compute_dtype(cfg)
         edge_attr = ctx.graph.edge_attr if cfg.weighted_edge else None
@@ -303,19 +297,22 @@ class MultilevelGNN(nn.Module):
                     x = x * mask_x[..., None]
             if cfg.dense_gnn:
                 x = torch.cat(feats, dim=-1)
-        if cfg.value_att_mask:
+        if cfg.value_att_mask and apply_value_mask:
             if cfg.merge_mode == "mult":
                 x = x * mask_x[..., None]
             else:
                 x = cfg.add_coef1 * x + cfg.add_coef2 * mask_x[..., None]
         return x
 
-    def gather_pca_rows(self, x, ctx: FoldContext):
+    def gather_pca_rows(self, x, ctx: FoldContext, drop_slot0: bool = False):
         """Gene -> PCA-row gather, -1 = last node slot (resolved on host);
-        its backward is K1 over the fold's pca_gather plan."""
+        its backward is K1 over the fold's pca_gather plan.  pca_match_mask
+        keeps the matched rows, and drop_slot0 drops node slot 0's too (the
+        AE encoders' match > 0, autoencoder.py:69)."""
         xg = gather_rows(x, ctx.pca_rows, ctx.pca_gather)
         if self.cfg.pca_match_mask:
-            keep = (ctx.gene_pca_match >= 0).to(x.dtype)
+            match = ctx.gene_pca_match
+            keep = (match > 0 if drop_slot0 else match >= 0).to(x.dtype)
             xg = xg * keep[:, None, None]
         return xg
 
@@ -377,6 +374,33 @@ class MultilevelGNN(nn.Module):
             outs.append(F.pad(red, (0, cfg.pca_dim - k)))
         out = torch.stack(outs).permute(2, 1, 0, 3)  # (B, C, S, K)
         return out.reshape(out.shape[0], out.shape[1], cfg.pathway_num, 3 * cfg.pca_dim)
+
+
+def _node_embedding_init(p: torch.Tensor, cfg: Config, g) -> None:
+    """cfg.embedding_init_type's init of the node embedding (JAX
+    _node_embedding_init, multilevel_gnn.py:35-48)."""
+    with torch.no_grad():
+        t = cfg.embedding_init_type
+        if t == "xavier":
+            uniform_(p, xavier_bound(p.shape[1], p.shape[0]), g)
+        elif t == "ones":
+            p.fill_(1.0)
+        elif t == "constant":
+            p.fill_(cfg.emb_val)
+        else:
+            p.uniform_(0.0, 1.0, generator=g)
+
+
+def _pca_param_init(p: torch.Tensor, cfg: Config, g) -> None:
+    """cfg.pca_init_type's init of the learnable PCA params (JAX
+    _pca_param_init, multilevel_gnn.py:51-61)."""
+    with torch.no_grad():
+        if cfg.pca_init_type is None:
+            uniform_(p, xavier_bound(p.shape[1], p.shape[0]), g)
+        elif cfg.pca_init_type == "orthogonal":
+            nn.init.orthogonal_(p, generator=g)
+        else:
+            p.uniform_(0.0, 1.0, generator=g)
 
 
 def get_feature_loss(

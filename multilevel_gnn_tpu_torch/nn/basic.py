@@ -1,12 +1,13 @@
-"""Basic NN primitives (port of multilevel_gnn_tpu/nn/basic.py: act :32,
-Norm :81 with BatchNorm1d :54 and flax's LayerNorm, Linear :116,
-EmbedTable :140 with the onehot_embed lookup :161, MLP :197) and flax's
-Dropout.
+"""Basic NN primitives (port of multilevel_gnn_tpu/nn/basic.py:
+torch_linear_init :17, act :32, BatchNorm1d :54, Norm :81 with flax's
+LayerNorm, Linear :116, EmbedTable :140, onehot_embed :161, MLP :197) and
+flax's Dropout.
 
 Initialisers follow the JAX package's: torch's nn.Linear default
-(U(+-1/sqrt(fan_in)) for weight and bias) or Xavier-uniform weights.  Random
-init draws from an explicit torch.Generator; parameters are created on the
-CPU and moved with the module.  Dropout masks, too, come from a generator
+(U(+-1/sqrt(fan_in)) for weight and bias, torch_linear_init) or
+Xavier-uniform weights.  Random init draws from an explicit
+torch.Generator; parameters are created on the CPU and moved with the
+module.  Dropout masks, too, come from a generator
 the caller passes in, never from the global RNG.
 """
 from __future__ import annotations
@@ -82,6 +83,20 @@ def xavier_bound(fan_in: int, fan_out: int) -> float:
     return math.sqrt(6.0 / (fan_in + fan_out))
 
 
+def torch_linear_init(weight: torch.Tensor, generator: Optional[torch.Generator]):
+    """variance_scaling(1/3, fan_in, uniform) on an (out, in) weight:
+    U(+-1/sqrt(fan_in)), torch's nn.Linear default (basic.py:17-19)."""
+    return uniform_(weight, 1.0 / math.sqrt(weight.shape[1]), generator)
+
+
+def onehot_embed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows table[ids] as onehot(ids) @ table (basic.py:161-169): the
+    gradient to the table is the transposed product, with no atomics (an
+    index_add_ backward adds its rows in an order that varies from run to
+    run on the card).  For small tables."""
+    return F.one_hot(ids, table.shape[0]).to(table.dtype) @ table
+
+
 class Dropout(nn.Module):
     """flax.linen.Dropout: in training mode each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate); rate 1 drops all.
@@ -106,7 +121,8 @@ class Dropout(nn.Module):
 
 class Linear(nn.Module):
     """Dense layer with weight (out, in).  kernel_init: "torch" (nn.Linear
-    default) or "xavier"; bias U(+-1/sqrt(fan_in)).  dtype: optional compute
+    default) or "xavier"; bias U(+-1/sqrt(fan_in)), or 0 with zero_bias
+    (flax's nn.Dense).  dtype: optional compute
     dtype (params stay float32, input and params cast for the product).
     As flax's Dense, the product is rounded to the compute dtype and the
     bias is added after it in that dtype (F.linear with a bias rounds
@@ -120,19 +136,21 @@ class Linear(nn.Module):
         kernel_init: str = "torch",
         dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
+        zero_bias: bool = False,
     ):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
         if kernel_init == "torch":
-            uniform_(self.weight, 1.0 / math.sqrt(in_features), generator)
+            torch_linear_init(self.weight, generator)
         elif kernel_init == "xavier":
             uniform_(self.weight, xavier_bound(in_features, features), generator)
         else:
             raise ValueError(kernel_init)
         if use_bias:
-            self.bias = nn.Parameter(torch.empty(features))
-            uniform_(self.bias, 1.0 / math.sqrt(in_features), generator)
+            self.bias = nn.Parameter(torch.zeros(features))
+            if not zero_bias:
+                uniform_(self.bias, 1.0 / math.sqrt(in_features), generator)
         else:
             self.register_parameter("bias", None)
 
@@ -209,6 +227,12 @@ class Norm(nn.Module):
                 "no batch_stats, so flax refuses to update them")
         return flax_normalize(x, self.mean, self.var, self.scale, self.bias, 1e-5,
                               self.dtype)
+
+
+def BatchNorm1d(features: int, dtype: Optional[torch.dtype] = None) -> Norm:
+    """BatchNorm over all leading axes (basic.py:54-78): Norm('batch'), whose
+    scale, bias, mean and var carry flax's names; eval mode only."""
+    return Norm("batch", features, dtype)
 
 
 class EmbedTable(nn.Module):

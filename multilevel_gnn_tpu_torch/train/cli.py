@@ -2,7 +2,8 @@
 
     python -m multilevel_gnn_tpu_torch.train.cli --config configs/gbm.yaml \\
         (--data-dir DIR | --synthetic) [--set key=value ...] [--device cpu] \\
-        [--ckpt-dir DIR [--resume]] [--profile-dir DIR]
+        [--ckpt-dir DIR [--resume]] [--profile-dir DIR] \\
+        [--pretrain {autoencoder,vae,mmd_vae,vq_vae} [--pretrain-epochs N]]
 
 Runs run_experiment, the num_run x 5-fold protocol, on a cohort read from
 reference-format files under --data-dir (or on a generated one with
@@ -14,8 +15,11 @@ for one found built, as after the warm CLI, train/warm.py).  --ckpt-dir checkpoi
 (at its last epoch, or every N epochs with --set ckpt_every=N) and saves
 each finished fold's result; --resume continues an interrupted protocol
 from there.  --profile-dir writes a torch.profiler trace of the whole
-experiment (utils/profiling.py).  The JAX CLI's mesh, pretrain,
-fold-parallel and scaling options are not ported.
+experiment (utils/profiling.py).  --pretrain first trains that
+reconstruction model's encoder on the whole cohort for --pretrain-epochs
+(the config's epochs by default), and every fold's model starts from it
+(train/pretrain.py).  The JAX CLI's mesh, fold-parallel and scaling
+options are not ported.
 """
 from __future__ import annotations
 
@@ -128,6 +132,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the whole experiment "
                          "into DIR (Chrome trace format)")
+    ap.add_argument("--pretrain", default=None,
+                    choices=["autoencoder", "vae", "mmd_vae", "vq_vae"],
+                    help="reconstruction-pretrain the encoder first, then fine-tune")
+    ap.add_argument("--pretrain-epochs", type=int, default=None)
     ap.add_argument("--set", nargs="*", default=[], help="key=value overrides")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -147,11 +155,13 @@ def main(argv=None) -> dict:
     prof = trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
     with prof:
         results = run_experiment(cfg, cohort, device=device, ckpt_dir=args.ckpt_dir,
-                                 resume=args.resume)
+                                 resume=args.resume, pretrain=args.pretrain,
+                                 pretrain_epochs=args.pretrain_epochs)
     final_e = results["check_epochs"][-1]
     print(json.dumps({
         "cancer_type": cfg.cancer_type,
         "model": cfg.model,
+        "pretrain": args.pretrain,
         "device": str(device),
         "pooled_auc": results["auc"][final_e],
         "pooled_auc_by_loss": results["auc_by_loss"][final_e],

@@ -15,11 +15,14 @@ Checkpoints (train/checkpoint.py) go under ckpt_dir/run{r}_fold{f}/ every
 cfg.ckpt_every epochs (at the fold's last epoch when 0), keeping the newest
 cfg.ckpt_keep; a finished fold's FoldResult is saved as
 ckpt_dir/result_run{r}_fold{f}.npy, and resume=True loads finished folds
-and resumes an unfinished one at its latest complete step.  Left out of
-run_fold and run_experiment: the mesh, pretraining and pretrained transfer,
-warm_only, the pathcnn branch, and epoch_scan / fold_scan, which only
-change how JAX dispatches the same steps.  DeeperGCN's folds carry the
-pathway node attrs as each batch's raw_data (fold_setup's FoldData.raw).
+and resumes an unfinished one at its latest complete step.
+run_experiment(pretrain=...) first pretrains an AE / VAE / VQ-VAE encoder
+on the cohort (train/pretrain.py) and run_fold copies its parameters into
+every fold's model after the PCA seeding.  Left out of run_fold and
+run_experiment: the mesh, warm_only, and epoch_scan / fold_scan, which
+only change how JAX dispatches the same steps.  DeeperGCN's folds carry
+the pathway node attrs as each batch's raw_data, and PathCNN's its raw
+values or PCA attrs (fold_setup's FoldData.raw).
 stratified_kfold reproduces sklearn 1.9's StratifiedKFold in numpy (the
 GPU hosts have no sklearn).
 """
@@ -225,6 +228,7 @@ def run_fold(
     resume: bool = False,
     interrupt_after: Optional[List[int]] = None,
     raw: Optional[np.ndarray] = None,
+    pretrained_params: Optional[Dict[str, torch.Tensor]] = None,
 ) -> FoldResult:
     """Train one prepared fold for cfg.epochs and score it (driver.py:243-739,
     per-step path), with the seeds of (run_i, fold_i).
@@ -242,13 +246,19 @@ def run_fold(
     docstring); resume: start from its latest complete step.  The lists of
     a resumed fold's FoldResult hold the epochs run in this call.
     interrupt_after: [n], a test hook counted down once per epoch across
-    calls; at 0 it checkpoints and raises KeyboardInterrupt."""
+    calls; at 0 it checkpoints and raises KeyboardInterrupt.
+    pretrained_params: a pretrained model's state_dict, copied in after the
+    PCA seeding so its PCA params win (driver.py:334-343)."""
     dev = ctx.device
     seed = cfg.seed * 10_000 + run_i * 100 + fold_i  # driver.py:317
     if model is None:
         model = _new_model(cfg, ctx, seed)
     if cfg.init_with_pca and ctx.pca_seed is not None:
         seed_pca_params(model, ctx.pca_seed)
+    if pretrained_params is not None:
+        from multilevel_gnn_tpu_torch.train.pretrain import transfer_pretrained
+
+        transfer_pretrained(pretrained_params, model)
     optimizer = make_optimizer(
         model, cfg, max(len(train_idx) // cfg.batch_size, 1)
     )
@@ -383,11 +393,14 @@ def run_fold(
 def fold_setup(cfg: Config, cohort, train_idx, fold_i: int, device="cuda"):
     """The per-fold derivation shared by training and prediction
     (driver.py:206-240) on ``device``, with the config's node counts.
-    multilevel_gnn: Cohort.fold, X (P, NODES).  deepergcn: the gene-level
-    Cohort.deepergcn_fold (whose fold.raw carries the pathway node attrs),
-    X (P, N, omics) from gene_level_features, node_num = genes + pathway
-    nodes and pathway_edge_num = max(the cohort's pathway edges, 1).
-    Returns (cfg, fold, X)."""
+    multilevel_gnn and the rest: Cohort.fold, X (P, NODES); for pathcnn,
+    fold.raw is the PCA-row values (P, G) in patient order with
+    learnable_pca, else the fold's pathway PCA attrs flat, (P, P_w * 3K).
+    deepergcn: the gene-level Cohort.deepergcn_fold (whose fold.raw
+    carries the pathway node attrs), X (P, N, omics) from
+    gene_level_features, node_num = genes + pathway nodes and
+    pathway_edge_num = max(the cohort's pathway edges, 1).  Returns (cfg,
+    fold, X)."""
     get_model(cfg.model)  # raises for a model the port does not have
     if cfg.model == "deepergcn":
         fold = cohort.deepergcn_fold(np.asarray(train_idx), fold_i, device=device)
@@ -395,6 +408,13 @@ def fold_setup(cfg: Config, cohort, train_idx, fold_i: int, device="cuda"):
                           node_num=cohort.node_size + cohort.n_pathways)
         return cfg, fold, cohort.gene_level_features()
     fold = cohort.fold(np.asarray(train_idx), fold_i, device=device)
+    if cfg.model == "pathcnn":
+        if cfg.learnable_pca:
+            pos = {p: i for i, p in enumerate(cohort.pca_patients)}
+            raw = cohort.raw_datas[[pos[p] for p in cohort.patients]]
+        else:
+            raw = fold.pathway_node_attr.reshape(len(cohort.patients), -1)
+        fold = dataclasses.replace(fold, raw=raw.astype(np.float32))
     return cfg.replace(node_num=cohort.num_nodes // 3), fold, cohort.X
 
 
@@ -438,6 +458,7 @@ class _Prefetcher:
 def run_experiment(
     cfg: Config, cohort, device="cuda", ckpt_dir: Optional[str] = None,
     resume: bool = False, interrupt_after: Optional[List[int]] = None,
+    pretrain: Optional[str] = None, pretrain_epochs: Optional[int] = None,
 ) -> Dict:
     """The num_run x 5-fold protocol with pooled check-epoch scoring
     (driver.py:794-962).
@@ -460,7 +481,21 @@ def run_experiment(
     ckpt_dir / resume / interrupt_after: as run_fold's; each finished
     fold's FoldResult is saved as ckpt_dir/result_run{r}_fold{f}.npy, and
     with resume a fold that has one is loaded instead of trained (the next
-    fold's derivation is still prefetched)."""
+    fold's derivation is still prefetched).
+
+    pretrain: 'autoencoder', 'vae', 'mmd_vae' or 'vq_vae': first
+    pretrain_autoencoder for pretrain_epochs (cfg.epochs when None), then
+    every fold's model starts from its matching parameters
+    (driver.py:795-826)."""
+    pretrained_params = None
+    if pretrain is not None:
+        from multilevel_gnn_tpu_torch.train.pretrain import pretrain_autoencoder
+
+        pre, _, _, _ = pretrain_autoencoder(
+            cfg.replace(slot_sizes=cohort.slot_sizes()), cohort, pretrain,
+            epochs=pretrain_epochs, device=device)
+        pretrained_params = {k: v.detach().clone() for k, v in pre.state_dict().items()}
+        del pre
     labels = cohort.labels()
     check_epochs = list(range(5, cfg.epochs + 1, 5)) or [cfg.epochs]
     agg = {
@@ -514,6 +549,7 @@ def run_experiment(
                         fold.class_weight, check_epochs, run_i=run_i, fold_i=fold_i,
                         ckpt_dir=ckpt_dir, resume=resume,
                         interrupt_after=interrupt_after, raw=fold.raw,
+                        pretrained_params=pretrained_params,
                     )
                     if done is not None:
                         os.makedirs(ckpt_dir, exist_ok=True)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext
-from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
+from multilevel_gnn_tpu_torch.models import require_multilevel_gnn
 from multilevel_gnn_tpu_torch.utils.survival import pathway_km_screen
 
 
@@ -41,8 +41,7 @@ def integrated_gradients(
     gradient meanwhile, so the backward computes the input's only.
     Returns (B, NODES).  Only MultilevelGNN is explained (DeeperGCN's
     attributions are not ported yet)."""
-    if not isinstance(model, MultilevelGNN):
-        raise NotImplementedError(f"explain of model {model.cfg.model!r} is not ported")
+    require_multilevel_gnn(model, "explain")
     x = batch.x.detach()
     x0 = torch.zeros_like(x) if baseline is None else baseline
     alphas = ((np.arange(steps) + 0.5) / steps).astype(np.float32)

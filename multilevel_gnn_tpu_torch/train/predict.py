@@ -9,7 +9,8 @@ patient set with a model already in memory (predict_patients).
 
 load_fold_state re-derives one (run, fold)'s splits and fold context as
 the train driver does (fold_indices, fold_setup) and loads the model
-state the driver checkpointed under --ckpt-dir.  The device is CUDA unless
+state the driver checkpointed under --ckpt-dir; PathCNN's batches take
+fold_setup's raw side channel, and vae_finetune scores its first output.  The device is CUDA unless
 --device cpu is given.
 """
 from __future__ import annotations

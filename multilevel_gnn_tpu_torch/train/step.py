@@ -230,15 +230,18 @@ def make_optimizer(
 
 
 def make_loss_fn(cfg: Config) -> Callable:
-    """The training loss (step.py:185-209): classification loss of the
-    training-mode forward plus, for the learnable-PCA models, the feature
-    losses (DeeperGCN returns no features and has no PCA parameters).
-    Returns loss_fn(model, batch, ctx, class_weight, generator) ->
-    (loss, pred)."""
+    """The training loss (step.py:185-209): a third output of the
+    training-mode forward (VAEClassifier's DiffPool link + entropy losses)
+    plus the classification loss plus, for the models with learnable-PCA
+    params that return a feature, the feature losses (DeeperGCN returns no
+    features and has no PCA parameters).  Returns loss_fn(model, batch,
+    ctx, class_weight, generator) -> (loss, pred)."""
 
     def loss_fn(model, batch: Batch, ctx: FoldContext, class_weight, generator):
-        pred, feat = model(batch, ctx, generator)
-        loss = classification_loss(
+        out = model(batch, ctx, generator)
+        pred, feat = out[0], out[1]
+        extra = out[2] if len(out) > 2 else 0.0
+        loss = extra + classification_loss(
             pred, batch.y, class_weight, batch.sample_mask, cfg
         )
         pca_params = getattr(model, "learnable_pca_params", None)

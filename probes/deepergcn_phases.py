@@ -21,21 +21,14 @@ import time
 import torch
 
 import chip_smoke as cs
-from multilevel_gnn_tpu_torch.ops.kernels import build
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("deepergcn_phases: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip(), flush=True)
-    t0 = time.perf_counter()
-    build.build_all()
-    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    print(cs.card_setup(), flush=True)
+    cs.build_phase()
     gen = torch.Generator(device="cuda").manual_seed(0)
     with tempfile.TemporaryDirectory() as root:
         cohort = cs.cohort_phase(root)

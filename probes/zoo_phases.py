@@ -16,19 +16,14 @@ card and nvcc.
 """
 from __future__ import annotations
 
-import dataclasses
-import subprocess
 import sys
 import tempfile
 import time
 
-import numpy as np
 import torch
 
 import chip_smoke as cs
-from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup, write_reference_format
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
-from multilevel_gnn_tpu_torch.ops.kernels import build
 
 
 def main() -> int:
@@ -36,21 +31,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("zoo_phases: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip(), flush=True)
-    t0 = time.perf_counter()
-    build.build_all()
-    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
-    cfg, _, graph, ctx, batch = make_gbm_scale_setup(
-        topology="cohort", windowed=True, batch=32,
-        compute_dtype="bfloat16", spmm_bf16=True, device="cuda")
-    rng = np.random.RandomState(3)
-    pca_seed = (rng.randn(ctx.num_pca_rows, cfg.pca_dim) * 0.05).astype(np.float32)
-    ctx = dataclasses.replace(ctx, pca_seed=torch.as_tensor(pca_seed, device="cuda"))
-    tcfg = cfg.replace(epochs=3, init_with_pca=True)
+    print(cs.card_setup(), flush=True)
+    cs.build_phase()
+    cfg, _, graph, ctx, batch = cs.gbm_fold()
+    tcfg, ctx = cs.train_setup(cfg, ctx)
     n_batches = -(-cs.N_PATIENTS // cfg.batch_size)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -76,8 +60,7 @@ def main() -> int:
     if "protocol" not in groups:
         return 0
     with tempfile.TemporaryDirectory() as root:
-        small = f"{root}/small"
-        write_reference_format(small, cancer_type="gbm", **cs.SMALL_COHORT)
+        small = cs.small_files(root)
         t1 = time.perf_counter()
         cs.gat_protocol_phase(small)
         cs.emit({"phase": "gat_protocol_s", "seconds": time.perf_counter() - t1})

@@ -363,5 +363,6 @@ def test_interop_maps_every_deepergcn_param(tmp_path):
 def test_get_model_names_the_ported_models():
     assert get_model("deepergcn").__name__ == "DeeperGCN"
     assert get_model("multilevel_gnn").__name__ == "MultilevelGNN"
-    with pytest.raises(NotImplementedError, match="pathcnn"):
-        get_model("pathcnn")
+    assert get_model("pathcnn").__name__ == "PathCNN"
+    with pytest.raises(NotImplementedError, match="multiomix"):
+        get_model("multiomix")

@@ -35,7 +35,7 @@ from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.data import loaders
 from multilevel_gnn_tpu_torch.data.synthetic import write_reference_format
 from multilevel_gnn_tpu_torch.interop import load_flax_params
-from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
+from multilevel_gnn_tpu_torch.models import get_model
 from multilevel_gnn_tpu_torch.train import cli
 from multilevel_gnn_tpu_torch.train import driver
 from torch_threads import few_threads  # noqa: F401  (autouse)
@@ -82,7 +82,7 @@ def build_setup(d, name="gbm"):
 class InitCarrier:
     """Records the JAX package's initial parameters of each fold (the params
     its run_fold hands to seed_pca_params) and builds the port's fold models
-    from them, in the same order."""
+    of cfg.model from them, in the same order."""
 
     def __init__(self, monkeypatch):
         self.params = []
@@ -97,7 +97,7 @@ class InitCarrier:
         monkeypatch.setattr(driver, "_new_model", self.new_model)
 
     def new_model(self, cfg, ctx, seed):
-        m = MultilevelGNN(cfg, ctx.graph.n_nodes, ctx.num_pca_rows, device=ctx.device)
+        m = get_model(cfg.model)(cfg, ctx.graph.n_nodes, ctx.num_pca_rows, device=ctx.device)
         load_flax_params(m, self.params.pop(0))
         return m
 
