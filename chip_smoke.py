@@ -169,6 +169,36 @@ maxpool readout, bf16 trunk, B = 32, so F = B*H = 4,096 at K3 and K1):
            off, 2 epochs) card against CPU, gcn_aggr softmax and max,
            fold test scores within 1e-4
 
+On the same DeeperGCN fold, after profile_train_deepergcn:
+
+  explain_deepergcn  integrated_gradients of DeeperGCN (16 steps, B = 32,
+           bf16, max): K3 3 / K1 3 launches a step, as the code predicts;
+           device ms, peak memory, kernels against plain versions (TOL_IG);
+           pathway_attributions raising IndexError, as the JAX package's
+  multiomix_fold  Cohort.multiomix_vnode_data on the fold: per omics its
+           gene -> pathway-vnode edges and the pathway rows they reach
+  k3_vnode / k1_vnode  K3 over a vnode graph's csr, K1 as its
+           edge_segment_sum and its gather_src backward, F = B*128, f32,
+           against plain versions, with ms, bound and library ms
+  serve_multiomix_{max,softmax}  MultiOmixGCN (gbm.yaml, model=multiomix,
+           H = 128, 3 layers, res+, maxpool, f32) over the 123 serving
+           patients: launches a batch as mo_launches predicts (max K3 15;
+           softmax K1 30), kernels against plain versions (max: the whole
+           forward equal; both: every kernel call on its own inputs,
+           PerCall), ms a batch, device ms of one
+  train_grad_multiomix_{max,softmax}  one class-weighted BCE step at the
+           largest B that fits: launches (max K3 15 / K1 15; softmax K1
+           45), peak memory, step ms, gradients against plain versions
+           (max: TOL_F32; both: PerCall)
+  dyn_DynConv / dyn_ResDynBlock  N = 15,405, C = 64, k = 9, conv edge: the
+           kNN graph and its plans built on the card with synchronising
+           calls set to raise; forward and backward (K3 1 / K1 2) against
+           plain versions; k3_knn / k1_knn: the kNN plan's kernel forms
+  minet    OmicsNet (15,405 inputs, 5,135 genes, 146 pathways, B = 32): eval
+           and a training step with dropout masks, card against CPU
+  dense_*  ResDynBlock2d and DenseDynBlock2d on a (2, 64, 2048, 1) cloud,
+           card against CPU
+
 Then the custom ops, export, the profiler trace, the PPI / merge graph
 sources and warm, each failing the run when its check fails:
 
@@ -2369,12 +2399,536 @@ def deepergcn_phases(root, cohort, gen):
                                              phase="profile_train_deepergcn")
     emit({"phase": "train_mem_deepergcn", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "edge_tensor_gb": ctx.graph.num_padded_edges * B * H * 2 / 1e9})
-    del model, fold, ctx, batch
+    explain = dgcn_explain_phase(model, ctx, batch)
+    del model, batch
+    torch.cuda.empty_cache()
+    s11 = slice11_phases(fcfg, fold, X, tr, cohort, gen)
+    del fold, ctx
     torch.cuda.empty_cache()
     experiment, peak = dgcn_experiment_phase(root)
     torch.cuda.empty_cache()
     return dict(serve=serve, experiment=experiment, per_step=per_step, r3=r3, r1=r1,
-                step_kernel_ms=step_kernel_ms)
+                step_kernel_ms=step_kernel_ms, explain=explain, s11=s11)
+
+
+# ---- MultiOmixGCN on the DeeperGCN fold; DeeperGCN's explain; the
+# dynamic-graph blocks, MiNet and the dense blocks
+
+# whole forwards, kernels against plain versions (f32 trunk): max runs K3
+# only, which selects one of its inputs, so the forward and the step's
+# gradients are held to the plain ones (equal; TOL_F32).  softmax's weights
+# are shifted by their column's largest value, as JAX's pallas form does,
+# and a segment whose sum of exp lies at the edge of underflow gets weight
+# 0 from a sum of 0 and weights near 1 from a sum of one subnormal: the
+# 1e-7 differences of K1's sum order in one layer flip such segments in
+# the next (an H100 read 0.105 on the probabilities).  There each K1 call
+# of the forward and the step is held to its plain version on the same
+# inputs (PerCall) and the whole-forward difference is reported.
+TOL_PROB_MO = {"max": 0.0}
+MO_GRAD_BATCHES = (32, 16, 8, 4)  # the gradient's B: the largest that fits
+DYN_N, DYN_C, DYN_K = 15_405, 64, 9  # node slots, channels, the reference's k
+MINET = dict(in_nodes=15_405, gene_nodes=5_135, pathway_nodes=146)
+TOL_CARD_CPU = 1e-4  # times max(1, max|ref|): dense f32 products, card against CPU
+
+
+class PerCall:
+    """Inside this block every K1 and K3 call that ops.spmm makes with its
+    kernel is held against the plain version on the same inputs: K3 equal,
+    K1 within TOL_F32 (TOL_BF16 for bf16 rows) times max(1, max|ref|).
+    ``worst`` is the largest reading of each, ``tiny`` the K1 output
+    entries above 0 and below 1e-30 (sums of exp at the edge of
+    underflow)."""
+
+    def __enter__(self):
+        self.real = (spmm._k1, spmm._k3)
+        self.worst = {k1.KERNEL.name: 0.0, k3.KERNEL.name: 0.0}
+        self.calls = Counter()
+        self.tiny = 0
+        real_k1, real_k3 = self.real
+
+        def k1_both(plain):
+            fn = real_k1(plain)
+            if plain:
+                return fn
+
+            def both(x, w, plan, out=None):
+                base = out.clone() if out is not None else None
+                got = fn(x, w, plan, out)
+                ref = k1.segment_spmm_csr_plain(x, w, plan, base)
+                tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
+                self._record(k1.KERNEL.name, got, ref, tol)
+                self.tiny += int(((ref.abs() > 0) & (ref.abs() < 1e-30)).sum())
+                return got
+            return both
+
+        def k3_both(plain):
+            fn = real_k3(plain)
+            if plain:
+                return fn
+
+            def both(msg, plan):
+                got = fn(msg, plan)
+                self._record(k3.KERNEL.name, got, k3.segment_max_csr_plain(msg, plan), 0.0)
+                return got
+            return both
+
+        spmm._k1, spmm._k3 = k1_both, k3_both
+        return self
+
+    def _record(self, name, got, ref, tol):
+        e, m = err_of(got, ref)
+        rel = e / max(1.0, m)
+        self.calls[name] += 1
+        self.worst[name] = max(self.worst[name], rel)
+        if not rel <= tol:
+            raise AssertionError(f"{name} call {self.calls[name]}: {rel} against plain > {tol}")
+
+    def __exit__(self, *exc):
+        spmm._k1, spmm._k3 = self.real
+        return False
+
+    def summary(self):
+        return {"calls": dict(self.calls), "worst_rel_err": self.worst,
+                "tiny_sums": self.tiny}
+
+
+def expect_launches(phase, got, want):
+    if got != want:
+        raise AssertionError(f"{phase}: launches {got}, the code predicts {want}")
+
+
+def mo_launches(cfg, n_batches=1, step=False):
+    """K1 / K3 launches the code predicts for MultiOmixGCN: each omics
+    encoder runs L GENConvs and, under res+, L - 1 PathwayConvs; each conv's
+    max aggregation is one K3, its softmax two K1 (the denominators and the
+    weighted sum; the weights take no gradient unless t is learned, and
+    then their gather adds one K1 backward); a step adds each conv's
+    gather_src backward (K1)."""
+    L = cfg.num_layers
+    convs = 3 * (L + (L - 1 if cfg.block == "res+" else 0))
+    soft = cfg.gcn_aggr in ("softmax", "softmax_sg", "softmax_sum")
+    n_k1 = 2 * convs if soft else 0
+    if step:
+        n_k1 += convs + (convs if soft and cfg.learn_t and cfg.gcn_aggr != "softmax_sg" else 0)
+    return {k1.KERNEL.name: n_k1 * n_batches, k2.KERNEL.name: 0,
+            k3.KERNEL.name: (convs if cfg.gcn_aggr == "max" else 0) * n_batches, k4.name: 0}
+
+
+def mo_batches(X, attrs, cohort, idx, B):
+    """(Batch, pathway attrs by omics) of idx in chunks of B on the card,
+    the last padded; the three omics' (P, 2) attrs ride raw_data side by
+    side."""
+    from multilevel_gnn_tpu_torch.models.multiomix import OMIX_NAMES
+    from multilevel_gnn_tpu_torch.train.driver import iter_batches
+
+    raw = np.concatenate([attrs[o].cpu().numpy() for o in OMIX_NAMES], axis=-1)
+    for b in iter_batches(X, cohort.Y, cohort.ages, idx, B, "cuda", raw):
+        yield b, {o: b.raw_data[..., 2 * i: 2 * i + 2].contiguous()
+                  for i, o in enumerate(OMIX_NAMES)}
+
+
+def mo_fold_phase(cohort, fold):
+    """Cohort.multiomix_vnode_data on the DeeperGCN fold: per omics its
+    gene -> pathway-vnode edges, the pathway rows they reach, seconds."""
+    from multilevel_gnn_tpu_torch.models.multiomix import VnodeContext
+
+    t0 = time.perf_counter()
+    graphs, masks, attrs = cohort.multiomix_vnode_data(fold, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    edges = {o: g.n_edges for o, g in graphs.items()}
+    reached = {o: int(m.sum()) for o, m in masks.items()}
+    ok = all(e > 0 for e in edges.values()) and all(
+        0 < r <= cohort.n_pathways for r in reached.values())
+    emit({"phase": "multiomix_fold", "seconds": dt, "edges": edges,
+          "pathway_rows_reached": reached, "attrs_shape": list(attrs["mrna"].shape), "ok": ok})
+    if not ok:
+        raise AssertionError("multiomix_fold phase failed")
+    return VnodeContext(fold.ctx, graphs, masks), attrs
+
+
+def mo_kernel_phase(vctx, B, H, gen):
+    """The K3 / K1 forms of the pathway-vnode graph (mrna's) at F = B*H in
+    float32: K3 over its csr, K1 as edge_segment_sum's forward (softmax's
+    sums) and as gather_src's backward, against plain versions."""
+    g = vctx.pathway_graphs["mrna"]
+    E = g.num_padded_edges
+    msg = torch.randn(E, B * H, generator=gen, device="cuda")
+    r3 = {"vnode": {**time_k3(g, msg), "case": f"vnode csr F={B * H}"}}
+    emit({"phase": "k3_vnode", **r3["vnode"]})
+    ones = torch.ones(E, device="cuda")
+    r1 = {}
+    for case, plan in (("vnode_edge_segment_sum", g.dst_gather),
+                       ("vnode_gather_src_bwd", g.src_gather)):
+        r1[case] = time_k1(case, plan, msg, ones, False, gen)
+        emit({"phase": "k1_vnode", **r1[case]})
+    return r3, r1
+
+
+def mo_serve_phase(model, vctx, X, attrs, cohort):
+    """The eval forward over the N_PATIENTS serving patients in batches of
+    the config's B, counted (zeroed just before, read just after) against
+    mo_launches; every batch's probabilities with kernels against plain
+    versions; host ms a batch and profiler device ms of one full batch."""
+    cfg = model.cfg
+    batches = list(mo_batches(X, attrs, cohort, np.arange(N_PATIENTS), cfg.batch_size))
+    model.eval()
+    with torch.no_grad():
+        model(batches[0][0], vctx, batches[0][1])  # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        probs = [model(b, vctx, a)[0] for b, a in batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        with spmm.plain_versions():
+            refs = [model(b, vctx, a)[0] for b, a in batches]
+        with PerCall() as calls:
+            for b, a in batches:
+                model(b, vctx, a)
+        busy, n_kernels, rows = profiled(lambda: model(batches[0][0], vctx, batches[0][1]))
+    err = max(float((p - r).abs().max()) for p, r in zip(probs, refs))
+    want = mo_launches(cfg, len(batches))
+    prob = torch.cat([p[b.sample_mask] for p, (b, _) in zip(probs, batches)])
+    tol = TOL_PROB_MO.get(cfg.gcn_aggr)
+    ok = (prob.shape == (N_PATIENTS, 2) and bool(torch.isfinite(prob).all())
+          and float((prob.sum(-1) - 1).abs().max()) < 1e-5 and (tol is None or err <= tol))
+    phase = f"serve_multiomix_{cfg.gcn_aggr}"
+    emit({"phase": phase, "batches": len(batches), "patients": N_PATIENTS,
+          "ms_per_batch": wall * 1e3 / len(batches), "kernel_ms_per_batch": busy,
+          "kernels_per_batch": n_kernels, "port_kernel_ms_per_batch": port_kernel_ms(rows),
+          "launches": launches, "launches_expected": want,
+          "max_abs_err_prob_vs_plain": err, "tol": tol, "per_call": calls.summary(),
+          "top": top_rows(rows, 10), "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase} phase failed")
+    expect_launches(phase, launches, want)
+    return launches
+
+
+def mo_grads(model, vctx, batch, attrs, cw):
+    """One training-mode class-weighted BCE's loss and gradients (dropout
+    masks from a generator seeded alike on every call)."""
+    from multilevel_gnn_tpu_torch.train.step import classification_loss
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pred, _ = model(batch, vctx, attrs, gen)
+    loss = classification_loss(pred, batch.y, cw, batch.sample_mask, model.cfg)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def mo_grad_phase(model, vctx, X, attrs, cohort, tr, cw):
+    """One step's gradients at the largest B of MO_GRAD_BATCHES that fits,
+    counted against mo_launches(step=True), device ms and peak memory;
+    every kernel call of the step against its plain version on the same
+    inputs (PerCall); then the step with plain versions: per parameter
+    max|diff| / max|grad|, within TOL_F32 for max (reported for softmax,
+    see TOL_PROB_MO)."""
+    cfg = model.cfg
+    tried = []
+    for B in MO_GRAD_BATCHES:
+        batch, a = next(mo_batches(X, attrs, cohort, tr, B))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            zero_launches()
+            loss_k, gk = mo_grads(model, vctx, batch, a, cw)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            step_ms = cuda_ms(lambda: mo_grads(model, vctx, batch, a, cw), iters=3, warmup=1)
+            break
+        except torch.OutOfMemoryError:
+            tried.append(B)
+            model.zero_grad(set_to_none=True)
+    else:
+        raise AssertionError(f"train_grad_multiomix: no B of {MO_GRAD_BATCHES} fits")
+    with PerCall() as calls:
+        mo_grads(model, vctx, batch, a, cw)
+    with spmm.plain_versions():
+        loss_p, gp = mo_grads(model, vctx, batch, a, cw)
+    torch.cuda.synchronize()
+    rel = {n: float((gk[n] - gp[n]).abs().max()) / max(float(gp[n].abs().max()), 1e-30)
+           for n in gp}
+    worst = max(rel, key=rel.get)
+    names = {n for n, _ in model.named_parameters()}
+    want = mo_launches(cfg, step=True)
+    phase = f"train_grad_multiomix_{cfg.gcn_aggr}"
+    tol = TOL_F32 if cfg.gcn_aggr in TOL_PROB_MO else None
+    ok = (set(gk) == set(gp) == names
+          and all(bool(torch.isfinite(g).all()) for g in gk.values())
+          and (tol is None or (rel[worst] <= tol
+                               and abs(loss_k - loss_p) <= tol * max(1.0, abs(loss_p)))))
+    emit({"phase": phase, "batch": B, "batches_out_of_memory": tried, "loss": loss_k,
+          "loss_plain": loss_p, "worst_param": worst, "worst_rel_err": rel[worst],
+          "tol": tol, "per_call": calls.summary(),
+          "launches_per_step": launches, "launches_expected": want,
+          "step_event_ms": step_ms, "peak_mem_gb": peak,
+          "edge_tensor_gb": vctx.base.graph.num_padded_edges * B * cfg.hidden_channels * 4 / 1e9,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase}: kernels against plain versions")
+    expect_launches(phase, launches, want)
+    return launches
+
+
+def mo_phases(fcfg, fold, X, tr, cohort, gen):
+    """MultiOmixGCN at gbm.yaml's DeeperGCN widths (H = 128, 3 layers,
+    res+, layer norm, maxpool readout, pathway nodes; f32), served and
+    differentiated with gcn_aggr max, then softmax."""
+    from multilevel_gnn_tpu_torch.models.multiomix import MultiOmixGCN
+
+    vctx, attrs = mo_fold_phase(cohort, fold)
+    r3, r1 = mo_kernel_phase(vctx, fcfg.batch_size, fcfg.hidden_channels, gen)
+    cw = torch.as_tensor(fold.class_weight, dtype=torch.float32, device="cuda")
+    serve, per_step = {}, {}
+    for aggr in ("max", "softmax"):
+        cfg = fcfg.replace(model="multiomix", gcn_aggr=aggr)
+        model = MultiOmixGCN.for_vnode_data(cfg, vctx.pathway_graphs, attrs, device="cuda")
+        serve[f"serve_multiomix_{aggr}"] = mo_serve_phase(model, vctx, X, attrs, cohort)
+        per_step[f"multiomix_{aggr}"] = mo_grad_phase(model, vctx, X, attrs, cohort, tr, cw)
+        del model
+        torch.cuda.empty_cache()
+    return dict(serve=serve, per_step=per_step, r3=r3, r1=r1)
+
+
+def dgcn_explain_phase(model, ctx, batch):
+    """integrated_gradients of DeeperGCN (IG_STEPS steps, B = 32, bf16
+    trunk, gcn_aggr max) on its fold: launches per call against the code's
+    (each step K3 once a layer forward and K1 once a layer for gather_src's
+    backward; the frozen edge-id table takes none), device ms, peak memory,
+    kernels against plain versions (TOL_IG); then pathway_attributions
+    raises IndexError, as the JAX package's does."""
+    from multilevel_gnn_tpu_torch.train.explain import integrated_gradients, pathway_attributions
+
+    integrated_gradients(model, batch, ctx, steps=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_launches()
+    ig = integrated_gradients(model, batch, ctx, steps=IG_STEPS)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    busy, _, rows = profiled(lambda: integrated_gradients(model, batch, ctx, steps=IG_STEPS), 1)
+    with spmm.plain_versions():
+        ref = integrated_gradients(model, batch, ctx, steps=IG_STEPS)
+    torch.cuda.synchronize()
+    e, m = err_of(ig, ref)
+    trunk = "bf16" if model.cfg.compute_dtype else "f32"
+    L = model.cfg.num_layers
+    want = {k1.KERNEL.name: L * IG_STEPS, k2.KERNEL.name: 0, k3.KERNEL.name: L * IG_STEPS,
+            k4.name: 0}
+    try:
+        pathway_attributions(ig, ctx, model.cfg.pathway_num)
+        raised = None
+    except IndexError as exc:
+        raised = str(exc)
+    ok = (bool(torch.isfinite(ig).all()) and tuple(ig.shape) == tuple(batch.x.shape)
+          and m > 0 and e <= TOL_IG[trunk] * m and raised is not None)
+    emit({"phase": "explain_deepergcn", "steps": IG_STEPS, "batch": int(batch.x.shape[0]),
+          "trunk": trunk, "launches_per_call": launches, "launches_expected": want,
+          "device_ms_per_call": busy, "port_kernel_ms_per_call": port_kernel_ms(rows),
+          "peak_mem_mib": peak / 2**20, "max_abs_err_vs_plain": e, "ref_max": m,
+          "tol_rel": TOL_IG[trunk], "pathway_attributions_raised": raised,
+          "top": top_rows(rows, 8), "ok": ok})
+    if not ok:
+        raise AssertionError("explain_deepergcn phase failed")
+    expect_launches("explain_deepergcn", launches, want)
+    return launches
+
+
+def dyn_phase(gen):
+    """DynConv and ResDynBlock (conv edge) at N = DYN_N, C = DYN_C, k =
+    DYN_K: the kNN graph and its plans built on the card with synchronising
+    calls set to raise; forward and backward counted (K3 once, K1 twice:
+    the two edge gathers' backwards) and timed, against plain versions
+    (output equal, gradients within TOL_F32 of each one's largest); then
+    the K3 and K1 forms of the kNN plan."""
+    from multilevel_gnn_tpu_torch.nn.blocks import DynConv, ResDynBlock
+    from multilevel_gnn_tpu_torch.nn.conv import dynamic_graph
+    from multilevel_gnn_tpu_torch.ops.knn import knn_graph
+
+    x = torch.randn(DYN_N, DYN_C, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        s, r = knn_graph(x, DYN_K)
+        graph = dynamic_graph(s, r, DYN_N)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    counts = {}
+    want = {k1.KERNEL.name: 2, k2.KERNEL.name: 0, k3.KERNEL.name: 1, k4.name: 0}
+    for name, blk in (("DynConv", DynConv(DYN_C, DYN_C, DYN_K)),
+                      ("ResDynBlock", ResDynBlock(DYN_C, DYN_K))):
+        blk = blk.to("cuda")
+        cot = torch.randn(DYN_N, DYN_C, generator=gen, device="cuda")
+
+        def run():
+            xi = x.clone().requires_grad_(True)
+            blk.zero_grad(set_to_none=True)
+            out = blk(xi)
+            out.backward(cot)
+            return out.detach(), xi.grad, {n: p.grad for n, p in blk.named_parameters()}
+
+        run()
+        torch.cuda.synchronize()
+        zero_launches()
+        out, dx, grads = run()
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+        with spmm.plain_versions():
+            out_p, dx_p, grads_p = run()
+        rel = {n: float((grads[n] - grads_p[n]).abs().max()) / max(
+            float(grads_p[n].abs().max()), 1e-30) for n in grads_p}
+        rel["x"] = float((dx - dx_p).abs().max()) / max(float(dx_p.abs().max()), 1e-30)
+        ms = device_ms(run, iters=3)
+        ok = bool(torch.equal(out, out_p)) and max(rel.values()) <= TOL_F32
+        emit({"phase": f"dyn_{name}", "n": DYN_N, "c": DYN_C, "k": DYN_K,
+              "edges": graph.n_edges, "knn_plans_ms": build_ms,
+              "launches_fwd_bwd": counts[name], "launches_expected": want,
+              "out_equal_plain": bool(torch.equal(out, out_p)),
+              "grad_rel_err": max(rel.values()), "tol": TOL_F32,
+              "device_ms_fwd_bwd": ms, "ok": ok})
+        if not ok:
+            raise AssertionError(f"dyn_{name}: kernels against plain versions")
+        expect_launches(f"dyn_{name}", counts[name], want)
+    r3 = {"knn": {**time_k3(graph, torch.randn(graph.n_edges, DYN_C, generator=gen,
+                                                device="cuda")), "case": f"knn csr F={DYN_C}"}}
+    emit({"phase": "k3_knn", **r3["knn"]})
+    g = torch.randn(graph.n_edges, DYN_C, generator=gen, device="cuda")
+    ones = torch.ones(graph.n_edges, device="cuda")
+    r1 = {}
+    for case, plan in (("knn_gather_src_bwd", graph.src_gather),
+                       ("knn_gather_dst_bwd", graph.dst_gather)):
+        r1[case] = time_k1(case, plan, g, ones, False, gen)
+        emit({"phase": "k1_knn", **r1[case]})
+    return counts["DynConv"], r3, r1
+
+
+def minet_phase():
+    """OmicsNet at the cohort's sizes (MINET, B = 32, hidden 64 / 16) with
+    seeded connection masks (each gene its three omics inputs, each pathway
+    38 genes): the eval forward, and a training step with dropout masks
+    (scores, Cox loss, the moved running statistics, every gradient) on
+    the card against the CPU within TOL_CARD_CPU; the card's step ms."""
+    from multilevel_gnn_tpu_torch.models.minet import OmicsNet, dropout_mask, neg_partial_log_likelihood
+
+    I, G, P = MINET["in_nodes"], MINET["gene_nodes"], MINET["pathway_nodes"]
+    rng = np.random.RandomState(6)
+    gm = np.zeros((G, I), np.float32)
+    gm[np.repeat(np.arange(G), 3), rng.randint(0, I, 3 * G)] = 1.0
+    pm = np.zeros((P, G), np.float32)
+    pm[np.repeat(np.arange(P), 38), rng.randint(0, G, 38 * P)] = 1.0
+    data = dict(x=rng.randn(32, I).astype(np.float32), age=rng.rand(32).astype(np.float32),
+                gm=gm, pm=pm, m1=dropout_mask(rng, P, 0.3), m2=dropout_mask(rng, 64, 0.2))
+    time_ = rng.randint(1, 60, 32).astype(np.float32)
+    event = (rng.rand(32) < 0.7).astype(np.float32)
+    cpu = OmicsNet(I, G, P, device="cpu", seed=0)
+    card = copy.deepcopy(cpu).to("cuda")
+    out = {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+        m.eval()
+        with torch.no_grad():
+            ev = m(t["x"], t["age"], t["gm"], t["pm"])
+        m.train()
+
+        def step():
+            m.zero_grad(set_to_none=True)
+            risk = m(t["x"], t["age"], t["gm"], t["pm"], t["m1"], t["m2"], (0.3, 0.2))
+            loss = neg_partial_log_likelihood(risk, torch.as_tensor(time_, device=dev),
+                                              torch.as_tensor(event, device=dev))
+            loss.backward()
+            return risk, loss
+
+        risk, loss = step()
+        out[dev] = dict(eval=ev.cpu(), risk=risk.detach().cpu(), loss=float(loss.detach()),
+                        grads={n: p.grad.cpu() for n, p in m.named_parameters()},
+                        stats={n: b.cpu() for n, b in m.named_buffers()})
+    errs = {"eval": err_of(out["cuda"]["eval"], out["cpu"]["eval"]),
+            "risk": err_of(out["cuda"]["risk"], out["cpu"]["risk"])}
+    for kind in ("grads", "stats"):
+        for n, v in out["cpu"][kind].items():
+            errs[f"{kind}:{n}"] = err_of(out["cuda"][kind][n], v)
+    worst = max(errs, key=lambda k: errs[k][0] / max(1.0, errs[k][1]))
+    ok = (all(e <= TOL_CARD_CPU * max(1.0, m) for e, m in errs.values())
+          and abs(out["cuda"]["loss"] - out["cpu"]["loss"]) <= TOL_CARD_CPU * max(
+              1.0, abs(out["cpu"]["loss"])))
+    card.train()
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    yt, ye = torch.as_tensor(time_, device="cuda"), torch.as_tensor(event, device="cuda")
+
+    def card_step():
+        card.zero_grad(set_to_none=True)
+        risk = card(t["x"], t["age"], t["gm"], t["pm"], t["m1"], t["m2"], (0.3, 0.2))
+        neg_partial_log_likelihood(risk, yt, ye).backward()
+
+    emit({"phase": "minet", **MINET, "batch": 32, "loss": out["cuda"]["loss"],
+          "loss_cpu": out["cpu"]["loss"], "worst": worst, "worst_err": errs[worst][0],
+          "worst_ref_max": errs[worst][1], "tol": TOL_CARD_CPU,
+          "step_device_ms": device_ms(card_step, iters=5), "ok": ok})
+    if not ok:
+        raise AssertionError("minet: card against CPU")
+
+
+def dense_blocks_phase(gen):
+    """ResDynBlock2d and DenseDynBlock2d (edge conv, batch norm in eval) on
+    a (2, 64, 2048, 1) cloud, k 9: on one kNN edge index, the card against
+    the CPU within TOL_CARD_CPU; the card's forward with its own kNN, and
+    its device ms."""
+    from multilevel_gnn_tpu_torch.nn.dense_blocks import (
+        DenseDynBlock2d,
+        ResDynBlock2d,
+        dense_knn_matrix,
+    )
+
+    x = torch.randn(2, 64, 2048, 1, generator=gen, device="cuda")
+    ei = dense_knn_matrix(x, 9)
+    for name, make in (("ResDynBlock2d", lambda: ResDynBlock2d(64, 9, norm="batch")),
+                       ("DenseDynBlock2d", lambda: DenseDynBlock2d(64, 32, 9, norm="batch"))):
+        torch.manual_seed(0)
+        cpu = make().eval()
+        card = copy.deepcopy(cpu).to("cuda").eval()
+        with torch.no_grad():
+            ref = cpu(x.cpu(), ei.cpu())
+            got = card(x, ei)
+            own = card(x)
+        e, m = err_of(got.cpu(), ref)
+        ms = device_ms(lambda: card(x), iters=5)
+        ok = e <= TOL_CARD_CPU * max(1.0, m) and bool(torch.isfinite(own).all())
+        emit({"phase": f"dense_{name}", "shape": list(x.shape), "k": 9,
+              "max_abs_err_vs_cpu": e, "ref_max": m, "tol": TOL_CARD_CPU,
+              "out_shape": list(own.shape), "device_ms": ms, "ok": ok})
+        if not ok:
+            raise AssertionError(f"dense_{name}: card against CPU")
+
+
+def slice11_phases(fcfg, fold, X, tr, cohort, gen):
+    """MultiOmixGCN on the DeeperGCN fold, then the dynamic-graph blocks,
+    MiNet and the dense blocks."""
+    t0 = time.perf_counter()
+    mo = mo_phases(fcfg, fold, X, tr, cohort, gen)
+    torch.cuda.empty_cache()
+    dyn, r3, r1 = dyn_phase(gen)
+    minet_phase()
+    dense_blocks_phase(gen)
+    torch.cuda.empty_cache()
+    emit({"phase": "slice11", "seconds": time.perf_counter() - t0})
+    mo["r3"].update(r3)
+    mo["r1"].update(r1)
+    mo["per_step"]["dyn_conv"] = dyn
+    return mo
 
 
 # ---- PathCNN, the pretraining models and the VAE classifier on the GBM fold
@@ -2906,7 +3460,10 @@ def main() -> int:
         dg = deepergcn_phases(root, cohort, gen)
         paths["serve_deepergcn"] = dg["serve"]
         paths["experiment_deepergcn"] = dg["experiment"]
+        paths["explain_deepergcn"] = dg["explain"]
         per_step["deepergcn"] = dg["per_step"]
+        paths.update(dg["s11"]["serve"])
+        per_step.update(dg["s11"]["per_step"])
         del cohort
         # ---- STRING PPI tables beside the GRN list: edge_type ppi and merge
         from multilevel_gnn_tpu_torch.data.loaders import read_kegg_csv
@@ -2954,6 +3511,10 @@ def main() -> int:
                              r3[(cfg.batch_size * cfg.final_channels, "float32")]] + list(
         dg["r3"].values())
     forms[k1.KERNEL.name] += list(dg["r1"].values())
+    # MultiOmixGCN's pathway-vnode graph (f32, F = B*H) and the kNN plan
+    # built on the card (F = 64)
+    forms[k3.KERNEL.name] += list(dg["s11"]["r3"].values())
+    forms[k1.KERNEL.name] += list(dg["s11"]["r1"].values())
     # the forms of gat, gcn and gin on the GBM fold (kernel_zoo)
     forms[k1.KERNEL.name] += [r for key, r in rz.items() if key[0].startswith(("gat", "gcn_res"))]
     forms[k2.KERNEL.name] += [r for key, r in rz.items() if key[0] in ("gcn_k2", "gcn_k2_t",

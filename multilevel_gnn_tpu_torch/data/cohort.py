@@ -26,8 +26,9 @@ clinical data a dict of mappings {survive_time, survive_state, age} ->
 The gene-level variant for DeeperGCN (``gene_level_features`` :701-711,
 ``gene_level_graph`` :713-748, ``deepergcn_fold`` :750-775): per-gene
 omics rows, the gene graph both ways plus gene -> pathway-node edges with
-one-hot ids, and the per-pathway PCA attrs as the batches' side channel.
-MultiOmixGCN's fold is not ported.
+one-hot ids, and the per-pathway PCA attrs as the batches' side channel;
+MultiOmixGCN's per-omics gene -> pathway-vnode graphs, masks and attrs
+(``multiomix_vnode_data`` :777-821).
 """
 from __future__ import annotations
 
@@ -732,10 +733,11 @@ class Cohort:
         per-pathway PCA attrs (over the masked rows with
         cfg.mutual_info_pca), the gene-level graph (no self loops, no
         padding) and, with one-hot edge attrs, the edge-id lookup plan, on
-        ``device``; seconds by stage in ``seconds``.  The context's PCA-row
-        fields are empty: they index the 3-slot node layout, which this
-        graph does not have, and DeeperGCN reads none of them (JAX passes
-        the cohort's along unread)."""
+        ``device``; seconds by stage in ``seconds``.  The context carries
+        the cohort's gene_pca_match and raw_indice unread, as JAX's does:
+        they index the 3-slot node layout, which this graph does not have,
+        so explain's pathway_attributions fails on them as JAX's does
+        (IndexError); pca_rows and the PCA-row gather plan are empty."""
         cfg = self.cfg
         t0 = time.perf_counter()
         mask, mi = self.mutual_mask(train_idx, fold_i)
@@ -752,6 +754,10 @@ class Cohort:
             n_pathways=self.n_pathways, device=device,
             edge_vocab=max(self.pathway_edge_num, 1) if onehot else None,
         )
+        ctx = dataclasses.replace(
+            ctx,
+            gene_pca_match=torch.as_tensor(self.gene_pca_match, dtype=torch.int64).to(ctx.device),
+            raw_indice=torch.as_tensor(self.raw_indice, dtype=torch.int64).to(ctx.device))
         t_graph = time.perf_counter()
         pos = {p: i for i, p in enumerate(self.pca_patients)}
         attr = attr[[pos[p] for p in self.patients]]
@@ -767,3 +773,40 @@ class Cohort:
                      "edges": t_edges - t_pca, "graph": t_graph - t_edges},
             raw=attr.astype(np.float32),
         )
+
+    def multiomix_vnode_data(self, fold: FoldData, device="cuda"):
+        """MultiOmixGCN's per-omics data (cohort.py:777-821), on ``device``:
+        for mrna, cnv and mt, (graphs, masks, attrs) keyed by omics.  The
+        graph links every gene of a used pathway's NaN-free columns of that
+        omics (node_map index) to the pathway's virtual node (node_size +
+        pathway index), with the (E, 2) attrs of the pathway's first two
+        PCA components of that omics taken from patient 0 of the fold
+        (pn[0, pi, ...], as JAX takes them); it is receiver-sorted with its
+        K1 / K3 plans (Graph.with_sorted_meta).  An omics with no edge gets
+        an empty graph padded to 128 edge slots, without attrs.  masks:
+        (N, 1) float32, 1 at the pathway rows an edge reaches.  attrs:
+        (patients, P, 2) float32, every patient's two components."""
+        nm, n_genes, k = self.node_map, self.node_size, self.cfg.pca_dim
+        N = n_genes + self.n_pathways
+        pn = fold.pathway_node_attr  # (n, P, 3 * pca_dim)
+        graphs, masks, attrs = {}, {}, {}
+        for oi, name in enumerate(("mrna", "cnv", "mt")):
+            edges, eattrs = [], []
+            for pi, pathway in enumerate(self.used_pathways):
+                for c in self._pathway_columns(pathway, OMICS[oi]):
+                    if int(c) in nm:
+                        edges.append([nm[int(c)], n_genes + pi])
+                        eattrs.append(pn[0, pi, oi * k: oi * k + 2])
+            m = np.zeros((N, 1), np.float32)
+            if edges:
+                ei = np.array(edges, np.int32)
+                g = Graph.from_edges(ei.T, np.array(eattrs, np.float32), N)
+                m[ei[:, 1]] = 1.0
+            else:
+                g = Graph.from_edges(np.zeros((2, 0)), None, N, pad_to=128)
+            graphs[name] = g.with_sorted_meta(device)
+            masks[name] = torch.from_numpy(m).to(graphs[name].senders.device)
+            attrs[name] = torch.from_numpy(
+                np.ascontiguousarray(pn[:, :, oi * k: oi * k + 2], np.float32)
+            ).to(masks[name].device)
+        return graphs, masks, attrs

@@ -1,7 +1,5 @@
-"""Model registry (port of multilevel_gnn_tpu/models/__init__.py:5-27) for
-the models the port has."""
-
-_NOT_PORTED = ("multiomix", "mulitomix_gcn", "multiomix_gcn")
+"""Model registry (port of multilevel_gnn_tpu/models/__init__.py:5-27).
+MiNet stays outside it, as in JAX: use models.minet.OmicsNet directly."""
 
 
 def get_model(name: str):
@@ -9,6 +7,7 @@ def get_model(name: str):
     from multilevel_gnn_tpu_torch.models.autoencoder import AutoEncoder
     from multilevel_gnn_tpu_torch.models.deepergcn import DeeperGCN
     from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
+    from multilevel_gnn_tpu_torch.models.multiomix import MultiOmixGCN
     from multilevel_gnn_tpu_torch.models.pathcnn import PathCNN
     from multilevel_gnn_tpu_torch.models.vae import VAE, VAEClassifier
     from multilevel_gnn_tpu_torch.models.vq_vae import VQVAE
@@ -20,28 +19,27 @@ def get_model(name: str):
         "multilevel_gnn_seq": MultilevelGNN,
         "pathcnn": PathCNN,
         "deepergcn": DeeperGCN,
+        "multiomix": MultiOmixGCN,
+        "mulitomix_gcn": MultiOmixGCN,
+        "multiomix_gcn": MultiOmixGCN,
         "autoencoder": AutoEncoder,
         "vae": VAE,
         "mmd_vae": VAE,
         "vq_vae": VQVAE,
     }
     if name not in registry:
-        raise NotImplementedError(
-            f"model {name!r} is not ported (ported: {sorted(registry)}; "
-            f"not yet: {', '.join(_NOT_PORTED)})")
+        raise NotImplementedError(f"model {name!r} is not known (models: {sorted(registry)})")
     return registry[name]
 
 
-def require_multilevel_gnn(model, what: str) -> None:
-    """Refuse ``what`` (export, explain) of a model other than
-    MultilevelGNN.  The JAX package's export and explain call a model on a
-    batch of x and age and unpack two outputs, and fail for PathCNN
-    (batch.raw_data is None: TypeError or AttributeError) and for
-    VAEClassifier (three outputs: ValueError); the port raises those
-    kinds, and NotImplementedError for the models it has not ported these
-    for (DeeperGCN)."""
-    from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
-
+def refuse_unsupported(model, what: str) -> None:
+    """Raise as the JAX package's ``what`` (export, explain) fails for a
+    model whose forward a batch of x and age cannot drive: PathCNN
+    (batch.raw_data is None: TypeError or AttributeError) and
+    VAEClassifier (three outputs where two are unpacked: ValueError).
+    MultilevelGNN and DeeperGCN pass; DeeperGCN's export then fails in
+    its forward, which unpacks a 3-D x (ValueError), and its explain CLI
+    in pathway_attributions (IndexError), as JAX's do."""
     name = model.cfg.model
     if name == "pathcnn":
         raise TypeError(f"{what} of model 'pathcnn': its forward reads batch.raw_data, "
@@ -49,5 +47,3 @@ def require_multilevel_gnn(model, what: str) -> None:
     if name == "vae_finetune":
         raise ValueError(f"{what} of model 'vae_finetune': its forward returns three "
                          "outputs, where two are unpacked")
-    if type(model) is not MultilevelGNN:
-        raise NotImplementedError(f"{what} of model {name!r} is not ported")

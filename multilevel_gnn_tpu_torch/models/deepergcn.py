@@ -18,6 +18,9 @@ cfg.compute_dtype.  Parameter names follow the flax module paths
 interop.py.  The model returns (probabilities, None): no feature losses
 apply (JAX train/step.py:186-205).
 
+pca_only runs as JAX runs it: its GENConvs get the P pathway rows over
+the N-node graph and raise (DeeperGCN._encode_pca_only).
+
 Kept from the JAX package: every pathway row takes node-embedding row 0
 (:138-147) before the pathway rows are replaced; the MSA readout
 normalises the pathway axis with the current batch's statistics, padded
@@ -126,10 +129,6 @@ class TransformerEncoderLayer(nn.Module):
 
 
 def check_supported(cfg: Config) -> None:
-    if cfg.pca_only:
-        # JAX runs its GENConvs (pca_only not passed on) over the N-node
-        # graph on the P pathway rows alone (deepergcn.py:189-190, :206-217)
-        raise NotImplementedError("DeeperGCN pca_only is not ported (ROADMAP section 3)")
     if cfg.block not in ("res+", "res", "plain"):
         raise NotImplementedError(f"DeeperGCN block {cfg.block!r}")
     if cfg.pathway_global_node and cfg.pathway_readout not in (None, "MSA", "maxpool"):
@@ -238,8 +237,10 @@ class DeeperGCN(nn.Module):
         """(h (N, B, H) in the compute dtype, edge features (E, H) or None)
         ahead of the GENConv stack."""
         cfg, P = self.cfg, self.P
+        B, N, _ = batch.x.shape  # a (B, NODES) x raises here, as in JAX (:120)
+        if cfg.pca_only:
+            return self._encode_pca_only(batch), None
         x = batch.x.transpose(0, 1)  # (N, B, omics)
-        N, B = x.shape[0], x.shape[1]
         if self.node_embedding_encoder is not None:
             table = self.node_embedding_encoder.embedding
             # pathway rows take embedding row 0 (the reference's quirk)
@@ -255,6 +256,18 @@ class DeeperGCN(nn.Module):
             h = h.to(cdt)
             e = e.to(cdt) if e is not None else None
         return h, e
+
+    def _encode_pca_only(self, batch: Batch):
+        """pca_only (deepergcn.py:125-190): relu of the encoded pathway
+        attrs, (P, B, H), or None without them.  The GENConvs, which are
+        not told pca_only, then meet P rows over the N-node graph and
+        raise TypeError at x + m (GENConv.forward); with h None they
+        raise AttributeError, as JAX's pallas backend does."""
+        if not (self.cfg.pathway_global_node and batch.raw_data is not None):
+            return None
+        h = torch.relu(self.pathway_features_encoder(batch.raw_data.transpose(0, 1)))
+        cdt = compute_dtype(self.cfg)
+        return h.to(cdt) if cdt is not None else h
 
     def stack(self, h, graph, e, generator=None):
         """The GENConv blocks (deepergcn.py:226-263); returns float32."""

@@ -448,8 +448,8 @@ def get_feature_loss(
 def seed_pca_params(model: MultilevelGNN, pca_seed: torch.Tensor) -> None:
     """Replace the learnable PCA params with the PCA-seeded value in place
     (multilevel_gnn.py:457-470, reference set_pca_params)."""
-    p = model.learnable_pca_params
-    if p is None:  # a runtime PCA reduction has no PCA params
+    p = getattr(model, "learnable_pca_params", None)
+    if p is None:  # a runtime PCA reduction, or a model without PCA params
         return
     if tuple(p.shape) != tuple(pca_seed.shape):
         raise ValueError(f"pca_seed {tuple(pca_seed.shape)} vs params {tuple(p.shape)}")

@@ -1,7 +1,7 @@
 """Basic NN primitives (port of multilevel_gnn_tpu/nn/basic.py:
 torch_linear_init :17, act :32, BatchNorm1d :54, Norm :81 with flax's
-LayerNorm, Linear :116, EmbedTable :140, onehot_embed :161, MLP :197) and
-flax's Dropout.
+LayerNorm, Linear :116, EmbedTable :140, onehot_embed :161, MLP :197),
+flax's Dropout and flax's training BatchNorm.
 
 Initialisers follow the JAX package's: torch's nn.Linear default
 (U(+-1/sqrt(fan_in)) for weight and bias, torch_linear_init) or
@@ -233,6 +233,37 @@ def BatchNorm1d(features: int, dtype: Optional[torch.dtype] = None) -> Norm:
     """BatchNorm over all leading axes (basic.py:54-78): Norm('batch'), whose
     scale, bias, mean and var carry flax's names; eval mode only."""
     return Norm("batch", features, dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax.linen.BatchNorm in float32 over every axis but the last: in
+    training mode it normalises with the batch's mean and (biased) variance
+    E[x^2] - E[x]^2 and moves the running statistics, ra = momentum * ra +
+    (1 - momentum) * batch (flax's batch_stats, here the buffers mean and
+    var, mutated in place); in eval mode it reads the running ones.  The
+    models that train it (MiNet, the dense blocks) call flax's directly;
+    the cohort models' Norm('batch') cannot train, as in JAX."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return flax_normalize(x, self.mean, self.var, self.scale, self.bias, self.eps,
+                                  torch.float32)
+        xs = x.float().reshape(-1, x.shape[-1])
+        mean = xs.mean(0)
+        var = torch.clamp((xs * xs).mean(0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+            self.var.copy_(m * self.var + (1.0 - m) * var)
+        return flax_normalize(x, mean, var, self.scale, self.bias, self.eps, torch.float32)
 
 
 class EmbedTable(nn.Module):

@@ -1,8 +1,8 @@
 """The graph convolutions of the port (port of multilevel_gnn_tpu/nn/conv.py:
-MsgNorm :39-54, GenAggregate :57-142, GENConv :145-213, RSAGEConv
-:255-313, GCNConv :316-350, GATConv :353-414 (its pallas branch),
-GINConv :417-441, MRConv :444-475, EdgeConv :478-510, and GraphConvLayer
-:526-595).
+MsgNorm :39-54, GenAggregate :57-142, GENConv :145-213, PathwayConv
+:216-252, RSAGEConv :255-313, GCNConv :316-350, GATConv :353-414 (its
+pallas branch), GINConv :417-441, MRConv :444-475, EdgeConv :478-510,
+dynamic_graph :513-523 and GraphConvLayer :526-595).
 
 x is node-major, (N, B, C).  SAGE: the per-edge transform is commuted past
 the (linear) mean aggregation: aggr = lin_r(segment_mean(x_j * attr)), one
@@ -36,6 +36,7 @@ from multilevel_gnn_tpu_torch.nn.basic import (
     xavier_bound,
 )
 from multilevel_gnn_tpu_torch.ops import spmm
+from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
 
 SOFTMAX_AGGRS = ("softmax", "softmax_sg", "softmax_sum")
 POWER_AGGRS = ("power", "power_sum")
@@ -195,6 +196,10 @@ class GENConv(nn.Module):
             x = x.to(self.dtype)
         if self.pca_only:
             return self._encode(x, generator)
+        if x.shape[0] != graph.n_nodes:
+            # JAX gathers clamped rows and fails at h = x + m (conv.py:212)
+            raise TypeError(f"add got incompatible shapes for broadcasting: x has "
+                            f"{x.shape[0]} node rows, the aggregate {graph.n_nodes}")
         e = edge_attr
         if self.edge_encoder is not None and edge_attr is not None:
             e = self.edge_encoder(edge_attr)
@@ -396,6 +401,49 @@ class GINConv(nn.Module):
         return self.nn(h, generator)
 
 
+class PathwayConv(nn.Module):
+    """Outer-product-message conv (conv.py:216-252) on node-major x
+    (N, B, C), float32: each message is x_j outer the edge's raw (E, A)
+    attrs, flattened to C * A and taken through msg_encoder, a Linear
+    (C * A -> C) (x_j alone without attrs, and then no msg_encoder, as
+    flax creates none); m = GenAggregate(msg) (K3 for max, K1 for the
+    sums); out = relu(MLP(x + m)) with an MLP [C, 2 C, ..., emb] (norm
+    after every Linear but the last), times the (N, 1) mask."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        emb_dim: int,
+        edge_feat_dim: Optional[int] = 2,
+        aggr: str = "softmax",
+        t: float = 1.0,
+        learn_t: bool = False,
+        norm_type: str = "batch",
+        mlp_layers: int = 2,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.msg_encoder = (Linear(in_dim * edge_feat_dim, in_dim, generator=generator)
+                            if edge_feat_dim is not None else None)
+        self.aggregate = GenAggregate(aggr, t, learn_t)
+        chans = [in_dim] + [in_dim * 2] * (mlp_layers - 1) + [emb_dim]
+        self.mlp = MLP(chans, norm_type=norm_type, last_lin=True, generator=generator)
+
+    def forward(self, x, graph: Graph, edge_attr=None, mask=None, generator=None):
+        msg = spmm.gather_src(x.contiguous(), graph)
+        if edge_attr is not None:
+            if self.msg_encoder is None:
+                raise ValueError("this PathwayConv was built without edge attrs")
+            shape = (-1,) + (1,) * (msg.dim() - 2) + (1, edge_attr.shape[-1])
+            outer = msg[..., :, None] * edge_attr.reshape(shape)
+            msg = self.msg_encoder(outer.flatten(-2))
+        m = self.aggregate(msg, graph)
+        out = torch.relu(self.mlp(x + m, generator))
+        if mask is not None:
+            out = out * mask.reshape((-1,) + (1,) * (out.dim() - 1))
+        return out
+
+
 def _node_rows(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """x in the compute dtype with whole node rows contiguous: the edge
     gathers copy node rows, and index_select takes its vectorized kernel
@@ -457,6 +505,36 @@ class EdgeConv(_MaxConv):
         return spmm.edge_segment_max(
             msg, graph.receivers, graph.edge_mask, graph.csr
         )
+
+
+def dynamic_graph(senders: torch.Tensor, receivers: torch.Tensor, n_nodes: int) -> Graph:
+    """A Graph of edges made on the device (conv.py:513-523), such as
+    ops.knn.knn_graph's, with every plan the convs read built there from
+    the tensors and their shapes, without a copy to the host: receivers
+    must be sorted (knn_graph's are), so csr and dst_gather need no sort;
+    csc and src_gather come from a stable sort of the senders.  Every edge
+    is real; the JAX package runs such a graph on XLA, the port on K1 and
+    K3."""
+    dev = senders.device
+    s, r = senders.long(), receivers.long()
+    E = int(s.shape[0])
+    eid = torch.arange(E, device=dev)
+    order = torch.argsort(s, stable=True)
+    s_sorted, r_by_s = s.index_select(0, order), r.index_select(0, order)
+    csr = CSRPlan.on_device(r, s, eid, n_nodes, n_nodes - 1)
+    deg = (csr.rowptr[1:] - csr.rowptr[:-1]).float()
+    dinv = torch.rsqrt(deg + 1.0)
+    return Graph(
+        senders=s, receivers=r, edge_attr=None,
+        edge_mask=torch.ones(E, dtype=torch.bool, device=dev),
+        n_nodes=int(n_nodes), n_edges=E, csr=csr,
+        csc=CSRPlan.on_device(s_sorted, r_by_s, order, n_nodes, n_nodes - 1),
+        src_gather=CSRPlan.on_device(s_sorted, order, order, n_nodes, E - 1),
+        dst_gather=CSRPlan.on_device(r, eid, eid, n_nodes, E - 1),
+        in_deg=deg,
+        gcn_coef=dinv.index_select(0, s) * dinv.index_select(0, r),
+        gcn_self=dinv * dinv,
+    )
 
 
 class GraphConvLayer(nn.Module):

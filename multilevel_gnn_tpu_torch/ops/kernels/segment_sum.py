@@ -135,6 +135,23 @@ class CSRPlan:
         rows = np.arange(len(idx))
         return CSRPlan.build(idx, rows, rows, n_rows)
 
+    @staticmethod
+    def on_device(rows: torch.Tensor, cols: torch.Tensor, eids: torch.Tensor,
+                  n_rows: int, max_col: int) -> "CSRPlan":
+        """The plan of entries already sorted by row, built on their device
+        without a copy to the host (dynamic_graph's knn edges): rowptr by
+        a binary search of the rows, every row a warp item (a warp sums a
+        row of any length; no long-row blocks), max_col the caller's bound
+        on cols, max_eid the last entry's position."""
+        dev = rows.device
+        rowptr = torch.searchsorted(rows, torch.arange(n_rows + 1, device=dev))
+        items = torch.arange(n_rows, device=dev, dtype=torch.int32)
+        return CSRPlan(
+            rowptr=rowptr.int(), col=cols.int(), eid=eids.int(), row=rows.int(),
+            items=items, long_rows=items[:0], n_rows=int(n_rows), n_busy=int(n_rows),
+            max_col=int(max_col), max_eid=int(rows.shape[0]) - 1,
+        )
+
     @property
     def nnz(self) -> int:
         return int(self.col.shape[0])

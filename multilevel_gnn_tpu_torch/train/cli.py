@@ -1,14 +1,15 @@
 """Train CLI of the port (counterpart of multilevel_gnn_tpu/train/cli.py):
 
     python -m multilevel_gnn_tpu_torch.train.cli --config configs/gbm.yaml \\
-        (--data-dir DIR | --synthetic) [--set key=value ...] [--device cpu] \\
+        [--data-dir DIR | --synthetic] [--set key=value ...] [--device cpu] \\
         [--ckpt-dir DIR [--resume]] [--profile-dir DIR] \\
         [--pretrain {autoencoder,vae,mmd_vae,vq_vae} [--pretrain-epochs N]]
 
 Runs run_experiment, the num_run x 5-fold protocol, on a cohort read from
 reference-format files under --data-dir (or on a generated one with
---synthetic) and prints one JSON line: the pooled AUC / ACC at the last
-check epoch and the wall time.  --out writes the whole result.  The device
+--synthetic, which wins when both are given; with neither, under the
+config's data_dir, as the JAX CLI reads it) and prints one JSON line: the
+pooled AUC / ACC at the last check epoch and the wall time.  --out writes the whole result.  The device
 is CUDA unless --device cpu is given; the kernels (on CUDA) and the data
 libraries are built first, and the line gives each build's seconds (0.0
 for one found built, as after the warm CLI, train/warm.py).  --ckpt-dir checkpoints every fold
@@ -118,9 +119,8 @@ def main(argv=None) -> dict:
     """Run the protocol; prints the summary line and returns the result."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
-    src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--synthetic", action="store_true")
-    src.add_argument("--data-dir", default=None)
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--data-dir", default=None)
     ap.add_argument("--debug", action="store_true", help="tiny fast settings")
     ap.add_argument("--out", default=None, help="results json path")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -145,10 +145,12 @@ def main(argv=None) -> dict:
     from multilevel_gnn_tpu_torch.train.warm import warm_builds
     from multilevel_gnn_tpu_torch.utils.profiling import trace
 
+    cfg = Config.from_yaml(args.config, **parse_overrides(args.set))
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
     device = resolve_device(args.device)
     # every kernel and data library at once, before the cohort is read
     builds = warm_builds(device)
-    cfg = Config.from_yaml(args.config, **parse_overrides(args.set))
     if args.debug:
         cfg = cfg.replace(num_run=1, epochs=5, batch_size=8)
     cohort = make_cohort(cfg, args.synthetic, args.data_dir, args.debug)
@@ -173,6 +175,12 @@ def main(argv=None) -> dict:
         with open(args.out, "w") as f:
             json.dump({**results, "config": dataclasses.asdict(cfg)}, f, indent=2)
     return results
+
+
+def script() -> None:
+    """The mgtpu-torch-train console script: main() with sys.argv, its
+    return value dropped (sys.exit would report a dict as an error)."""
+    main()
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.models import get_model
 from multilevel_gnn_tpu_torch.models.deepergcn import DeeperGCN, apply_init_weight
+from multilevel_gnn_tpu_torch.models.multiomix import MultiOmixGCN
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import seed_pca_params
 from multilevel_gnn_tpu_torch.train import checkpoint as C
 from multilevel_gnn_tpu_torch.train import metrics as M
@@ -185,6 +186,8 @@ def _new_model(cfg: Config, ctx: FoldContext, seed: int) -> torch.nn.Module:
     all_init / head_init, as driver.py:327-334 does (the tests replace
     this function to start from the JAX package's parameters)."""
     cls = get_model(cfg.model)
+    if cls is MultiOmixGCN:
+        return cls(cfg, device=ctx.device, seed=seed)
     if cls is not DeeperGCN:
         return cls(cfg, ctx.graph.n_nodes, ctx.num_pca_rows, device=ctx.device, seed=seed)
     model = DeeperGCN(cfg, device=ctx.device, seed=seed)

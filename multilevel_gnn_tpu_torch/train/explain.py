@@ -3,7 +3,7 @@ multilevel_gnn_tpu/train/explain.py: integrated_gradients :57-82,
 pathway_attributions :85-96, explain_cohort :99-116, main :119-213).
 
     python -m multilevel_gnn_tpu_torch.train.explain --config configs/gbm.yaml \\
-        --ckpt-dir DIR (--data-dir DIR | --synthetic) [--run 0 --fold 0] \\
+        --ckpt-dir DIR [--data-dir DIR | --synthetic] [--run 0 --fold 0] \\
         [--step E] [--split test] [--ig-steps 16] [--top 20] \\
         [--out rows.json] [--set key=value ...] [--device cpu]
 
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext
-from multilevel_gnn_tpu_torch.models import require_multilevel_gnn
+from multilevel_gnn_tpu_torch.models import refuse_unsupported
 from multilevel_gnn_tpu_torch.utils.survival import pathway_km_screen
 
 
@@ -39,9 +39,9 @@ def integrated_gradients(
     mask).  One forward and backward at a time, the gradients added in
     place, so memory holds one step's activations; the parameters take no
     gradient meanwhile, so the backward computes the input's only.
-    Returns (B, NODES).  Only MultilevelGNN is explained (DeeperGCN's
-    attributions are not ported yet)."""
-    require_multilevel_gnn(model, "explain")
+    batch.raw_data rides along unchanged, as in JAX (:34-35).  Returns
+    x's shape: (B, NODES), or DeeperGCN's (B, N, omics)."""
+    refuse_unsupported(model, "explain")
     x = batch.x.detach()
     x0 = torch.zeros_like(x) if baseline is None else baseline
     alphas = ((np.arange(steps) + 0.5) / steps).astype(np.float32)
@@ -55,7 +55,8 @@ def integrated_gradients(
         for a in alphas:
             xi = (x0 + torch.tensor(a, dtype=x.dtype, device=x.device) * (x - x0))
             xi.requires_grad_(True)
-            b = Batch(x=xi, y=batch.y, age=batch.age, sample_mask=batch.sample_mask)
+            b = Batch(x=xi, y=batch.y, age=batch.age, sample_mask=batch.sample_mask,
+                      raw_data=batch.raw_data)
             pred, _ = model(b, ctx)
             (g,) = torch.autograd.grad(pred[:, target_col].sum(), xi)
             total += g
@@ -69,7 +70,9 @@ def integrated_gradients(
 def pathway_attributions(attributions, ctx: FoldContext, n_pathways: int) -> np.ndarray:
     """(B, NODES) node-slot attributions -> (B, P) pathway scores:
     |attribution| summed over each pathway's member genes through the
-    PCA-row mapping."""
+    PCA-row mapping.  DeeperGCN's (B, N, omics) attributions meet a
+    mapping into the 3-slot node space and raise IndexError, as JAX's
+    do (:94)."""
     att = np.abs(torch.as_tensor(attributions).detach().cpu().numpy())
     match = ctx.gene_pca_match.cpu().numpy()
     slot = ctx.raw_indice.cpu().numpy() // 3  # pathway of each PCA row
@@ -134,9 +137,8 @@ def main(argv=None) -> Dict:
                     help="integrated-gradients midpoint steps")
     ap.add_argument("--top", type=int, default=20,
                     help="pathways printed (all rows go to --out)")
-    src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--synthetic", action="store_true")
-    src.add_argument("--data-dir", default=None)
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--data-dir", default=None)
     ap.add_argument("--debug", action="store_true")
     ap.add_argument("--out", default=None, help="attribution rows json path")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -172,6 +174,12 @@ def main(argv=None) -> Dict:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=2)
     return {"rows": rows, "scores": scores, "patients": pats}
+
+
+def script() -> None:
+    """The mgtpu-torch-explain console script: main() with sys.argv, its
+    return value dropped (sys.exit would report a dict as an error)."""
+    main()
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ only.  The format and the loader, which needs no model code, are in
 ``multilevel_gnn_tpu_torch/artifact.py``.
 
     python -m multilevel_gnn_tpu_torch.train.export --config configs/gbm.yaml \\
-        --ckpt-dir CKPT (--data-dir DIR | --synthetic) [--run 0 --fold 0] \\
+        --ckpt-dir CKPT [--data-dir DIR | --synthetic] [--run 0 --fold 0] \\
         [--step E] [--batch-size B] --out EXPORT_DIR [--device cpu]
 
 The CLI ends with JAX's self-check: the artifact, loaded again, scores a
@@ -33,7 +33,7 @@ from torch import nn
 
 from multilevel_gnn_tpu_torch.artifact import load_exported, save_exported
 from multilevel_gnn_tpu_torch.core.batch import Batch
-from multilevel_gnn_tpu_torch.models import require_multilevel_gnn
+from multilevel_gnn_tpu_torch.models import refuse_unsupported
 
 __all__ = ["export_fold", "export_program", "save_exported", "load_exported", "main"]
 
@@ -83,9 +83,10 @@ class FoldInference(nn.Module):
 def export_program(model: nn.Module, ctx, batch_size: int, n_nodes: int):
     """torch.export program of FoldInference(model, ctx) at a fixed batch
     size, traced under torch.no_grad(); the model is put in eval mode and
-    its parameters frozen (requires_grad False).  Only MultilevelGNN is
-    exported (DeeperGCN's export is not ported yet)."""
-    require_multilevel_gnn(model, "export")
+    its parameters frozen (requires_grad False).  x is (B, n_nodes), as
+    JAX's export_fold gives it (:73), so DeeperGCN, which unpacks a 3-D
+    x, raises ValueError in its forward, as JAX's does."""
+    refuse_unsupported(model, "export")
     model.eval()
     for p in model.parameters():
         p.requires_grad_(False)
@@ -148,9 +149,8 @@ def main(argv=None) -> Dict:
                     help="serving batch size baked into the artifact "
                          "(default: the config's training batch size)")
     ap.add_argument("--out", required=True, help="export directory")
-    src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--synthetic", action="store_true")
-    src.add_argument("--data-dir", default=None)
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--data-dir", default=None)
     ap.add_argument("--debug", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--set", nargs="*", default=[], help="key=value overrides")
@@ -191,6 +191,12 @@ def main(argv=None) -> Dict:
             "selfcheck_max_abs_diff": float((probs - live).abs().max())}
     print(json.dumps(line), flush=True)
     return line
+
+
+def script() -> None:
+    """The mgtpu-torch-export console script: main() with sys.argv, its
+    return value dropped (sys.exit would report a dict as an error)."""
+    main()
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ load_fold_state :29-96, predict_fold :99-133, main :136-181), and scoring a
 patient set with a model already in memory (predict_patients).
 
     python -m multilevel_gnn_tpu_torch.train.predict --config configs/gbm.yaml \\
-        --ckpt-dir DIR (--data-dir DIR | --synthetic) [--run 0 --fold 0] \\
+        --ckpt-dir DIR [--data-dir DIR | --synthetic] [--run 0 --fold 0] \\
         [--step E] [--split test|valid|train|all] [--out preds.json] \\
         [--set key=value ...] [--device cpu]
 
@@ -120,9 +120,8 @@ def main(argv=None) -> Dict:
                     help="checkpoint step (default: latest)")
     ap.add_argument("--split", default="test",
                     choices=["test", "valid", "train", "all"])
-    src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--synthetic", action="store_true")
-    src.add_argument("--data-dir", default=None)
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--data-dir", default=None)
     ap.add_argument("--debug", action="store_true")
     ap.add_argument("--out", default=None, help="predictions json path")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -147,6 +146,12 @@ def main(argv=None) -> Dict:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=2)
     return res
+
+
+def script() -> None:
+    """The mgtpu-torch-predict console script: main() with sys.argv, its
+    return value dropped (sys.exit would report a dict as an error)."""
+    main()
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ cold cost is three builds, each kept for the next process:
 ``warm_experiment`` does all three without a training step.
 
     python -m multilevel_gnn_tpu_torch.train.warm --config configs/gbm.yaml \\
-        (--data-dir DIR | --synthetic) [--set key=value ...] [--device cpu]
+        [--data-dir DIR | --synthetic] [--set key=value ...] [--device cpu]
 """
 from __future__ import annotations
 
@@ -72,10 +72,9 @@ def main(argv=None) -> Dict:
         description="build the kernels and data libraries and derive fold 0 "
         "(no training step is run)")
     ap.add_argument("--config", required=True)
-    src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--synthetic", action="store_true",
-                     help="warm against a synthetic cohort (as the train CLI)")
-    src.add_argument("--data-dir", default=None)
+    ap.add_argument("--synthetic", action="store_true",
+                    help="warm against a synthetic cohort (as the train CLI)")
+    ap.add_argument("--data-dir", default=None)
     ap.add_argument("--debug", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--set", nargs="*", default=[], help="key=value overrides")
@@ -94,6 +93,12 @@ def main(argv=None) -> Dict:
     out = warm_experiment(cfg, cohort, device)
     print(json.dumps(out), flush=True)
     return out
+
+
+def script() -> None:
+    """The mgtpu-torch-warm console script: main() with sys.argv, its
+    return value dropped (sys.exit would report a dict as an error)."""
+    main()
 
 
 if __name__ == "__main__":

@@ -364,5 +364,6 @@ def test_get_model_names_the_ported_models():
     assert get_model("deepergcn").__name__ == "DeeperGCN"
     assert get_model("multilevel_gnn").__name__ == "MultilevelGNN"
     assert get_model("pathcnn").__name__ == "PathCNN"
-    with pytest.raises(NotImplementedError, match="multiomix"):
-        get_model("multiomix")
+    assert get_model("multiomix").__name__ == "MultiOmixGCN"
+    with pytest.raises(NotImplementedError, match="minet"):
+        get_model("minet")  # outside the registry, as in JAX

@@ -12,8 +12,9 @@ plain versions on the CPU.
 - the bf16 trunk (the slice's config: res+, maxpool, max) against JAX's
   bf16: the GENConv residue of test_torch_deepergcn.py, through three
   layers, held at twice its reading (BF16_EVAL_RESIDUE).
-- the model's options that the port does not run raise (pca_only, whose
-  JAX form runs the GENConvs on the P pathway rows over the N-node graph).
+- the options that JAX's model rejects raise when the port's is built (an
+  unknown aggregator, block or readout); pca_only, which JAX runs into an
+  error, is held in test_torch_deepergcn_workflows.py.
 
 The third batch holds two padding rows, which the MSA readout's batch
 statistics take in, as JAX's do.  Losses are compared relative to
@@ -174,7 +175,7 @@ def test_eval_bf16_within_residue_of_jax_bf16():
     assert np.abs(pl - jl).max() <= BF16_EVAL_RESIDUE * max(1.0, np.abs(jl).max())
 
 
-@pytest.mark.parametrize("option", [dict(pca_only=True), dict(block="dense"),
+@pytest.mark.parametrize("option", [dict(gcn_aggr="lstm"), dict(block="dense"),
                                     dict(pathway_readout="sum")])
 def test_options_outside_the_port_raise(option):
     with pytest.raises(NotImplementedError):

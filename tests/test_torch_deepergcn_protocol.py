@@ -24,7 +24,10 @@ under gbm.yaml with model=deepergcn at small widths (f32, dropout off).
   largest deviation falls to 3.7e-5 (NO_TIE_RESIDUE).
 - the train CLI with --ckpt-dir, then the predict CLI on fold 2's
   checkpoint: its test probabilities equal the fold's last-epoch test
-  scores and predict_fold's; explain and export raise for DeeperGCN.
+  scores and predict_fold's; integrated gradients run on a batch, and, as
+  in JAX, pathway_attributions and the explain CLI raise IndexError and
+  export_program raises ValueError (test_torch_deepergcn_workflows.py
+  holds these against JAX).
 """
 import json
 from pathlib import Path
@@ -32,6 +35,7 @@ from pathlib import Path
 import flax
 import numpy as np
 import pytest
+import torch
 
 from multilevel_gnn_tpu.core.config import Config as JConfig
 from multilevel_gnn_tpu.data import loaders as jloaders
@@ -230,7 +234,14 @@ def test_cli_then_predict_cli_on_a_deepergcn_checkpoint(written, both, tmp_path,
     st = predict.load_fold_state(cfg, pc, d, 0, 2, device="cpu")
     batch = next(driver.iter_batches(st["X"], pc.Y, pc.ages, st["splits"]["test"],
                                      8, "cpu", st["raw"]))
-    with pytest.raises(NotImplementedError):
-        explain.integrated_gradients(st["model"], batch, st["ctx"], steps=2)
-    with pytest.raises(NotImplementedError):
+    ig = explain.integrated_gradients(st["model"], batch, st["ctx"], steps=2)
+    assert ig.shape == batch.x.shape and torch.isfinite(ig).all()
+    # as in JAX: the PCA-row mapping indexes the 3-slot node space
+    with pytest.raises(IndexError):
+        explain.pathway_attributions(ig, st["ctx"], pc.n_pathways)
+    with pytest.raises(IndexError):
+        explain.main(["--config", GBM, "--data-dir", written, "--ckpt-dir", d, "--fold", "2",
+                      "--ig-steps", "2", "--device", "cpu", "--set", *sets])
+    # as in JAX: a (B, NODES) x meets the model's 3-D unpacking
+    with pytest.raises(ValueError, match="not enough values to unpack"):
         export.export_program(st["model"], st["ctx"], 8, st["cfg"].node_num)
