@@ -138,6 +138,35 @@ And after the protocol phases, on the same files:
            the same parameters in memory; ms and launches per batch of 32
   explain_cli  the explain CLI once on fold 0's checkpoint
 
+Then fold-parallel CV (train/fold_parallel.py), U = 5 units in one stacked
+step: five GBM-scale folds (make_gbm_scale_setup's cohort topology at
+seeds 0-4, windowed, bf16, B = 32) and the same files:
+
+  fold_parallel_plans / _k1 / _k2 / _k3  the block-diagonal plans of the
+           five folds; K1 (residual, accumulating; all edges), K2 (forward
+           and transpose sides) and K3 over them at F = 2,048, bf16 and
+           f32: against their plain versions (TOL_BF16 / TOL_F32; K3
+           equal) and against the five folds' own launches (bit-equal),
+           with ms, the five launches' ms (per_unit_ms), bound, plain and
+           torch.sparse.mm / scatter_reduce_(amax) ms
+  fold_parallel_step  one stacked sage bf16 train step: each unit's
+           gradients against its own step's (same dropout masks) within
+           TOL_GRAD; K1 7 / K2 4 a stacked step; CUDA-event ms, kernel ms,
+           gap share and peak memory against the five units' own steps
+  fold_parallel_serve  one stacked eval batch: probabilities against the
+           units' own eval_steps within TOL_FP_PROB (bf16 and f32 trunks),
+           K1 2 / K2 2, ms, gap and peak memory against five eval_steps
+  fold_parallel_protocol  the train CLI with --fold-parallel on the files
+           (1 run x 5 folds x 5 epochs, counted), then the sequential CLI:
+           wall s, derivation and stacking s, host s per epoch, the stacked
+           step's ms; fold_parallel_protocol_small: a small protocol (f32,
+           dropout off, 2 epochs) fold-parallel on the card and on the CPU
+           and sequential on the card, pooled AUC / ACC within TOL_PROTOCOL
+  fold_parallel_ckpt  fold-parallel with ckpt_every 1 (4 epochs)
+           uninterrupted and stopped after 2 then resumed: pooled AUC /
+           ACC equal; the predict CLI scores fold 2 from its checkpoint,
+           equal to predict_fold with it loaded in memory
+
 Then DeeperGCN on the same files (gbm.yaml with model=deepergcn,
 hidden_channels=128, num_layers=3: gcn_aggr max, norm layer, block res+,
 maxpool readout, bf16 trunk, B = 32, so F = B*H = 4,096 at K3 and K1):
@@ -3287,6 +3316,358 @@ def slice10_phases(cfg, ctx, batch):
     return serve, per_step
 
 
+# ---- fold-parallel CV (train/fold_parallel.py): the protocol's units in one
+# stacked step, K1 / K2 / K3 launched once per SpMM or segment op for all of
+# them over block-diagonal plans (core/graph.py:stack_graphs)
+FP_UNITS = 5
+FP_STEPS = 10  # timed stacked steps (and timed sequences of five unit steps)
+# a stacked eval batch's probabilities against each unit's own eval_step
+# (its dense layers batched GEMMs, its head a grouped convolution, summing
+# in other orders than the unit's own).  Reading on an H100 (PERF.md):
+# 2.4e-7 in both trunks; the limit about forty times.
+TOL_FP_PROB = {"bf16": 1e-5, "f32": 1e-5}
+
+
+def fp_units(n=FP_UNITS):
+    """n GBM-scale units: make_gbm_scale_setup's cohort topology at seeds
+    0 .. n-1 (windowed, bf16 trunk, B = 32), each with its own model,
+    context and batch."""
+    return [make_gbm_scale_setup(topology="cohort", windowed=True, batch=32,
+                                 compute_dtype="bfloat16", spmm_bf16=True, device="cuda",
+                                 seed=s, topo_seed=s) for s in range(n)]
+
+
+def fp_equal(name, stacked_fn, unit_fns):
+    """The stacked launch's output equal to the concatenation of the units'
+    own launches, bit for bit (each row is the same sum in the same
+    order)."""
+    out = stacked_fn()
+    want = torch.cat([f() for f in unit_fns])
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError(f"{name}: stacked launch differs from per-unit launches "
+                             f"by {float((out - want).abs().max())}")
+
+
+def fp_plans_phase(units, gen):
+    """Stacked K1 (residual, accumulating; all edges), K2 (forward and
+    transpose sides) and K3 at U units and GBM width, bf16 and f32: each
+    against its plain version (TOL_BF16 / TOL_F32; K3 equal) and against
+    the concatenation of U per-unit launches (equal), with ms, the U
+    launches' ms, bound, plain and library ms."""
+    from multilevel_gnn_tpu_torch.core.graph import stack_graphs
+
+    graphs = [u[2] for u in units]
+    sg = stack_graphs(graphs)
+    U, N = len(graphs), graphs[0].n_nodes
+    E = sg.fields["senders"].shape[1]
+    F = units[0][0].batch_size * units[0][0].node_embedding_dim
+    ws = [spmm.edge_weights(g, "mean", g.edge_attr) for g in graphs]
+    w = torch.cat([torch.cat([wu, wu.new_zeros(E - wu.shape[0])]) for wu in ws])
+    plan = sg.view.winplan
+    emit({"phase": "fold_parallel_plans", "units": U, "n_nodes": N, "edge_stride": E,
+          "edges": [g.n_edges for g in graphs], "F": F,
+          "stacked_rows": plan.num_nodes, "permuted_rows": int(plan.row_of.shape[0]),
+          "k2_entries": plan.fwd.n_entries, "k2_blocks": plan.fwd.n_blocks,
+          "residual_nnz": plan.res.nnz, "tres_nnz": plan.tres.nnz,
+          "csr_nnz": sg.view.csr.nnz})
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(U * N, F, generator=gen, device="cuda").to(dt)
+        xs = [x[u * N:(u + 1) * N] for u in range(U)]
+        base = torch.randn(U * N, F, generator=gen, device="cuda")
+        for case, stacked, per, acc in (
+                ("stacked_residual", plan.res, [g.winplan.res for g in graphs], True),
+                ("stacked_all_edges", sg.view.csr, [g.csr for g in graphs], False)):
+            r = time_k1(case, stacked, x, w, acc, gen)
+            fp_equal(f"k1 {case} {dt}",
+                     lambda: k1.segment_spmm_csr(x, w, stacked, base.clone() if acc else None),
+                     [lambda u=u: k1.segment_spmm_csr(
+                         xs[u], ws[u], per[u],
+                         base[u * N:(u + 1) * N].clone() if acc else None) for u in range(U)])
+            # the U launches' time: each into its own buffer, no copy timed
+            bufs = [base[u * N:(u + 1) * N].clone() for u in range(U)] if acc else [None] * U
+            r["per_unit_ms"] = device_ms(lambda: [k1.segment_spmm_csr(
+                xs[u], ws[u], per[u], bufs[u]) for u in range(U)])
+            emit({"phase": "fold_parallel_k1", **r})
+            res[(case, r["dtype"])] = r
+        for transpose in (False, True):
+            case = "stacked_transpose" if transpose else "stacked_forward"
+            r = time_k2(case, plan, x, w, transpose)
+            units_k2 = [lambda u=u: k2.windowed_tile_spmm(xs[u], ws[u], graphs[u].winplan,
+                                                          transpose) for u in range(U)]
+            fp_equal(f"k2 {case} {dt}", lambda: k2.windowed_tile_spmm(x, w, plan, transpose),
+                     units_k2)
+            r["per_unit_ms"] = device_ms(lambda: [f() for f in units_k2])
+            emit({"phase": "fold_parallel_k2", **r})
+            res[(case, r["dtype"])] = r
+        del x, xs, base
+        msg = torch.randn(U * E, F, generator=gen, device="cuda").to(dt)
+        r = time_k3(sg.view, msg)
+        r["case"] = "stacked_csr"
+        units_k3 = [lambda u=u: k3.segment_max_csr(msg[u * E:(u + 1) * E], graphs[u].csr)
+                    for u in range(U)]
+        fp_equal(f"k3 {dt}", lambda: k3.segment_max_csr(msg, sg.view.csr), units_k3)
+        r["per_unit_ms"] = device_ms(lambda: [f() for f in units_k3])
+        emit({"phase": "fold_parallel_k3", **r})
+        res[("stacked_csr", r["dtype"])] = r
+        del msg
+        torch.cuda.empty_cache()
+    return res
+
+
+def fp_state(units, cfg):
+    """The units' stacked state for cfg (their models' parameters, an Adam
+    over them with units=U, each unit's dropout generator seeded 1000 + u)
+    and their stacked context, batch and class weights."""
+    from multilevel_gnn_tpu_torch.core.batch import Batch, stack_contexts
+    from multilevel_gnn_tpu_torch.nn.basic import UnitGenerators
+    from multilevel_gnn_tpu_torch.train.step import Optimizer, stack_params
+
+    models = [u[1] for u in units]
+    params = stack_params(models)
+    st = dict(
+        template=models[0], params=params, sctx=stack_contexts([u[3] for u in units]),
+        opt=Optimizer(list(params.values()), cfg, 6, units=len(units)),
+        gens=UnitGenerators(torch.Generator(device="cuda").manual_seed(1000 + i)
+                            for i in range(len(units))),
+        batch=Batch(*(torch.stack([getattr(u[4], f) for u in units])
+                      for f in ("x", "y", "age", "sample_mask"))),
+        cw=torch.tensor([[1.0, 1.5]] * len(units), device="cuda"))
+    return st
+
+
+def fp_step_phase(units):
+    """One stacked sage bf16 train step at U units against the U units'
+    own steps: per-unit gradients (the same dropout masks) within
+    TOL_GRAD, launches K1 7 / K2 4 a stacked step; CUDA-event ms, kernel ms,
+    gap share and peak memory of a stacked step against a sequence of the
+    U units' steps, each in turns."""
+    from multilevel_gnn_tpu_torch.train.step import stacked_train_step
+
+    cfg = units[0][0]
+    st = fp_state(units, cfg)
+    cw1 = st["cw"][0]
+    # gradients: the units' own, then the stacked step's (its update off)
+    rel = {}
+    seq = [grads_of(u[1], u[4], u[3], cw1, seed=1000 + i)[1] for i, u in enumerate(units)]
+    step = st["opt"].step
+    st["opt"].step = lambda: None
+    zero_launches()
+    stacked_train_step(st["template"], st["params"], st["opt"], st["batch"], st["sctx"],
+                       st["cw"], st["gens"])
+    torch.cuda.synchronize()
+    one = launch_counts()
+    st["opt"].step = step
+    for i, g in enumerate(seq):
+        for n, ref in g.items():
+            d = float((st["params"][n].grad[i] - ref).abs().max())
+            rel[n] = max(rel.get(n, 0.0), d / max(float(ref.abs().max()), 1e-30))
+    worst = max(rel.values())
+    want = {k1.KERNEL.name: 7, k2.KERNEL.name: 4, k3.KERNEL.name: 0, k4.name: 0}
+
+    def stacked():
+        stacked_train_step(st["template"], st["params"], st["opt"], st["batch"],
+                           st["sctx"], st["cw"], st["gens"])
+
+    opts = [make_optimizer(u[1], cfg, 6) for u in units]
+    gens = [torch.Generator(device="cuda").manual_seed(2000 + i) for i in range(len(units))]
+
+    def sequential():
+        for i, u in enumerate(units):
+            train_step(u[1], opts[i], u[4], u[3], cw1, gens[i])
+
+    out = fp_compare(stacked, sequential, want, len(units))
+    ok = worst <= TOL_GRAD["bf16"] and one == want and out["ok"]
+    emit({"phase": "fold_parallel_step", "units": len(units), "launches_one_step": one,
+          "grad_max_rel_err": worst, "tol": TOL_GRAD["bf16"],
+          "grad_rel_err_by_param": rel, **out, "ok": ok})
+    if not ok:
+        raise AssertionError(f"fold_parallel_step: gradients {worst}, launches {one}")
+    return out["launches_stacked"]
+
+
+def fp_compare(stacked, sequential, want, n_units):
+    """CUDA-event ms (FP_STEPS calls, stacked and sequential in turns),
+    kernel ms and gap share (profiler, 3 calls) and peak memory of one
+    stacked call against one sequence of the units' own calls; the
+    stacked call's launches must equal ``want``."""
+    ms = {"stacked": [], "sequential": []}
+    per = {}
+    for _ in range(2):
+        for name, fn in (("stacked", stacked), ("sequential", sequential),
+                         ("sequential", sequential), ("stacked", stacked)):
+            t, per[name] = timed_steps(fn, FP_STEPS // 4 + 1)
+            ms[name] += t
+    out = {}
+    for name, fn in (("stacked", stacked), ("sequential", sequential)):
+        busy, n_kernels, rows = profiled(fn, 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        med = float(np.median(ms[name]))
+        out[name] = {"ms_median": med, "ms": ms[name], "kernel_ms": busy,
+                     "kernels": n_kernels, "gap_share": 1 - busy / med,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "peak_above_held_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+                     "port_kernel_ms": port_kernel_ms(rows), "top": top_rows(rows, 10)}
+    return {"stacked": out["stacked"], "sequential": out["sequential"],
+            "speedup": out["sequential"]["ms_median"] / out["stacked"]["ms_median"],
+            "launches_stacked": per["stacked"], "launches_sequential": per["sequential"],
+            "launches_expected": want,
+            "ok": per["stacked"] == want and per["sequential"] == {
+                k: v * n_units for k, v in want.items()}}
+
+
+def fp_serve_phase(units):
+    """One stacked eval batch at U units against the units' own eval_steps:
+    probabilities per unit within TOL_FP_PROB (f32 trunk, then bf16),
+    launches K1 2 / K2 2 a stacked batch, ms, gap share and peak memory
+    against the sequence of U eval_steps."""
+    from multilevel_gnn_tpu_torch.train.step import stacked_eval_step
+
+    errs = {}
+    for trunk in ("f32", "bf16"):
+        us = units if trunk == "bf16" else [
+            (u[0], MultilevelGNN(u[0].replace(compute_dtype=None, spmm_bf16=False),
+                                 u[2].n_nodes, u[3].num_pca_rows, device="cuda", seed=s),
+             u[2], u[3], u[4]) for s, u in enumerate(units)]
+        st = fp_state(us, us[0][0])
+        pred, loss = stacked_eval_step(st["template"], st["params"], st["batch"], st["sctx"])
+        ref = [eval_step(u[1], u[4], u[3]) for u in us]
+        errs[trunk] = max(float((pred[i] - r[0]).abs().max()) for i, r in enumerate(ref))
+        errs[trunk + "_loss"] = max(abs(float(loss[i]) - float(r[1])) for i, r in enumerate(ref))
+    # the loop ends on the bf16 trunk, whose stacked state is timed below
+    want = {k1.KERNEL.name: 2, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
+    out = fp_compare(
+        lambda: stacked_eval_step(st["template"], st["params"], st["batch"], st["sctx"]),
+        lambda: [eval_step(u[1], u[4], u[3]) for u in units], want, len(units))
+    ok = (errs["bf16"] <= TOL_FP_PROB["bf16"] and errs["f32"] <= TOL_FP_PROB["f32"]
+          and out["ok"])
+    emit({"phase": "fold_parallel_serve", "units": len(units), "prob_max_abs_err": errs,
+          "tol": TOL_FP_PROB, **out, "ok": ok})
+    if not ok:
+        raise AssertionError(f"fold_parallel_serve: {errs}, launches {out['launches_stacked']}")
+    return out["launches_stacked"]
+
+
+def fp_protocol_phase(root, small):
+    """The train CLI with --fold-parallel on the reference-scale files (1 run
+    x 5 folds x 5 epochs, gbm.yaml, bf16), counted, and the sequential CLI
+    on the same files after it: wall times, pooled AUC / ACC; then a small
+    protocol (f32, dropout off, 2 epochs) fold-parallel on the card, on the
+    CPU and sequential on the card, pooled AUC / ACC within TOL_PROTOCOL."""
+    from multilevel_gnn_tpu_torch.train import cli
+
+    args = ["--config", GBM_YAML, "--data-dir", root, "--set", "num_run=1", "epochs=5"]
+    runs, launches = {}, {}
+    for name, extra in (("fold_parallel", ["--fold-parallel"]), ("sequential", [])):
+        sync("cuda")
+        zero_launches()
+        t0 = time.perf_counter()
+        res = cli.main(args + extra)
+        sync("cuda")
+        runs[name] = (time.perf_counter() - t0, res)
+        launches[name] = launch_counts()
+    (w_fp, fp), (w_seq, seq) = runs["fold_parallel"], runs["sequential"]
+    ok = bool(fp["units"] == 5 and launches["fold_parallel"][k1.KERNEL.name] > 0
+              and launches["fold_parallel"][k3.KERNEL.name] == 0
+              and 0.0 <= fp["auc"][5] <= 1.0)
+    emit({"phase": "fold_parallel_protocol", "wall_s": {"fold_parallel": w_fp,
+                                                        "sequential": w_seq},
+          "cli_wall_time_s": {"fold_parallel": fp["wall_time_s"],
+                              "sequential": seq["wall_time_s"]},
+          "epoch_s_median": {"fold_parallel": fp["epoch_s_median"],
+                             "sequential": seq["epoch_s_median"]},
+          "fold_parallel_setup_s": fp["setup_s"], "fold_parallel_epoch_s": fp["epoch_s"],
+          "sequential_fold_setup_s": [f["setup_s"] for f in seq["folds"]],
+          "sequential_epoch_s": [f["epoch_s"] for f in seq["folds"]],
+          "stacked_step_ms_median": fp["step_ms_median"],
+          "unit_step_ms_median": [f["step_ms_median"] for f in seq["folds"]],
+          "windowed": [f["windowed"] for f in seq["folds"]], "launches": launches,
+          "pooled_auc_5": {"fold_parallel": fp["auc"][5], "sequential": seq["auc"][5]},
+          "pooled_acc_5": {"fold_parallel": fp["acc"][5], "sequential": seq["acc"][5]},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("fold_parallel_protocol failed")
+    sets = ["num_run=1", "epochs=2", "compute_dtype=null", "spmm_bf16=false",
+            "feature_drop=false", "head_drop_rate=0.0", "gnn_dropout=0.0"]
+    small_runs = {}
+    for name, dev, extra in (("fold_parallel_cuda", "cuda", ["--fold-parallel"]),
+                             ("fold_parallel_cpu", "cpu", ["--fold-parallel"]),
+                             ("sequential_cuda", "cuda", [])):
+        small_runs[name] = cli.main(["--config", GBM_YAML, "--data-dir", small, "--device",
+                                     dev, *extra, "--set", *sets])
+    keys = ("auc", "auc_by_loss", "auc_by_epoch", "acc")
+    ref = small_runs["fold_parallel_cuda"]
+    diff = {n: max(abs(r[k][2] - ref[k][2]) for k in keys) for n, r in small_runs.items()}
+    ok = max(diff.values()) <= TOL_PROTOCOL
+    emit({"phase": "fold_parallel_protocol_small", "pooled_max_abs_diff": diff,
+          "tol": TOL_PROTOCOL, "pooled_auc": {n: r["auc"][2] for n, r in small_runs.items()},
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"fold_parallel small protocol: {diff}")
+    return launches["fold_parallel"]
+
+
+def fp_ckpt_phase(root, cohort):
+    """Fold-parallel on the cohort files (gbm.yaml, bf16, 1 run x 5 folds x
+    CKPT_EPOCHS epochs, ckpt_every 1) uninterrupted, and the same stopped
+    after 2 epochs and resumed: pooled AUC / ACC equal; then the predict
+    CLI scores fold 2 from the fold-parallel checkpoint, equal to
+    predict_fold with that checkpoint loaded in memory."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.train import predict
+    from multilevel_gnn_tpu_torch.train.checkpoint import load_checkpoint
+    from multilevel_gnn_tpu_torch.train.fold_parallel import run_experiment_foldparallel
+
+    cfg = Config.from_yaml(GBM_YAML).replace(num_run=1, epochs=CKPT_EPOCHS, ckpt_every=1)
+    a_dir, b_dir = f"{root}/fp_ckpt_a", f"{root}/fp_ckpt_b"
+    t0 = time.perf_counter()
+    a = run_experiment_foldparallel(cfg, cohort, ckpt_dir=a_dir)
+    t_a = time.perf_counter() - t0
+    run_experiment_foldparallel(cfg.replace(epochs=2), cohort, ckpt_dir=b_dir)
+    t0 = time.perf_counter()
+    b = run_experiment_foldparallel(cfg, cohort, ckpt_dir=b_dir, resume=True)
+    t_b = time.perf_counter() - t0
+    keys = ("auc", "acc", "auc_by_loss", "acc_by_loss", "auc_by_epoch", "acc_by_epoch")
+    equal = all(a[k] == b[k] for k in keys)
+    cli_res = predict.main(["--config", GBM_YAML, "--ckpt-dir", a_dir, "--fold", "2",
+                            "--data-dir", root])
+    st = predict.load_fold_state(Config.from_yaml(GBM_YAML), cohort, None, 0, 2)
+    st["model"].load_state_dict(load_checkpoint(f"{a_dir}/run0_fold2")[0]["model"])
+    mem = predict.predict_fold(Config.from_yaml(GBM_YAML), cohort, None, 0, 2,
+                               model=st["model"])
+    prob = np.asarray(cli_res["prob"])
+    ok = bool(equal and cli_res["prob"] == mem["prob"] and len(prob) > 0
+              and np.isfinite(prob).all() and 0.0 <= cli_res["auc"] <= 1.0)
+    emit({"phase": "fold_parallel_ckpt", "epochs": CKPT_EPOCHS,
+          "pooled_auc": [a["auc"][CKPT_EPOCHS], b["auc"][CKPT_EPOCHS]],
+          "pooled_acc": [a["acc"][CKPT_EPOCHS], b["acc"][CKPT_EPOCHS]],
+          "resumed_equal": equal, "uninterrupted_s": t_a, "resumed_s": t_b,
+          "predict_auc": cli_res["auc"], "predict_patients": len(prob),
+          "cli_equals_in_memory": cli_res["prob"] == mem["prob"], "ok": ok})
+    if not ok:
+        raise AssertionError("fold_parallel_ckpt: resume or predict failed")
+
+
+def fold_parallel_phases(root, cohort, small, gen):
+    """Every fold-parallel phase; returns (the kernel rows of
+    fold_parallel_plans, {path: launches}, launches a stacked step)."""
+    units = fp_units()
+    torch.cuda.synchronize()
+    r = fp_plans_phase(units, gen)
+    step = fp_step_phase(units)
+    serve = fp_serve_phase(units)
+    del units
+    torch.cuda.empty_cache()
+    protocol = fp_protocol_phase(root, small)
+    fp_ckpt_phase(root, cohort)
+    return r, {"fold_parallel_serve": serve, "fold_parallel_protocol": protocol}, step
+
+
 def card_setup() -> str:
     """TF32 off for matmuls and cuDNN; the card's nvidia-smi name and power
     limit."""
@@ -3456,6 +3837,11 @@ def main() -> int:
         ckpt_dir = ckpt_phase(root, cohort)
         paths["predict"] = predict_phase(root, cohort, ckpt_dir)
         paths["explain_cli"] = explain_cli_phase(root, ckpt_dir)
+        # ---- fold-parallel CV: the units in one stacked step
+        small = small_files(root)
+        r_fp, fp_paths, per_step["fold_parallel"] = fold_parallel_phases(
+            root, cohort, small, gen)
+        paths.update(fp_paths)
         # ---- DeeperGCN on the same files' gene-level fold graph
         dg = deepergcn_phases(root, cohort, gen)
         paths["serve_deepergcn"] = dg["serve"]
@@ -3471,7 +3857,6 @@ def main() -> int:
 
         write_string_ppi(root, read_kegg_csv(f"{root}/kegg.csv"), seed=3, e_ppi=PPI_EDGES,
                          cancer_type="gbm")
-        small = small_files(root)
         write_string_ppi(small, read_kegg_csv(f"{small}/kegg.csv"), seed=3, e_ppi=800,
                          cancer_type="gbm")
         for edge_type in ("ppi", "merge"):
@@ -3519,6 +3904,12 @@ def main() -> int:
     forms[k1.KERNEL.name] += [r for key, r in rz.items() if key[0].startswith(("gat", "gcn_res"))]
     forms[k2.KERNEL.name] += [r for key, r in rz.items() if key[0] in ("gcn_k2", "gcn_k2_t",
                                                                       "gin_k2")]
+    # the stacked forms of fold-parallel CV (U = 5, F = 2,048): each with
+    # per_unit_ms, the time of the U units' own launches
+    for (case, _), r in r_fp.items():
+        name = {"stacked_residual": k1, "stacked_all_edges": k1, "stacked_forward": k2,
+                "stacked_transpose": k2, "stacked_csr": k3}[case].KERNEL.name
+        forms[name].append(r)
     # launches: the count on the kernel's first serving path (sage for K1
     # and K2, mr for K3); every path's count is in launches_by_path
     first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",
@@ -3551,7 +3942,7 @@ def main() -> int:
             "forms": [
                 {key: b.get(key) for key in ("case", "dtype", "shape", "F", "max_abs_err",
                                              "ms", "ms_source", "event_ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}
+                                             "bound_by", "library_ms", "per_unit_ms")}
                 for b in forms.get(k.name, [])
             ],
         })

@@ -2,13 +2,13 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from multilevel_gnn_tpu_torch.core.device import resolve_device
-from multilevel_gnn_tpu_torch.core.graph import Graph
+from multilevel_gnn_tpu_torch.core.graph import Graph, StackedGraph, stack_graphs
 from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
 
 
@@ -128,3 +128,63 @@ def make_fold_context(
         edge_ids=edge_ids,
         edge_id_gather=edge_id_gather,
     )
+
+
+# a context's per-unit tensors (FoldContext fields) in the fold-parallel step
+UNIT_CTX_FIELDS = ("gene_pca_match", "pca_rows", "raw_indice", "info_mask",
+                   "reorder_idxs")
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedContext:
+    """U fold contexts over one fold shape, as the fold-parallel step runs
+    them (train/fold_parallel.py).
+
+    view: a FoldContext whose plans are block-diagonal over the units (the
+    graph's, graph2's and pca_gather: unit u's node rows at u * N, its
+    PCA rows at u * G) and whose UNIT_CTX_FIELDS are unit 0's.  fields:
+    those tensors of every unit, (U, ...); graphs: the stacked graph and
+    graph2 (or None).  Inside the vmapped step, unit(fields, graph_fields,
+    graph2_fields) is a unit's FoldContext."""
+
+    view: FoldContext
+    fields: Dict[str, torch.Tensor]
+    graph: StackedGraph
+    graph2: Optional[StackedGraph]
+
+    def unit(self, fields, graph_fields, graph2_fields=None) -> FoldContext:
+        g2 = self.graph2.unit(graph2_fields) if self.graph2 is not None else None
+        return dataclasses.replace(self.view, graph=self.graph.unit(graph_fields),
+                                   graph2=g2, **fields)
+
+    def inputs(self) -> tuple:
+        """The batched tensors unit() takes, for torch.vmap's in_dims 0."""
+        g2 = self.graph2.fields if self.graph2 is not None else {}
+        return self.fields, self.graph.fields, g2
+
+
+def stack_contexts(ctxs: Sequence[FoldContext], names: Optional[Sequence[str]] = None
+                   ) -> StackedContext:
+    """Stack U fold contexts on one device (stack_graphs for their graphs).
+    They must match in shape: node count, PCA rows and the aggregation
+    path; a context that does not raises ValueError naming its unit.  The
+    DeeperGCN and DiffPool fields (edge_ids, pathway_adj) and pca_seed
+    (each unit's model is seeded before its parameters are stacked) are
+    not stacked."""
+    names = list(names) if names is not None else [f"unit {u}" for u in range(len(ctxs))]
+    c0 = ctxs[0]
+    for name, c in zip(names, ctxs):
+        if c.num_pca_rows != c0.num_pca_rows:
+            raise ValueError(f"{name} has {c.num_pca_rows} PCA rows, {names[0]} "
+                             f"{c0.num_pca_rows}: fold-parallel units need one count")
+    graph = stack_graphs([c.graph for c in ctxs], names)
+    graph2 = (stack_graphs([c.graph2 for c in ctxs], names)
+              if c0.graph2 is not None else None)
+    fields = {f: torch.stack([getattr(c, f) for c in ctxs]) for f in UNIT_CTX_FIELDS}
+    G = c0.num_pca_rows
+    view = dataclasses.replace(
+        c0, graph=graph.view, graph2=graph2.view if graph2 is not None else None,
+        pca_gather=CSRPlan.stack([c.pca_gather for c in ctxs], G, G),
+        edge_ids=None, edge_id_gather=None, pathway_adj=None, pca_seed=None,
+    )
+    return StackedContext(view=view, fields=fields, graph=graph, graph2=graph2)

@@ -12,7 +12,7 @@ dropped from every plan and from the degree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -229,3 +229,88 @@ class Graph:
         recv = torch.as_tensor(_host(self.receivers), dtype=torch.int64)
         mask = torch.as_tensor(_host(self.edge_mask), dtype=torch.bool)
         return torch.bincount(recv[mask], minlength=self.n_nodes).float()
+
+
+# a graph's per-unit tensors: each unit of a stacked graph has its own
+UNIT_FIELDS = ("senders", "receivers", "edge_attr", "edge_mask", "in_deg",
+               "gcn_coef", "gcn_self")
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedGraph:
+    """U graphs over one node count, as the fold-parallel step runs them.
+
+    view: a Graph whose plans (csr, csc, src_gather, dst_gather, winplan)
+    are block-diagonal over the U units (unit u's node rows at u * N,
+    its edge rows at u * E), so each kernel launch serves every unit;
+    its UNIT_FIELDS are unit 0's.  fields: those tensors of every unit,
+    (U, ...), each unit's edges padded to E = the largest edge count
+    (padding edges masked out, as Graph pads).  Inside the vmapped step,
+    unit(fields) is a unit's Graph: its tensors are the batched ones and
+    its plans the stacked ones, which the ops in ops/spmm.py read with
+    the unit axis folded into the rows."""
+
+    view: Graph
+    fields: Dict[str, torch.Tensor]
+
+    def unit(self, fields: Dict[str, torch.Tensor]) -> Graph:
+        return dataclasses.replace(self.view, **fields)
+
+
+def _pad_rows(t: torch.Tensor, n: int, value) -> torch.Tensor:
+    if t.shape[0] == n:
+        return t
+    pad = t.new_full((n - t.shape[0],) + tuple(t.shape[1:]), value)
+    return torch.cat([t, pad])
+
+
+def stack_graphs(graphs: Sequence[Graph], names: Optional[Sequence[str]] = None
+                 ) -> StackedGraph:
+    """Stack U graphs built by with_sorted_meta on one device into one
+    block-diagonal StackedGraph.  They must share the node count, the edge
+    attrs' width and the aggregation path: a windowed graph does not stack
+    with a composed one (ValueError naming the unit), as the windowed and
+    composed paths sum in different orders."""
+    names = list(names) if names is not None else [f"unit {u}" for u in range(len(graphs))]
+    g0 = graphs[0]
+    for name, g in zip(names, graphs):
+        if g.csr is None:
+            raise ValueError(f"{name}: the graph needs with_sorted_meta() first")
+        if g.n_nodes != g0.n_nodes:
+            raise ValueError(f"{name} has {g.n_nodes} nodes, {names[0]} {g0.n_nodes}: "
+                             "fold-parallel units need one node count")
+        if (g.winplan is None) != (g0.winplan is None):
+            raise ValueError(
+                f"{name}'s graph is {'composed' if g.winplan is None else 'windowed'} and "
+                f"{names[0]}'s is not: fold-parallel does not mix the windowed and "
+                "composed paths (windowed_min_edges splits these folds)")
+        a, a0 = g.edge_attr, g0.edge_attr
+        if (a is None) != (a0 is None) or (a is not None and a.shape[1:] != a0.shape[1:]):
+            raise ValueError(f"{name}'s edge attrs differ in width from {names[0]}'s")
+    N = g0.n_nodes
+    E = max(g.num_padded_edges for g in graphs)
+    pad_value = {"senders": max(N - 1, 0), "receivers": max(N - 1, 0), "edge_attr": 0.0,
+                 "edge_mask": False, "gcn_coef": 0.0}
+    fields = {}
+    for f in UNIT_FIELDS:
+        if getattr(g0, f) is None:
+            continue
+        parts = [getattr(g, f) for g in graphs]
+        if f in pad_value:
+            parts = [_pad_rows(t, E, pad_value[f]) for t in parts]
+        fields[f] = torch.stack(parts)
+    from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
+    from multilevel_gnn_tpu_torch.ops.kernels.windowed import WindowPlan
+
+    def plans(attr, col_stride):
+        return CSRPlan.stack([getattr(g, attr) for g in graphs], col_stride, E)
+
+    view = dataclasses.replace(
+        g0, **{f: t[0] for f, t in fields.items()},
+        n_edges=max(g.n_edges for g in graphs),
+        csr=plans("csr", N), csc=plans("csc", N),
+        src_gather=plans("src_gather", E), dst_gather=plans("dst_gather", E),
+        winplan=(WindowPlan.stack([g.winplan for g in graphs], E)
+                 if g0.winplan is not None else None),
+    )
+    return StackedGraph(view=view, fields=fields)

@@ -46,18 +46,24 @@ def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
 
 
 class _Conv2d(torch.autograd.Function):
-    """F.conv2d (stride 1, dilation 1, one group) whose backward runs on
-    cuDNN's deterministic algorithms.  The algorithms cuDNN picks by
-    default may add the weight gradient with atomics, so two trainings
-    from one state drifted apart after a few steps on an H100 and a
-    resumed protocol did not repeat the uninterrupted one (PERF.md);
-    the forward's algorithms are deterministic already."""
+    """F.conv2d (stride 1, dilation 1) whose backward runs on cuDNN's
+    deterministic algorithms.  The algorithms cuDNN picks by default may
+    add the weight gradient with atomics, so two trainings from one state
+    drifted apart after a few steps on an H100 and a resumed protocol did
+    not repeat the uninterrupted one (PERF.md); the forward's algorithms
+    are deterministic already.  groups is 1 but under torch.vmap (the
+    fold-parallel step), whose rule makes one grouped convolution of the
+    U units' convolutions: (B, U*C, H, W) input, (U*O, C, k, k) weight."""
 
     @staticmethod
-    def forward(ctx, x, w, b, padding: int):
+    def forward(x, w, b, padding: int, groups: int = 1):
+        return F.conv2d(x, w, b, padding=padding, groups=groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _, padding = inputs[:4]
         ctx.save_for_backward(x, w)
-        ctx.padding = padding
-        return F.conv2d(x, w, b, padding=padding)
+        ctx.padding, ctx.groups = padding, inputs[4] if len(inputs) > 4 else 1
 
     @staticmethod
     def backward(ctx, g):
@@ -67,9 +73,23 @@ class _Conv2d(torch.autograd.Function):
         with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
                          allow_tf32=cudnn.allow_tf32):
             dx, dw, db = torch.ops.aten.convolution_backward(
-                g, x, w, [w.shape[0]], [1, 1], [p, p], [1, 1], False, [0, 0], 1,
+                g, x, w, [w.shape[0]], [1, 1], [p, p], [1, 1], False, [0, 0], ctx.groups,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], True])
-        return dx, dw, db, None
+        return dx, dw, db, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b, padding, groups=1):
+        U = info.batch_size
+
+        def unit_first(t, d):
+            return t.expand((U,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+
+        x, w, b = unit_first(x, in_dims[0]), unit_first(w, in_dims[1]), unit_first(b, in_dims[2])
+        B, C = x.shape[1], x.shape[2]
+        xg = x.movedim(0, 1).reshape((B, U * C) + tuple(x.shape[3:]))
+        out = _Conv2d.apply(xg, w.reshape((-1,) + tuple(w.shape[2:])), b.reshape(-1),
+                            padding, U * groups)
+        return out.reshape((B, U, -1) + tuple(out.shape[2:])), 1
 
 
 def _omics_columns(cfg: Config) -> Optional[list]:

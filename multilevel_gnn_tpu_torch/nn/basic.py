@@ -50,11 +50,17 @@ class _LeakyReLU(torch.autograd.Function):
     where(x >= 0, g, g * slope), gradient 1 at x = 0 (F.leaky_relu's is
     the slope there)."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x, slope: float):
+    def forward(x, slope: float):
+        return F.leaky_relu(x, slope)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, slope = inputs
         ctx.save_for_backward(x)
         ctx.slope = slope
-        return F.leaky_relu(x, slope)
 
     @staticmethod
     def backward(ctx, g):
@@ -97,10 +103,55 @@ def onehot_embed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return F.one_hot(ids, table.shape[0]).to(table.dtype) @ table
 
 
+class UnitGenerators(tuple):
+    """One torch.Generator per unit of the fold-parallel step: passed where
+    a model takes its dropout generator, it makes each Dropout draw unit
+    u's mask from generator u, as that unit's own run_fold would."""
+
+
+class _UnitDropout(torch.autograd.Function):
+    """Dropout of stacked (U, ...) values, unit u's keep mask drawn from
+    generators[u] with unit u's shape, in unit order; torch.vmap over the
+    unit axis routes each unit's call here (its vmap rule), so the masks
+    equal the ones the units' sequential steps draw.  The product and its
+    gradient are torch.where(keep, x / keep_prob, 0) and where(keep,
+    g / keep_prob, 0), Dropout's own."""
+
+    @staticmethod
+    def forward(x, generators, keep_prob: float):
+        keep = torch.stack([
+            torch.rand(x.shape[1:], generator=g, device=x.device) < keep_prob
+            for g in generators])
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                              device=x.device)), keep
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.keep_prob = inputs[2]
+        ctx.save_for_backward(output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _):
+        (keep,) = ctx.saved_tensors
+        return torch.where(keep, g / ctx.keep_prob, torch.zeros((), dtype=g.dtype,
+                                                                  device=g.device)), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, generators, keep_prob):
+        if len(generators) != info.batch_size:
+            raise ValueError(f"{len(generators)} generators for {info.batch_size} units")
+        x = x.movedim(in_dims[0], 0) if in_dims[0] is not None else x.expand(
+            (info.batch_size,) + tuple(x.shape))
+        out, keep = _UnitDropout.apply(x, generators, keep_prob)
+        return (out, keep), (0, 0)
+
+
 class Dropout(nn.Module):
     """flax.linen.Dropout: in training mode each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate); rate 1 drops all.
-    The mask is drawn from ``generator``, a torch.Generator on x's device;
+    The mask is drawn from ``generator``, a torch.Generator on x's device
+    (or UnitGenerators, one a unit, under the fold-parallel step's vmap);
     in eval mode, or at rate 0, x passes through and nothing is drawn."""
 
     def __init__(self, rate: Optional[float]):
@@ -115,6 +166,8 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep_prob = 1.0 - self.rate
+        if isinstance(generator, UnitGenerators):
+            return _UnitDropout.apply(x, generator, keep_prob)[0]
         keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 

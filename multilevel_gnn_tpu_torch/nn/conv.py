@@ -47,11 +47,15 @@ class _Sqrt(torch.autograd.Function):
     quotient and the product each round, where torch's g / (2 sqrt(a))
     rounds once."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, a):
-        out = torch.sqrt(a)
-        ctx.save_for_backward(out)
-        return out
+    def forward(a):
+        return torch.sqrt(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):

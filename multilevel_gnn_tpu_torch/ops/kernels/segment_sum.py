@@ -152,6 +152,49 @@ class CSRPlan:
             max_col=int(max_col), max_eid=int(rows.shape[0]) - 1,
         )
 
+    @staticmethod
+    def stack(plans, col_stride: int, eid_stride: int) -> "CSRPlan":
+        """The block-diagonal plan of U per-unit plans of one row count:
+        unit u's rows, columns and edge ids shifted by u times n_rows,
+        col_stride and eid_stride, so one launch over (U * col_stride, F)
+        inputs and (U * eid_stride,) weights sums every unit's rows, each
+        in its own plan's order.  The busy rows of all units come first in
+        items, then their empty rows (accumulate mode reads n_busy).
+        Offsets stay int32: the kernels index x and out in 64 bits, and the
+        stacked counts must fit int32, as checked here."""
+        n = plans[0].n_rows
+        if any(p.n_rows != n for p in plans):
+            raise ValueError("stacked plans need one row count")
+        U = len(plans)
+        if max(U * n, U * col_stride, U * eid_stride, sum(p.nnz for p in plans)) >= 2**31:
+            raise ValueError("a stacked plan's rows, columns or entries overflow int32")
+        dev = plans[0].rowptr.device
+        nnz = np.cumsum([0] + [p.nnz for p in plans])
+        rowptr = torch.cat([p.rowptr[:-1] + int(nnz[u]) for u, p in enumerate(plans)]
+                           + [torch.tensor([int(nnz[-1])], dtype=torch.int32, device=dev)])
+        cat = torch.cat
+        shift = lambda t, s: (t.long() + s).int()  # noqa: E731
+        busy = [shift(p.items[:p.n_busy], u * n) for u, p in enumerate(plans)]
+        empty = [shift(p.items[p.n_busy:], u * n) for u, p in enumerate(plans)]
+
+        def top(attr, stride):
+            tops = [getattr(p, attr) + u * stride for u, p in enumerate(plans)
+                    if getattr(p, attr) >= 0]
+            return max(tops) if tops else -1
+
+        return CSRPlan(
+            rowptr=rowptr,
+            col=cat([shift(p.col, u * col_stride) for u, p in enumerate(plans)]),
+            eid=cat([shift(p.eid, u * eid_stride) for u, p in enumerate(plans)]),
+            row=cat([shift(p.row, u * n) for u, p in enumerate(plans)]),
+            items=cat(busy + empty),
+            long_rows=cat([shift(p.long_rows, u * n) for u, p in enumerate(plans)]),
+            n_rows=U * n,
+            n_busy=sum(p.n_busy for p in plans),
+            max_col=top("max_col", col_stride),
+            max_eid=top("max_eid", eid_stride),
+        )
+
     @property
     def nnz(self) -> int:
         return int(self.col.shape[0])

@@ -297,6 +297,46 @@ class WinSide:
     def n_in(self) -> int:
         return int(self.edge_eid.shape[0])
 
+    @staticmethod
+    def stack(sides, n_nodes: int, row_stride: int, n_edges: int) -> "WinSide":
+        """Unit u's layout in a permuted space where its rows start at
+        u * row_stride (a multiple of TN, so no tile or sub-block spans two
+        units): tiles, blocks, entries and edges follow unit by unit, block
+        sources shift by u * row_stride, original rows by u * n_nodes and
+        edge ids by u * n_edges.  Row pointers within a block are relative
+        and stay as they are."""
+        def offs(counts):
+            return np.cumsum([0] + list(counts)).tolist()
+
+        blk = offs(s.n_blocks for s in sides)
+        ent = offs(s.n_entries for s in sides)
+        edge = offs(s.n_in for s in sides)
+
+        def ptr(attr, base):
+            dev = getattr(sides[0], attr).device
+            parts = [getattr(s, attr)[:-1] + base[u] for u, s in enumerate(sides)]
+            return torch.cat(parts + [torch.tensor([base[-1]], dtype=torch.int32,
+                                                   device=dev)])
+
+        def shifted(attr, stride):
+            return torch.cat([(getattr(s, attr).long() + u * stride).int()
+                              for u, s in enumerate(sides)])
+
+        return WinSide(
+            tile_blk_ptr=ptr("tile_blk_ptr", blk),
+            blk_src=shifted("blk_src", row_stride),
+            blk_ent_ptr=ptr("blk_ent_ptr", ent),
+            blk_row_ptr=torch.cat([s.blk_row_ptr for s in sides]),
+            ent_pos=torch.cat([s.ent_pos for s in sides]),
+            ent_edge_ptr=ptr("ent_edge_ptr", edge),
+            edge_eid=shifted("edge_eid", n_edges),
+            ent_dst_orig=shifted("ent_dst_orig", n_nodes),
+            ent_src_orig=shifted("ent_src_orig", n_nodes),
+            edge_ent=torch.cat([(s.edge_ent.long() + ent[u]).int()
+                                for u, s in enumerate(sides)]),
+            n_tiles=sum(s.n_tiles for s in sides),
+        )
+
     def to(self, device) -> "WinSide":
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
@@ -337,6 +377,57 @@ class WindowPlan:
     in_window_frac: float
     Wb: int
     nwin: int
+
+    @staticmethod
+    def stack(plans, n_edges: int) -> "WindowPlan":
+        """The block-diagonal plan of U units' plans over one node count,
+        for (U * N, F) inputs and (U * n_edges,) weights (each unit's edges
+        padded to n_edges).  Each unit keeps its own window choice, node
+        permutation and residual split.  Its rows take the permuted rows
+        u * Np .. u * Np + N - 1, Np = N rounded up to TN, so every tile
+        and source sub-block holds one unit's rows; row_of maps them to
+        u * N + the unit's original row and the Np - N rows between units
+        to -1, which the kernel reads as zeros and never writes.  So each
+        output row is the same sum, in the same order, as in its unit's own
+        launch."""
+        N = plans[0].num_nodes
+        if any(p.num_nodes != N for p in plans):
+            raise ValueError("stacked window plans need one node count")
+        if any(p.n_edges > n_edges for p in plans):
+            raise ValueError("a unit's plan has more edges than the stride")
+        Np = max(_round_up(N, TN), TN)
+        U = len(plans)
+        if U * max(Np, n_edges) >= 2**31:
+            raise ValueError("a stacked window plan's rows or edges overflow int32")
+        dev = plans[0].fwd.tile_blk_ptr.device
+        row_of = torch.full((U, Np), -1, dtype=torch.int32, device=dev)
+        for u, p in enumerate(plans):
+            own = (p.row_of.long() if p.row_of is not None
+                   else torch.arange(N, device=dev))
+            row_of[u, :N] = (own + u * N).int()
+
+        def cat_eids(attr):
+            return np.concatenate([getattr(p, attr) + u * n_edges
+                                   for u, p in enumerate(plans)])
+
+        return WindowPlan(
+            fwd=WinSide.stack([p.fwd for p in plans], N, Np, n_edges),
+            bwd=WinSide.stack([p.bwd for p in plans], N, Np, n_edges),
+            row_of=row_of.reshape(-1),
+            res=CSRPlan.stack([p.res for p in plans], N, n_edges),
+            res_csc=CSRPlan.stack([p.res_csc for p in plans], N, n_edges),
+            tres=CSRPlan.stack([p.tres for p in plans], N, n_edges),
+            res_eid=cat_eids("res_eid"),
+            tres_eid=cat_eids("tres_eid"),
+            perm=None,
+            num_nodes=U * N,
+            n_edges=U * n_edges,
+            n_res=sum(p.n_res for p in plans),
+            n_tres=sum(p.n_tres for p in plans),
+            in_window_frac=float(np.mean([p.in_window_frac for p in plans])),
+            Wb=plans[0].Wb,
+            nwin=plans[0].nwin,
+        )
 
     def to(self, device) -> "WindowPlan":
         return dataclasses.replace(
@@ -488,6 +579,10 @@ def _(x, w, tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
     out = torch.empty((N, F), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    # the kernel's N bounds the permuted rows, which row_of maps: a stacked
+    # plan (WindowPlan.stack) has more permuted rows than x has rows, its
+    # rows between units mapped to -1
+    n_perm = row_of.shape[0] if row_of is not None else N
     n_ent = ent_pos.shape[0]
     ent_pv = torch.empty((n_ent, 2), dtype=torch.int32, device=x.device)
     vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
@@ -498,7 +593,7 @@ def _(x, w, tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
         edge_eid.data_ptr(), w.data_ptr(),
         row_of.data_ptr() if row_of is not None else None,
         ent_pv.data_ptr(), x.data_ptr(), out.data_ptr(),
-        tile_blk_ptr.shape[0] - 1, n_ent, N, F, int(x.dtype == torch.bfloat16),
+        tile_blk_ptr.shape[0] - 1, n_ent, n_perm, F, int(x.dtype == torch.bfloat16),
         int(vector), stream_handle(x),
     )
     KERNEL.launches += 1

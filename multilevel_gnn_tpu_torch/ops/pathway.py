@@ -17,19 +17,28 @@ import torch
 
 
 def slot_onehot(seg_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """(S, G) float32 one-hot assignment; rows = slots, cols = PCA rows."""
-    return torch.nn.functional.one_hot(seg_ids.long(), num_slots).T.float()
+    """(S, G) float32 one-hot assignment; rows = slots, cols = PCA rows
+    (a comparison, which torch.vmap batches over per-unit ids)."""
+    slots = torch.arange(num_slots, device=seg_ids.device)
+    return (seg_ids.long()[None, :] == slots[:, None]).float()
 
 
 class _Contract(torch.autograd.Function):
     """(K*S, G) @ x2.float() with x2 (G, F) in any dtype; the gradient of
-    x2 in JAX's per-column form, that of W (K, S, G) in f32."""
+    x2 in JAX's per-column form, that of W (K, S, G) in f32.  Under
+    torch.vmap (the fold-parallel step) both sides are vmapped as written,
+    so each unit's backward keeps the per-column rounding."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x2, W):
-        ctx.save_for_backward(x2, W)
+    def forward(x2, W):
         K, S, G = W.shape
         return W.reshape(K * S, G) @ x2.float()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):

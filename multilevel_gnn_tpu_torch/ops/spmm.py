@@ -95,18 +95,54 @@ def _k3(plain: bool):
     return segment_max_csr_plain if plain else segment_max_csr
 
 
+def _unit_rows(t: torch.Tensor, bdim: Optional[int], units: int):
+    """A batched op's physical (U, n, ...) input (the unit axis at bdim, or
+    absent and then repeated) as the (U * n, ...) rows of a stacked plan."""
+    t = t.unsqueeze(0).expand((units,) + tuple(t.shape)) if bdim is None else t.movedim(bdim, 0)
+    return t.reshape((units * t.shape[1],) + tuple(t.shape[2:]))
+
+
+def _unit_index(idx: torch.Tensor, bdim: Optional[int], units: int, n: int):
+    """Per-unit row ids (U, m) into n rows each as ids into the (U * n)
+    stacked rows."""
+    if bdim is None:
+        idx = idx.unsqueeze(0).expand((units,) + tuple(idx.shape))
+    else:
+        idx = idx.movedim(bdim, 0)
+    offs = torch.arange(units, device=idx.device, dtype=idx.dtype) * n
+    return (idx + offs.reshape((units,) + (1,) * (idx.dim() - 1))).reshape(-1)
+
+
+def _per_unit(out: torch.Tensor, units: int):
+    """The stacked op's (U * n, ...) result as (U, n, ...), unit axis 0."""
+    return out.reshape((units, out.shape[0] // units) + tuple(out.shape[1:])), 0
+
+
+# Each Function's vmap rule is the fold-parallel step's route (train/
+# fold_parallel.py): under torch.vmap over the unit axis a graph's plans are
+# the block-diagonal ones of core/graph.py:stack_graphs, so the rule folds
+# the unit axis into the rows and calls the same Function once, on the
+# stacked rows: one kernel launch for all units.  Outside vmap nothing
+# changes: forward, setup_context and backward are the sequential path's.
+
+
 class _ComposedSpMM(torch.autograd.Function):
     """_fused_spmm_sum (spmm.py:137-192).  The cast to the SpMM dtype
     happens inside, so the gradient goes straight back to x's dtype
     (spmm.py:179-181)."""
 
     @staticmethod
-    def forward(ctx, x2, w, csr: CSRPlan, csc: CSRPlan, dtype, plain: bool):
+    def forward(x2, w, csr: CSRPlan, csc: CSRPlan, dtype, plain: bool):
         xd = (x2 if dtype is None else x2.to(dtype)).contiguous()
+        return _k1(plain)(xd, w, csr)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x2, w, csr, csc, dtype, plain = inputs
         ctx.save_for_backward(w)
         ctx.csc, ctx.plain = csc, plain
-        ctx.data_dtype, ctx.x_dtype = xd.dtype, x2.dtype
-        return _k1(plain)(xd, w, csr)
+        ctx.data_dtype = x2.dtype if dtype is None else dtype
+        ctx.x_dtype = x2.dtype
 
     @staticmethod
     def backward(ctx, g):
@@ -114,16 +150,28 @@ class _ComposedSpMM(torch.autograd.Function):
         dx = _k1(ctx.plain)(g.to(ctx.data_dtype).contiguous(), w, ctx.csc)
         return dx.to(ctx.x_dtype), None, None, None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, x2, w, csr, csc, dtype, plain):
+        U = info.batch_size
+        out = _ComposedSpMM.apply(_unit_rows(x2, in_dims[0], U),
+                                  _unit_rows(w, in_dims[1], U).contiguous(),
+                                  csr, csc, dtype, plain)
+        return _per_unit(out, U)
+
 
 class _WindowedSpMM(torch.autograd.Function):
     """windowed_spmm_2d (windowed.py:710-810): x2 arrives already in the
     SpMM dtype, so the gradient is in that dtype too (:791-792)."""
 
     @staticmethod
-    def forward(ctx, x2, w, plan: WindowPlan, plain: bool):
+    def forward(x2, w, plan: WindowPlan, plain: bool):
+        return _k2(plain)(x2, w, plan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x2, w, plan, plain = inputs
         ctx.save_for_backward(w)
         ctx.plan, ctx.plain, ctx.x_dtype = plan, plain, x2.dtype
-        return _k2(plain)(x2, w, plan)
 
     @staticmethod
     def backward(ctx, g):
@@ -132,6 +180,13 @@ class _WindowedSpMM(torch.autograd.Function):
         dx = _k2(ctx.plain)(gd, w, ctx.plan, transpose=True)
         return dx.to(ctx.x_dtype), None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, x2, w, plan, plain):
+        U = info.batch_size
+        out = _WindowedSpMM.apply(_unit_rows(x2, in_dims[0], U).contiguous(),
+                                  _unit_rows(w, in_dims[1], U).contiguous(), plan, plain)
+        return _per_unit(out, U)
+
 
 class _GatherRows(torch.autograd.Function):
     """gather_rows (spmm.py:302-334) on the node axis of a node-major
@@ -139,9 +194,13 @@ class _GatherRows(torch.autograd.Function):
     node slots with K1 (unit weights) and returns them in x's dtype."""
 
     @staticmethod
-    def forward(ctx, x, idx, seg: CSRPlan, plain: bool):
-        ctx.seg, ctx.plain, ctx.x_dtype = seg, plain, x.dtype
+    def forward(x, idx, seg: CSRPlan, plain: bool):
         return x.index_select(0, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, idx, seg, plain = inputs
+        ctx.seg, ctx.plain, ctx.x_dtype = seg, plain, x.dtype
 
     @staticmethod
     def backward(ctx, g):
@@ -151,6 +210,14 @@ class _GatherRows(torch.autograd.Function):
         dx = _k1(ctx.plain)(g2, ones, seg)
         return dx.reshape((seg.n_rows,) + g.shape[1:]).to(ctx.x_dtype), None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, x, idx, seg, plain):
+        U = info.batch_size
+        xs = _unit_rows(x, in_dims[0], U)
+        out = _GatherRows.apply(xs, _unit_index(idx, in_dims[1], U, xs.shape[0] // U),
+                                seg, plain)
+        return _per_unit(out, U)
+
 
 class _EdgeSegmentMax(torch.autograd.Function):
     """edge_segment_max (spmm.py:235-274) on (E, F) edge rows: K3 forward
@@ -158,10 +225,13 @@ class _EdgeSegmentMax(torch.autograd.Function):
     value equals its segment's max and returns it in the rows' dtype."""
 
     @staticmethod
-    def forward(ctx, m2, receivers, mask, csr: CSRPlan, plain: bool):
-        out = _k3(plain)(m2, csr)
-        ctx.save_for_backward(m2, out, receivers, mask)
-        return out
+    def forward(m2, receivers, mask, csr: CSRPlan, plain: bool):
+        return _k3(plain)(m2, csr)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        m2, receivers, mask, csr, plain = inputs
+        ctx.save_for_backward(m2, output, receivers, mask)
 
     @staticmethod
     def backward(ctx, g):
@@ -174,6 +244,15 @@ class _EdgeSegmentMax(torch.autograd.Function):
         sel = (m2 == o) & mask[:, None]
         d = torch.where(sel, g.to(m2.dtype).index_select(0, receivers), 0.0)
         return d, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, m2, receivers, mask, csr, plain):
+        U = info.batch_size
+        out = _EdgeSegmentMax.apply(
+            _unit_rows(m2, in_dims[0], U).contiguous(),
+            _unit_index(receivers, in_dims[1], U, csr.n_rows // U),
+            _unit_rows(mask, in_dims[2], U), csr, plain)
+        return _per_unit(out, U)
 
 
 def edge_segment_max(
@@ -188,7 +267,7 @@ def edge_segment_max(
     shape = msg.shape
     m2 = msg.reshape(shape[0], -1).contiguous()
     out = _EdgeSegmentMax.apply(m2, receivers, mask, csr, _PLAIN)
-    return out.reshape((csr.n_rows,) + tuple(shape[1:]))
+    return out.reshape(out.shape[:1] + tuple(shape[1:]))
 
 
 def edge_segment_min(msg, receivers, mask, csr) -> torch.Tensor:
@@ -202,17 +281,30 @@ class _EdgeSegmentSum(torch.autograd.Function):
     backward is mask * g[receivers], cast to the rows' dtype."""
 
     @staticmethod
-    def forward(ctx, m2, receivers, mask, plan: CSRPlan, plain: bool):
-        ctx.save_for_backward(receivers, mask)
-        ctx.m_dtype = m2.dtype
+    def forward(m2, receivers, mask, plan: CSRPlan, plain: bool):
         ones = torch.ones(m2.shape[0], dtype=torch.float32, device=m2.device)
         return _k1(plain)(m2, ones, plan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        m2, receivers, mask, plan, plain = inputs
+        ctx.save_for_backward(receivers, mask)
+        ctx.m_dtype = m2.dtype
 
     @staticmethod
     def backward(ctx, g):
         receivers, mask = ctx.saved_tensors
         d = g.index_select(0, receivers) * mask[:, None].to(g.dtype)
         return d.to(ctx.m_dtype), None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, m2, receivers, mask, plan, plain):
+        U = info.batch_size
+        out = _EdgeSegmentSum.apply(
+            _unit_rows(m2, in_dims[0], U).contiguous(),
+            _unit_index(receivers, in_dims[1], U, plan.n_rows // U),
+            _unit_rows(mask, in_dims[2], U), plan, plain)
+        return _per_unit(out, U)
 
 
 def edge_segment_sum(msg: torch.Tensor, graph: Graph) -> torch.Tensor:

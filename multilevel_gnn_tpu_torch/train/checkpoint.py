@@ -70,14 +70,22 @@ def save_checkpoint(
 ) -> str:
     """Write step_{step}/state.pt (and step_{step}.loop.json); returns the
     step directory."""
-    path = _ckpt_dir(path)
-    target = os.path.join(path, f"step_{step}")
-    os.makedirs(target, exist_ok=True)
     tree = {"model": model.state_dict()}
     if optimizer is not None:
         tree["optimizer"] = optimizer.state_dict()
     if generator is not None:
         tree["generator"] = generator.get_state()
+    return save_tree(path, tree, loop_state, step)
+
+
+def save_tree(path: str, tree: Dict, loop_state: Optional[Dict] = None,
+              step: int = 0) -> str:
+    """save_checkpoint's files from a tree already made: {"model": a
+    state_dict, "optimizer": an Optimizer's state_dict, "generator": a
+    generator's state} (the fold-parallel driver writes each unit's so)."""
+    path = _ckpt_dir(path)
+    target = os.path.join(path, f"step_{step}")
+    os.makedirs(target, exist_ok=True)
     _write(os.path.join(target, "state.pt"), lambda f: torch.save(tree, f))
     if loop_state is not None:
         _write(os.path.join(path, f"step_{step}.loop.json"),
@@ -156,3 +164,30 @@ def latest_resumable_step(path: str) -> Optional[int]:
     steps = [s for s in _step_dirs(path)
              if os.path.exists(os.path.join(path, f"step_{s}.host.npy"))]
     return max(steps) if steps else None
+
+
+def unit_tree(tree, i: int):
+    """Unit i's part of a fold-parallel state (an Optimizer's state_dict
+    over parameters stacked on a leading unit axis): every tensor of one or
+    more dimensions is sliced at i (a copy), a 0-d tensor (Adam's shared
+    step count) and every other value kept."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i].clone() if tree.dim() else tree
+    if isinstance(tree, dict):
+        return {k: unit_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unit_tree(v, i) for v in tree)
+    return tree
+
+
+def stack_trees(trees):
+    """The inverse of unit_tree over the units' trees in unit order: their
+    tensors of one or more dimensions stacked, anything else unit 0's."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return torch.stack(list(trees)) if t0.dim() else t0
+    if isinstance(t0, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(stack_trees([t[j] for t in trees]) for j in range(len(t0)))
+    return t0

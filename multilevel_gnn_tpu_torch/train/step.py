@@ -15,8 +15,9 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
-from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext
+from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext, StackedContext
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import get_feature_loss
 
@@ -29,12 +30,17 @@ class _BCE(torch.autograd.Function):
     d/dp = (p - t) / max(p (1 - p), 1e-12), finite at a saturated softmax
     (p = 0 or 1), where the clamped logs' own derivative is 0 * inf = NaN."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, pred, target):
-        ctx.save_for_backward(pred, target)
+    def forward(pred, target):
         logp = torch.clamp(torch.log(pred), min=-100.0)
         log1mp = torch.clamp(torch.log(1.0 - pred), min=-100.0)
         return -(target * logp + (1.0 - target) * log1mp)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -113,15 +119,20 @@ class Optimizer:
               parameter
 
     The clip divides by max(norm, 20), optax's form (torch's
-    clip_grad_norm_ adds 1e-6 to the norm).  A parameter without a
+    clip_grad_norm_ adds 1e-6 to the norm).  With ``units``, the
+    parameters are the fold-parallel step's, stacked on a leading unit
+    axis: every update is elementwise and the schedule keys on the shared
+    count, so one optimizer moves each unit as its own would; only the
+    clip's norm is taken per unit, over each unit's slices.  A parameter without a
     gradient (a frozen one) counts as a zero gradient, as in the JAX tree.
     radam's rectification term and the bias corrections are computed in
     float32, as optax computes them."""
 
-    def __init__(self, params, cfg: Config, steps_per_epoch: int, name: str = "adam"):
+    def __init__(self, params, cfg: Config, steps_per_epoch: int, name: str = "adam",
+                 units: Optional[int] = None):
         if name not in ("adam", "radam", "adamw"):
             raise NotImplementedError(f"optimizer {name!r} is not ported")
-        self.name = name
+        self.name, self.units = name, units
         self.params = [p for p in params if p.requires_grad]
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.clip = bool(cfg.clip_grad)
@@ -146,7 +157,16 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        if self.clip:
+        if self.clip and self.units is not None:
+            # optax's global norm of each unit's gradient: (U,) scales
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.reshape(self.units, -1), dim=1)
+                 for g in grads]), dim=0)
+            scale = torch.where(
+                norm < CLIP_NORM, torch.ones_like(norm), CLIP_NORM / norm)
+            for g in grads:
+                g.mul_(scale.reshape((-1,) + (1,) * (g.dim() - 1)))
+        elif self.clip:
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads))
             )
@@ -287,3 +307,103 @@ def eval_step(model, batch: Batch, ctx: FoldContext
         weight_balance=False, weighted_loss=False, batch_weighted_loss=False
     )
     return pred, classification_loss(pred, batch.y, None, batch.sample_mask, cfg)
+
+
+# ---- the fold-parallel step (train/fold_parallel.py): U units of one model
+# shape, their parameters stacked on a leading unit axis, advanced as one
+# step.  The model's forward runs under torch.vmap over that axis with each
+# unit's parameters put in by functional_call; its SpMMs and segment ops
+# meet a StackedContext's block-diagonal plans and launch once for all
+# units (ops/spmm.py), its dense layers become batched products, and the
+# backward is ordinary autograd over the stacked tensors, so unit u's
+# gradient is the one its own step computes.
+
+
+def stack_params(models) -> dict:
+    """{name: (U, ...) leaf tensor} of U models of one shape, in
+    named_parameters order (the Optimizer's), requiring grad as each
+    model's parameter does."""
+    names = [n for n, _ in models[0].named_parameters()]
+    per = [dict(m.named_parameters()) for m in models]
+    return {n: torch.stack([p[n].detach() for p in per]).requires_grad_(
+        per[0][n].requires_grad) for n in names}
+
+
+def unit_state_dict(model, params: dict, i: int) -> dict:
+    """Unit i's state_dict in model.state_dict()'s layout: its slices of
+    the stacked parameters (copies, so a save holds only them) and the
+    model's own buffers."""
+    return {k: params[k][i].detach().clone() if k in params else v
+            for k, v in model.state_dict().items()}
+
+
+class _Objective(torch.nn.Module):
+    """make_loss_fn's loss as a module around the model, so functional_call
+    puts a unit's parameters in for the whole loss (the feature losses read
+    learnable_pca_params outside the forward)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, ctx, class_weight, generator):
+        return make_loss_fn(self.model.cfg)(self.model, batch, ctx, class_weight, generator)
+
+
+def _batch_fields(batch: Batch) -> dict:
+    if batch.raw_data is not None:
+        raise NotImplementedError("the fold-parallel step takes no raw_data (ROADMAP section 1)")
+    return {"x": batch.x, "y": batch.y, "age": batch.age, "sample_mask": batch.sample_mask}
+
+
+def stacked_train_step(
+    model,
+    params: dict,
+    optimizer: Optimizer,
+    batch: Batch,
+    sctx: StackedContext,
+    class_weight: torch.Tensor,
+    generators,
+) -> torch.Tensor:
+    """train_step for U units at once: ``batch`` has (U, B, ...) leaves,
+    ``class_weight`` is (U, 2), ``generators`` a UnitGenerators (unit u's
+    dropout masks drawn from its generator, as its run_fold draws them),
+    ``params`` stack_params' dict and ``optimizer`` an Optimizer over its
+    values with units=U.  Returns the (U,) losses (not synchronised)."""
+    model.train()
+    optimizer.zero_grad()
+    objective = _Objective(model)
+    named = {"model." + k: v for k, v in params.items()}
+
+    def unit(p, b, fields, graph_fields, graph2_fields, cw):
+        ctx = sctx.unit(fields, graph_fields, graph2_fields)
+        return functional_call(objective, p, (Batch(**b), ctx, cw, generators))[0]
+
+    # randomness "same": the one draw inside the forward other than dropout,
+    # pca_lowrank's start block from a generator seeded 0, is every unit's
+    losses = torch.vmap(unit, randomness="same")(
+        named, _batch_fields(batch), *sctx.inputs(), class_weight)
+    losses.sum().backward()
+    optimizer.step()
+    return losses.detach()
+
+
+@torch.no_grad()
+def stacked_eval_step(model, params: dict, batch: Batch, sctx: StackedContext
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """eval_step for U units at once: ((U, B, 2) predictions, (U,) losses)."""
+    was_training = model.training
+    model.eval()
+    cfg = model.cfg.replace(
+        weight_balance=False, weighted_loss=False, batch_weighted_loss=False
+    )
+
+    def unit(p, b, fields, graph_fields, graph2_fields):
+        ctx = sctx.unit(fields, graph_fields, graph2_fields)
+        pred = functional_call(model, p, (Batch(**b), ctx))[0]
+        return pred, classification_loss(pred, b["y"], None, b["sample_mask"], cfg)
+
+    try:
+        return torch.vmap(unit, randomness="same")(params, _batch_fields(batch), *sctx.inputs())
+    finally:
+        model.train(was_training)

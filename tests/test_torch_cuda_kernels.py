@@ -31,7 +31,16 @@ mgtpu custom ops: torch.library.opcheck on CUDA tensors and each op's CUDA
 kernel against its plain version (test_torch_ops.py's cases); a small bf16
 windowed fold exported on the card and loaded in a fresh process (equal
 to the live eval within 1e-6 x max(1, max|ref|), the same K1 / K2
-launches); warm_experiment building every kernel and data library.
+launches); warm_experiment building every kernel and data library.  The stacked forms
+of fold-parallel CV (three graphs of one node count, different topologies
+and edge counts, stacked block-diagonally): K1 over csr, csc, src_gather
+and dst_gather and K3 at F 64 and 2,048, K2 and the windowed SpMM on both
+sides at F 20 and 2,048 (permuted and identity window plans), each equal
+to the units' own launches bit for bit and within TOL of the plain
+version; a stacked train step of three small windowed folds (bf16, f32)
+launching K1 7 / K2 4, each unit's gradients within 35 x TOL of the
+largest of its own step's (batched GEMMs and a grouped convolution in
+place of the unit's own).
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -650,3 +659,120 @@ def test_genconv_kernels_match_plain(dev, aggr):
     for a, b in zip(*res):
         err = float((a - b).abs().max())
         assert err <= 7e-2 * max(1.0, float(b.abs().max())), err
+
+
+# ---- the stacked forms of fold-parallel CV (core/graph.py:stack_graphs):
+# one launch over a block-diagonal plan equals the units' own launches bit
+# for bit (each row is the same sum in the same order) and the plain
+# version within TOL
+
+def _stacked_units(dev, windowed, U=3, n=1000):
+    from multilevel_gnn_tpu_torch.core.graph import Graph, stack_graphs
+
+    graphs = []
+    for u in range(U):
+        rng = np.random.RandomState(40 + u)
+        e = 6000 + 700 * u
+        src = rng.randint(0, n, e)
+        dst = np.clip(src + rng.randint(-60, 61, e), 0, n - 20)
+        g = Graph.from_edges(np.stack([src, dst]), rng.rand(e).astype(np.float32), n)
+        g = g.with_self_loops().pad_edges_to(e + n + 11 * u)
+        if windowed:
+            g = g.with_window_meta(Wb=256, nwin=2, min_frac=0.0, perm_group=3 if u else 1)
+        graphs.append(g.with_sorted_meta(dev))
+    return graphs, stack_graphs(graphs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [64, 2048])
+def test_stacked_k1_k3_equal_per_unit_launches(dev, dtype, F):
+    graphs, sg = _stacked_units(dev, False)
+    U, N = len(graphs), graphs[0].n_nodes
+    E = sg.fields["senders"].shape[1]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(U * N, F, generator=g, device=dev).to(dtype)
+    msg = torch.randn(U * E, F, generator=g, device=dev).to(dtype)
+    w = torch.rand(U * E, generator=g, device=dev)
+    for attr, cols, stride in (("csr", x, N), ("csc", x, N), ("src_gather", msg, E),
+                               ("dst_gather", msg, E)):
+        plan = getattr(sg.view, attr)
+        out = k1.segment_spmm_csr(cols, w, plan)
+        want = torch.cat([k1.segment_spmm_csr(cols[u * stride:(u + 1) * stride],
+                                              w[u * E:(u + 1) * E].contiguous(),
+                                              getattr(gr, attr))
+                          for u, gr in enumerate(graphs)])
+        assert torch.equal(out, want), attr
+        _close(out, k1.segment_spmm_csr_plain(cols, w, plan), dtype)
+    out = k3.segment_max_csr(msg, sg.view.csr)
+    want = torch.cat([k3.segment_max_csr(msg[u * E:(u + 1) * E], gr.csr)
+                      for u, gr in enumerate(graphs)])
+    assert torch.equal(out, want)
+    assert torch.equal(out, k3.segment_max_csr_plain(msg, sg.view.csr))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [20, 2048])
+@pytest.mark.parametrize("transpose", [False, True], ids=["forward", "transpose"])
+def test_stacked_k2_equals_per_unit_launches(dev, dtype, F, transpose):
+    graphs, sg = _stacked_units(dev, True)
+    U, N = len(graphs), graphs[0].n_nodes
+    E = sg.fields["senders"].shape[1]
+    plan = sg.view.winplan
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(U * N, F, generator=g, device=dev).to(dtype)
+    w = torch.rand(U * E, generator=g, device=dev)
+    for fn in (k2.windowed_tile_spmm, k2.windowed_spmm):
+        out = fn(x, w, plan, transpose)
+        want = torch.cat([fn(x[u * N:(u + 1) * N],
+                             w[u * E:u * E + gr.num_padded_edges].contiguous(),
+                             gr.winplan, transpose) for u, gr in enumerate(graphs)])
+        assert torch.equal(out, want), fn.__name__
+    _close(k2.windowed_spmm(x, w, plan, transpose),
+           k2.windowed_spmm_plain(x, w, plan, transpose), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", None])
+def test_stacked_step_matches_unit_steps(dev, dtype):
+    """A stacked train step of three small windowed folds: each unit's
+    gradients against its own step's (the same dropout masks) within
+    TOL's limits of the largest, K1 / K2 launched as often as in one
+    unit's step."""
+    import copy
+
+    from multilevel_gnn_tpu_torch.core.batch import Batch, stack_contexts
+    from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup
+    from multilevel_gnn_tpu_torch.nn.basic import UnitGenerators
+    from multilevel_gnn_tpu_torch.ops.kernels import build
+    from multilevel_gnn_tpu_torch.train import step as S
+
+    sets = [make_gbm_scale_setup(node_num=300, n_pathways=12, batch=8, gene_rows=900,
+                                 topology="cohort", windowed=True, device=dev,
+                                 compute_dtype=dtype, spmm_bf16=dtype is not None,
+                                 seed=u, topo_seed=u) for u in range(3)]
+    cfg = sets[0][0].replace(gnn_dropout=0.25)
+    models = [s[1] for s in sets]
+    sctx = stack_contexts([s[3] for s in sets])
+    params = S.stack_params(models)
+    opt = S.Optimizer(list(params.values()), cfg, 4, units=3)
+    opt.step = lambda: None
+    gens = UnitGenerators(torch.Generator(device=dev).manual_seed(7 + u) for u in range(3))
+    batch = Batch(*(torch.stack([getattr(s[4], f) for s in sets])
+                    for f in ("x", "y", "age", "sample_mask")))
+    cw = torch.tensor([[1.0, 1.5]] * 3, device=dev)
+    for k in build.REGISTRY.values():
+        k.launches = 0
+    S.stacked_train_step(copy.deepcopy(models[0]), params, opt, batch, sctx, cw, gens)
+    counts = {k.name: k.launches for k in build.REGISTRY.values()}
+    assert counts[k1.KERNEL.name] == 7 and counts[k2.KERNEL.name] == 4, counts
+    tol = TOL[torch.bfloat16 if dtype else torch.float32] * 35
+    for u, m in enumerate(models):
+        m.train()
+        m.zero_grad()
+        loss, _ = S.make_loss_fn(cfg)(m, sets[u][4], sets[u][3], cw[u],
+                                      torch.Generator(device=dev).manual_seed(7 + u))
+        loss.backward()
+        for name, p in m.named_parameters():
+            if p.grad is None:
+                continue
+            err = float((params[name].grad[u] - p.grad).abs().max())
+            assert err <= tol * float(p.grad.abs().max()) + 1e-30, (u, name, err)

@@ -32,7 +32,8 @@ import multilevel_gnn_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-for n in ("train.checkpoint", "train.explain", "train.predict", "utils.survival"):
+for n in ("train.checkpoint", "train.explain", "train.predict", "utils.survival",
+          "train.fold_parallel"):
     assert "multilevel_gnn_tpu_torch." + n in names, n
 import chip_smoke
 from multilevel_gnn_tpu_torch.core.config import Config
