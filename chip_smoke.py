@@ -106,7 +106,7 @@ Then the sorted segment-sum and the protocol from files:
            fold 0 derived; seconds by stage, the MI estimator's seconds at
            k = 7 and 15, node slots, edges, mask share, whether the
            windowed plan engaged
-  experiment  the train CLI's main on those files, 1 run x 5 folds x 5
+  experiment  the train CLI's main on those files, 1 run x 5 folds x 3
            epochs at gbm.yaml's widths, bf16, launch counts zeroed just
            before and read just after (K1 > 0; K2 as the folds' plans say);
            per-fold derivation s, ms per step, host s per epoch, pooled AUC
@@ -129,7 +129,7 @@ After the sage training phases, on the same fold:
 
 And after the protocol phases, on the same files:
 
-  ckpt     run_experiment (gbm.yaml, bf16, 1 run x 5 folds x 4 epochs,
+  ckpt     run_experiment (gbm.yaml, bf16, 1 run x 5 folds x 3 epochs,
            ckpt_every 1) uninterrupted, then interrupted in fold 1 by the
            interrupt_after hook and resumed: pooled AUC / ACC and every
            fold's test scores must be equal; a step's bytes, load and save
@@ -157,15 +157,49 @@ seeds 0-4, windowed, bf16, B = 32) and the same files:
            units' own eval_steps within TOL_FP_PROB (bf16 and f32 trunks),
            K1 2 / K2 2, ms, gap and peak memory against five eval_steps
   fold_parallel_protocol  the train CLI with --fold-parallel on the files
-           (1 run x 5 folds x 5 epochs, counted), then the sequential CLI:
+           (1 run x 5 folds x 3 epochs, counted), then the sequential CLI:
            wall s, derivation and stacking s, host s per epoch, the stacked
            step's ms; fold_parallel_protocol_small: a small protocol (f32,
            dropout off, 2 epochs) fold-parallel on the card and on the CPU
            and sequential on the card, pooled AUC / ACC within TOL_PROTOCOL
-  fold_parallel_ckpt  fold-parallel with ckpt_every 1 (4 epochs)
+  fold_parallel_ckpt  fold-parallel with ckpt_every 1 (3 epochs)
            uninterrupted and stopped after 2 then resumed: pooled AUC /
            ACC equal; the predict CLI scores fold 2 from its checkpoint,
            equal to predict_fold with it loaded in memory
+
+and, after fold_parallel_serve, on the same five GBM folds (as units of
+vae_finetune and PathCNN), and after fold_parallel_ckpt on the files'
+DeeperGCN folds (the other families' stacked steps):
+
+  fold_parallel_vae_finetune_step / _serve  vae_finetune (sage bf16 trunk,
+           DiffPool head over each unit's own P x P adjacency) stacked:
+           gradients against the units' own steps within TOL_GRAD, K1 7 /
+           K2 4 a step; probabilities within TOL_FP_PROB, K1 2 / K2 2 a
+           batch (the ConvHead's serving too, _conv_head_serve); ms, gap
+           and peak against the units' own
+  fold_parallel_pathcnn_step  PathCNN (learnable PCA, f32) stacked: its
+           convolutions grouped, no port kernel; gradients within TOL_F32
+  fold_parallel_deepergcn_plans / _k3 / _k1  the five DeeperGCN folds'
+           gene graph stacked (U * E * F past 2^31 elements at F = 4,096):
+           K3 (bf16, f32; equal), K1 as edge_segment_sum and gather_src's
+           backward (bf16, f32) and as the edge-id lookup's backward (f32,
+           H 128; index_add_ beside it), each against its plain version
+           and bit-equal to the folds' own launches, with ms, the own
+           launches' ms, bound, plain and library ms
+  fold_parallel_deepergcn_units  one unit's train step peak; U = 5 if five
+           fit the card with 10% to spare, else the most that do
+  fold_parallel_deepergcn_step / _serve  DeeperGCN (bf16, B = 32, H 128, 3
+           layers, max) stacked at U: gradients within TOL_GRAD, K3 3 / K1
+           4 a step; probabilities within TOL_FP_PROB, K3 3 a batch; ms,
+           gap and peak against the units' own
+  fold_parallel_families_protocol_small  the train CLI's --fold-parallel on
+           the small files (f32, dropout off, 2 epochs) for deepergcn (max,
+           softmax), pathcnn (learnable PCA, pathway image) and
+           vae_finetune (ConvHead, DiffPool) on the card and on the CPU:
+           pooled AUC / ACC within TOL_PROTOCOL, launches counted
+  fold_parallel_deepergcn_ckpt  DeeperGCN fold-parallel on the small files
+           with ckpt_every 1, stopped after 2 of 3 epochs and resumed:
+           equal; the predict CLI's fold 2 equal to predict_fold in memory
 
 Then DeeperGCN on the same files (gbm.yaml with model=deepergcn,
 hidden_channels=128, num_layers=3: gcn_aggr max, norm layer, block res+,
@@ -193,7 +227,7 @@ maxpool readout, bf16 trunk, B = 32, so F = B*H = 4,096 at K3 and K1):
   profile_train_deepergcn  launches per step from the counters: K3 3 (one
            a layer), K1 4 (each layer's gather_src backward and the edge-id
            lookup's backward); kernel ms and gap share; peak memory
-  experiment_deepergcn  the train CLI's main, 1 run x 5 folds x 3 epochs,
+  experiment_deepergcn  the train CLI's main, 1 run x 5 folds x 2 epochs,
            bf16, counted, peak memory; then a small protocol (f32, dropout
            off, 2 epochs) card against CPU, gcn_aggr softmax and max,
            fold test scores within 1e-4
@@ -243,13 +277,13 @@ sources and warm, each failing the run when its check fails:
            against a live one, the mgtpu ops in the graph and whether
            functionalization added copies (auto_functionalized nodes)
   profile_cli  (after experiment) the train CLI with --profile-dir on the
-           protocol files, 1 run x 5 folds x 2 epochs: the trace's bytes,
+           protocol files, 1 run x 5 folds x 1 epoch: the trace's bytes,
            K1's kernel symbol in it; wall time against the same protocol
-           without it, before and after
+           without it, run before it
   ppi / merge  (after explain_cli) STRING-layout PPI tables (45,000 pair
            rows over the cohort's genes) beside the files: the train CLI at
            gbm.yaml widths with edge_type ppi, then merge, 1 run x 5 folds x
-           3 epochs, counted; edges per fold and their path, derivation s;
+           1 epoch, counted; edges per fold and their path, derivation s;
            profile_train_<edge_type> on fold 0 (launches per step as the
            plans predict, merge running the stack over both graphs); a
            small protocol (f32, dropout off, 2 epochs) card against CPU
@@ -271,6 +305,7 @@ and other forms' numbers) and the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -354,7 +389,14 @@ CONV_EPOCHS = 2
 GBM_FINAL_HEAD = 4  # gbm.yaml's final_head: GAT's last layer's heads
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries t_s, the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 2)}
     print(json.dumps(obj), flush=True)
 
 
@@ -499,9 +541,10 @@ def k2_bytes_flops(plan, side, F, dsize):
     return b, 2.0 * side.n_entries * F
 
 
-def time_k1(name, plan, x, w, acc, gen, library=None):
+def time_k1(name, plan, x, w, acc, gen, library=None, reps=10):
     """K1 on one plan against its plain version (accumulating into a random
-    base when acc), with its ms, plain ms, bound and library ms."""
+    base when acc), with its ms, plain ms, bound and library ms (the plain
+    version and the library call timed over ``reps`` calls a window)."""
     dt = x.dtype
     base = torch.randn(plan.n_rows, x.shape[1], generator=gen, device="cuda")
     # accumulate mode adds into its output: the check starts both from
@@ -534,8 +577,8 @@ def time_k1(name, plan, x, w, acc, gen, library=None):
         warp_rows=plan.n_busy if acc else int(plan.items.shape[0]),
         long_rows=int(plan.long_rows.shape[0]),
         max_abs_err=e, ref_max=m, limit=limit, ms=ms, ms_source=src,
-        event_ms=cuda_ms(kern), plain_ms=device_ms(plain),
-        library_ms=device_ms(library) if library is not None else None,
+        event_ms=cuda_ms(kern), plain_ms=device_ms(plain, iters=reps),
+        library_ms=device_ms(library, iters=reps) if library is not None else None,
         bound_ms=bms, bound_by=by, bytes=b, flops=fl,
     )
 
@@ -603,10 +646,10 @@ def kernel_k2(graph, w, F, gen):
     return res
 
 
-def time_k3(graph, msg):
+def time_k3(graph, msg, reps=10):
     """K3 over the graph's csr against its plain version (equal), with its
     ms, plain ms, bound and the scatter_reduce amax library call on the
-    same rows."""
+    same rows (those two timed over ``reps`` calls a window)."""
     plan = graph.csr
     F, dt = msg.shape[1], msg.dtype
     out = k3.segment_max_csr(msg, plan)
@@ -629,7 +672,7 @@ def time_k3(graph, msg):
     try:
         library()
         torch.cuda.synchronize()
-        lib_ms = device_ms(library)
+        lib_ms = device_ms(library, iters=reps)
     except (RuntimeError, NotImplementedError):
         lib_ms = None
     del rows, idx, dst
@@ -638,7 +681,7 @@ def time_k3(graph, msg):
         case=f"csr F={F}", dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=F,
         max_abs_err=e, ref_max=m, limit=0.0, ms=ms, ms_source=src,
         event_ms=cuda_ms(lambda: k3.segment_max_csr(msg, plan)),
-        plain_ms=device_ms(lambda: k3.segment_max_csr_plain(msg, plan)),
+        plain_ms=device_ms(lambda: k3.segment_max_csr_plain(msg, plan), iters=reps),
         library_ms=lib_ms, bound_ms=bms, bound_by=by, bytes=b,
         flops=float(plan.nnz) * F,
     )
@@ -1214,26 +1257,29 @@ OPTIONS = {
     "pca_lowrank": dict(reduction_method="pca_lowrank", compute_dtype=None, spmm_bf16=False),
 }
 TOL_PCA_ROWS = 1e-6  # times max|rows|: the reduction's input, kernels against plain
-
-
-def pca_vs_plain(phase, m, ctx, batch):
-    """A runtime-PCA forward with kernels against plain versions: the rows
-    the reduction takes within TOL_PCA_ROWS; the image's sign flips, its
-    difference after the signs are aligned and the probabilities'
-    difference are reported (they follow the solver)."""
-    rows = []
+def pca_vs_plain(phase, m, ctx, batch, counted):
+    """A runtime-PCA forward with plain versions, then counted(), the
+    phase's counted eval_step with kernels: the rows the reduction takes
+    within TOL_PCA_ROWS; the image's sign flips, its difference after the
+    signs are aligned and the probabilities' difference are reported (they
+    follow the solver).  The plain forward goes first, so the counted
+    call is the model's second.  Returns counted()'s result."""
+    rows, outs = [], []
     reduce = m.runtime_pca_image
     m.runtime_pca_image = lambda xg: (rows.append(xg), reduce(xg))[1]
+    hook = m.register_forward_hook(
+        lambda mod, inp, out: outs.append(tuple(t.detach() for t in out)))
     m.eval()
     try:
-        with torch.no_grad():
-            pk, ik = m(batch, ctx)
-            with spmm.plain_versions():
-                pp, ip = m(batch, ctx)
+        with torch.no_grad(), spmm.plain_versions():
+            m(batch, ctx)
+        result = counted()
     finally:
+        hook.remove()
         del m.runtime_pca_image
     torch.cuda.synchronize()
-    err, rmax = err_of(rows[0], rows[1])
+    (pp, ip), (pk, ik) = outs
+    err, rmax = err_of(rows[1], rows[0])
     B, C = ik.shape[:2]
     a = ik.reshape(B, C, -1, m.cfg.pca_dim)
     b = ip.reshape(B, C, -1, m.cfg.pca_dim)
@@ -1249,6 +1295,7 @@ def pca_vs_plain(phase, m, ctx, batch):
           "finite": finite, "ok": ok})
     if not ok:
         raise AssertionError(f"{phase}: kernels vs plain on the reduction's rows")
+    return result
 
 
 def options_phase(cfg, ctx, batch):
@@ -1270,25 +1317,32 @@ def options_phase(cfg, ctx, batch):
         trunk = "bf16" if c.compute_dtype else "f32"
         m = MultilevelGNN(c, n, G, device="cuda", seed=0)
         pca = c.reduction_method != "linear_projection"
+
+        def counted():
+            m.eval()
+            torch.cuda.synchronize()
+            zero_launches()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.no_grad():
+                a.record()
+                probs = eval_step(m, batch, ctx)[0]
+                b.record()
+            b.synchronize()
+            return probs, launch_counts(), a.elapsed_time(b)
+
         if pca:
-            pca_vs_plain(f"options_{name}", m, ctx, batch)
+            probs, eval_launches, ms = pca_vs_plain(f"options_{name}", m, ctx, batch, counted)
         else:
             tol_img = TOL_IMAGE_BF16 if trunk == "bf16" else TOL_IMAGE_F32
             forward_vs_plain(f"options_{name}", ((trunk, tol_img, lambda: m),), ctx, batch)
-        m.eval()
-        torch.cuda.synchronize()
-        zero_launches()
-        probs = eval_step(m, batch, ctx)[0]
-        torch.cuda.synchronize()
-        eval_launches = launch_counts()
+            probs, eval_launches, ms = counted()
         row = {"phase": f"options_{name}_counts", "trunk": trunk, "eval_launches": eval_launches,
                "finite": bool(torch.isfinite(probs).all())}
         ok = row["finite"] and eval_launches == per_batch
         if pca:
-            with torch.no_grad():
-                # one call (pca_vs_plain warmed it): pca_svd's 438 slots of
-                # batched SVDs take seconds on an H100
-                row["forward_ms"] = cuda_ms(lambda: m(batch, ctx), iters=1, warmup=0)
+            # the counted call, after the plain versions' forward: pca_svd's
+            # 438 slots of batched SVDs take seconds on an H100
+            row["forward_ms"] = ms
         else:
             train_grad_checks(((trunk, m),), ctx, batch, cw, phase=f"options_grad_{name}")
             opt = make_optimizer(m, c, 6)
@@ -1513,9 +1567,12 @@ def _spy_folds():
     return out, lambda: setattr(driver, "run_fold", real)
 
 
+EXPERIMENT_EPOCHS = 3  # the experiment phase's epochs on the files
+
+
 def experiment_phase(root, device="cuda"):
     """The train CLI's main on the reference-scale directory: 1 run x 5
-    folds x 5 epochs at gbm.yaml's widths, bf16 trunk, on the card, counted;
+    folds x EXPERIMENT_EPOCHS epochs at gbm.yaml's widths, bf16 trunk, on the card, counted;
     then a small protocol (f32, dropout off, 2 epochs) on the card and on the
     CPU, fold test scores compared."""
     from multilevel_gnn_tpu_torch.core.config import Config
@@ -1526,13 +1583,14 @@ def experiment_phase(root, device="cuda"):
     zero_launches()
     t0 = time.perf_counter()
     res = cli.main(["--config", GBM_YAML, "--data-dir", root, "--device", device,
-                    "--set", "num_run=1", "epochs=5"])
+                    "--set", "num_run=1", f"epochs={EXPERIMENT_EPOCHS}"])
     sync(device)
     wall = time.perf_counter() - t0
     launches = launch_counts()
     folds = res["folds"]
     want_k2 = any(f["windowed"] for f in folds)
-    auc, acc = res["auc"][5], res["acc"][5]
+    e = res["check_epochs"][-1]
+    auc, acc = res["auc"][e], res["acc"][e]
     ok = bool(len(folds) == 5 and launches[k1.KERNEL.name] > 0
           and (launches[k2.KERNEL.name] > 0) == want_k2
           and launches[k3.KERNEL.name] == 0 and launches[k4.name] == 0
@@ -1543,7 +1601,8 @@ def experiment_phase(root, device="cuda"):
           "edges": [f["edges"] for f in folds], "windowed": [f["windowed"] for f in folds],
           "ms_per_step_median": [f["step_ms_median"] for f in folds],
           "host_s_per_epoch": [f["epoch_s"] for f in folds],
-          "launches": launches, "pooled_auc_5": auc, "pooled_acc_5": acc, "ok": ok})
+          "launches": launches, "epochs": e, "pooled_auc": auc, "pooled_acc": acc,
+          "ok": ok})
     if not ok:
         raise AssertionError("experiment phase failed")
 
@@ -1578,7 +1637,7 @@ def experiment_phase(root, device="cuda"):
 TOL_IG = {"bf16": 7e-2, "f32": 6e-6}
 TOL_OPTIM = 1e-5  # five radam / adamw steps, card against CPU (f32, small)
 IG_STEPS = 16
-CKPT_EPOCHS = 4
+CKPT_EPOCHS = 3
 
 
 def repairs_phase(model, ctx, train_kernel_ms):
@@ -1850,7 +1909,7 @@ def explain_cli_phase(root, ckpt_dir, device="cuda"):
 TOL_EXPORT = 1e-6  # times max(1, max|ref|): the exported call against the live one
 REPO = Path(__file__).resolve().parent
 PPI_EDGES = 45_000  # make_cohort_topology's e_ppi
-PPI_EPOCHS = 3
+PPI_EPOCHS = 1
 # the child process that loads the artifact: load seconds (from its start,
 # torch's import and CUDA's start-up included, and a second load), first-
 # call seconds, probabilities, launches per call (counts zeroed just
@@ -2022,8 +2081,8 @@ def export_phase(model, ctx, batch, phase="export", want=None):
 
 def warm_phase():
     """The warm CLI in a fresh copy of the package (nothing built), then
-    the train CLI from the same copy: it must find every kernel and data
-    library built (0.0 s each)."""
+    the train CLI from the same copy (--fold-parallel): it must find every
+    kernel and data library built (0.0 s each)."""
     import shutil
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2032,10 +2091,14 @@ def warm_phase():
         env = dict(os.environ, PYTHONPATH=tmp)
         args = ["--config", GBM_YAML, "--synthetic", "--debug"]
         out = {}
-        for name, module in (("warm", "multilevel_gnn_tpu_torch.train.warm"),
-                             ("train", "multilevel_gnn_tpu_torch.train.cli")):
+        # the train CLI's quickest protocol (--debug fixes 5 epochs): its
+        # units stacked, fold-parallel
+        for name, module, extra in (
+                ("warm", "multilevel_gnn_tpu_torch.train.warm", []),
+                ("train", "multilevel_gnn_tpu_torch.train.cli", ["--fold-parallel"])):
             t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+            r = subprocess.run([sys.executable, "-m", module, *args, *extra],
+                               capture_output=True,
                                text=True, env=env, timeout=600, cwd=tmp)
             if r.returncode != 0:
                 raise AssertionError(f"warm: {module} failed:\n{r.stderr[-4000:]}")
@@ -2055,15 +2118,14 @@ def warm_phase():
 
 def profile_phase(root):
     """The train CLI with --profile-dir on the protocol files (1 run x 5
-    folds x 2 epochs) against the same protocol without it: the trace's
-    bytes and K1's kernel symbol in it, and both wall times."""
+    folds x 1 epoch) against the same protocol without it, run first: the
+    trace's bytes and K1's kernel symbol in it, and both wall times."""
     from multilevel_gnn_tpu_torch.train import cli
     from multilevel_gnn_tpu_torch.utils.profiling import TRACE_FILE
 
-    args = ["--config", GBM_YAML, "--data-dir", root, "--set", "num_run=1", "epochs=2"]
+    args = ["--config", GBM_YAML, "--data-dir", root, "--set", "num_run=1", "epochs=1"]
     walls = {}
-    for name, extra in (("plain", []), ("profiled", ["--profile-dir", f"{root}/prof"]),
-                        ("plain_again", [])):
+    for name, extra in (("plain", []), ("profiled", ["--profile-dir", f"{root}/prof"])):
         sync("cuda")
         t0 = time.perf_counter()
         cli.main(args + extra)
@@ -2199,7 +2261,7 @@ TOL_PROB_DGCN = {"f32": 1e-5, "bf16": 5e-3}
 # gene edge's cotangent into row 0 (about 120k rows, K1's long-row blocks
 # against index_add_), read 9.1e-6 on an H100 where sage's step reads 6e-7
 TOL_GRAD_DGCN = {"bf16": 7e-2, "f32": TOL_F32}
-DGCN_EPOCHS = 3
+DGCN_EPOCHS = 2
 
 
 def dgcn_cfg(**kw):
@@ -3309,7 +3371,7 @@ def slice10_phases(cfg, ctx, batch):
     for kind in ("autoencoder", "vae", "vq_vae"):
         per_step[f"pretrain_{kind}"] = pretrain_phase(kind, cfg, ctx, batch)
     per_step["pretrain_autoencoder_foreach"] = pretrain_phase(
-        "autoencoder", cfg, ctx, batch, decoder="foreach", n_steps=3)
+        "autoencoder", cfg, ctx, batch, decoder="foreach", n_steps=2)
     for head, (sv, st) in vae_finetune_phase(cfg, ctx, batch).items():
         serve[f"serve_vae_finetune_{head}"] = sv
         per_step[f"vae_finetune_{head}"] = st
@@ -3320,6 +3382,10 @@ def slice10_phases(cfg, ctx, batch):
 # stacked step, K1 / K2 / K3 launched once per SpMM or segment op for all of
 # them over block-diagonal plans (core/graph.py:stack_graphs)
 FP_UNITS = 5
+FP_PROTOCOL_EPOCHS = 3  # fold_parallel_protocol's epochs on the files
+# calls a profiled window of the stacked forms' plain versions and library
+# calls, which take 30-70 ms each at U = 5 (10 for the other forms)
+FP_SLOW_REPS = 3
 FP_STEPS = 10  # timed stacked steps (and timed sequences of five unit steps)
 # a stacked eval batch's probabilities against each unit's own eval_step
 # (its dense layers batched GEMMs, its head a grouped convolution, summing
@@ -3379,7 +3445,7 @@ def fp_plans_phase(units, gen):
         for case, stacked, per, acc in (
                 ("stacked_residual", plan.res, [g.winplan.res for g in graphs], True),
                 ("stacked_all_edges", sg.view.csr, [g.csr for g in graphs], False)):
-            r = time_k1(case, stacked, x, w, acc, gen)
+            r = time_k1(case, stacked, x, w, acc, gen, reps=FP_SLOW_REPS)
             fp_equal(f"k1 {case} {dt}",
                      lambda: k1.segment_spmm_csr(x, w, stacked, base.clone() if acc else None),
                      [lambda u=u: k1.segment_spmm_csr(
@@ -3403,7 +3469,7 @@ def fp_plans_phase(units, gen):
             res[(case, r["dtype"])] = r
         del x, xs, base
         msg = torch.randn(U * E, F, generator=gen, device="cuda").to(dt)
-        r = time_k3(sg.view, msg)
+        r = time_k3(sg.view, msg, reps=FP_SLOW_REPS)
         r["case"] = "stacked_csr"
         units_k3 = [lambda u=u: k3.segment_max_csr(msg[u * E:(u + 1) * E], graphs[u].csr)
                     for u in range(U)]
@@ -3419,7 +3485,8 @@ def fp_plans_phase(units, gen):
 def fp_state(units, cfg):
     """The units' stacked state for cfg (their models' parameters, an Adam
     over them with units=U, each unit's dropout generator seeded 1000 + u)
-    and their stacked context, batch and class weights."""
+    and their stacked context, batch (raw_data too, where the units' carry
+    it) and class weights."""
     from multilevel_gnn_tpu_torch.core.batch import Batch, stack_contexts
     from multilevel_gnn_tpu_torch.nn.basic import UnitGenerators
     from multilevel_gnn_tpu_torch.train.step import Optimizer, stack_params
@@ -3431,18 +3498,22 @@ def fp_state(units, cfg):
         opt=Optimizer(list(params.values()), cfg, 6, units=len(units)),
         gens=UnitGenerators(torch.Generator(device="cuda").manual_seed(1000 + i)
                             for i in range(len(units))),
-        batch=Batch(*(torch.stack([getattr(u[4], f) for u in units])
-                      for f in ("x", "y", "age", "sample_mask"))),
+        batch=Batch(**{f: None if getattr(units[0][4], f) is None else
+                       torch.stack([getattr(u[4], f) for u in units])
+                       for f in ("x", "y", "age", "sample_mask", "raw_data")}),
         cw=torch.tensor([[1.0, 1.5]] * len(units), device="cuda"))
     return st
 
 
-def fp_step_phase(units):
-    """One stacked sage bf16 train step at U units against the U units'
-    own steps: per-unit gradients (the same dropout masks) within
-    TOL_GRAD, launches K1 7 / K2 4 a stacked step; CUDA-event ms, kernel ms,
-    gap share and peak memory of a stacked step against a sequence of the
-    U units' steps, each in turns."""
+def fp_step_phase(units, want=None, phase="fold_parallel_step", rounds=2,
+                  tol=TOL_GRAD["bf16"]):
+    """One stacked train step at U units (the sage bf16 units by default)
+    against the U units' own steps: per-unit gradients (the same dropout
+    masks) within ``tol`` (relative to each parameter's largest gradient;
+    TOL_GRAD's bf16 limit), launches ``want`` a stacked step (K1 7 / K2 4);
+    CUDA-event ms, kernel ms, gap share and peak memory of a stacked step
+    against a sequence of the U units' steps, each in turns (fp_compare,
+    ``rounds``)."""
     from multilevel_gnn_tpu_torch.train.step import stacked_train_step
 
     cfg = units[0][0]
@@ -3464,7 +3535,7 @@ def fp_step_phase(units):
             d = float((st["params"][n].grad[i] - ref).abs().max())
             rel[n] = max(rel.get(n, 0.0), d / max(float(ref.abs().max()), 1e-30))
     worst = max(rel.values())
-    want = {k1.KERNEL.name: 7, k2.KERNEL.name: 4, k3.KERNEL.name: 0, k4.name: 0}
+    want = want or {k1.KERNEL.name: 7, k2.KERNEL.name: 4, k3.KERNEL.name: 0, k4.name: 0}
 
     def stacked():
         stacked_train_step(st["template"], st["params"], st["opt"], st["batch"],
@@ -3477,24 +3548,24 @@ def fp_step_phase(units):
         for i, u in enumerate(units):
             train_step(u[1], opts[i], u[4], u[3], cw1, gens[i])
 
-    out = fp_compare(stacked, sequential, want, len(units))
-    ok = worst <= TOL_GRAD["bf16"] and one == want and out["ok"]
-    emit({"phase": "fold_parallel_step", "units": len(units), "launches_one_step": one,
-          "grad_max_rel_err": worst, "tol": TOL_GRAD["bf16"],
+    out = fp_compare(stacked, sequential, want, len(units), rounds)
+    ok = worst <= tol and one == want and out["ok"]
+    emit({"phase": phase, "units": len(units), "launches_one_step": one,
+          "grad_max_rel_err": worst, "tol": tol,
           "grad_rel_err_by_param": rel, **out, "ok": ok})
     if not ok:
-        raise AssertionError(f"fold_parallel_step: gradients {worst}, launches {one}")
+        raise AssertionError(f"{phase}: gradients {worst}, launches {one}")
     return out["launches_stacked"]
 
 
-def fp_compare(stacked, sequential, want, n_units):
-    """CUDA-event ms (FP_STEPS calls, stacked and sequential in turns),
-    kernel ms and gap share (profiler, 3 calls) and peak memory of one
-    stacked call against one sequence of the units' own calls; the
-    stacked call's launches must equal ``want``."""
+def fp_compare(stacked, sequential, want, n_units, rounds=2):
+    """CUDA-event ms (2 * rounds * (FP_STEPS // 4 + 1) calls of each,
+    stacked and sequential in turns), kernel ms and gap share (profiler, 3
+    calls) and peak memory of one stacked call against one sequence of the
+    units' own calls; the stacked call's launches must equal ``want``."""
     ms = {"stacked": [], "sequential": []}
     per = {}
-    for _ in range(2):
+    for _ in range(rounds):
         for name, fn in (("stacked", stacked), ("sequential", sequential),
                          ("sequential", sequential), ("stacked", stacked)):
             t, per[name] = timed_steps(fn, FP_STEPS // 4 + 1)
@@ -3534,11 +3605,7 @@ def fp_serve_phase(units):
             (u[0], MultilevelGNN(u[0].replace(compute_dtype=None, spmm_bf16=False),
                                  u[2].n_nodes, u[3].num_pca_rows, device="cuda", seed=s),
              u[2], u[3], u[4]) for s, u in enumerate(units)]
-        st = fp_state(us, us[0][0])
-        pred, loss = stacked_eval_step(st["template"], st["params"], st["batch"], st["sctx"])
-        ref = [eval_step(u[1], u[4], u[3]) for u in us]
-        errs[trunk] = max(float((pred[i] - r[0]).abs().max()) for i, r in enumerate(ref))
-        errs[trunk + "_loss"] = max(abs(float(loss[i]) - float(r[1])) for i, r in enumerate(ref))
+        st, errs[trunk], errs[trunk + "_loss"] = fp_eval_errs(us)
     # the loop ends on the bf16 trunk, whose stacked state is timed below
     want = {k1.KERNEL.name: 2, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
     out = fp_compare(
@@ -3555,13 +3622,15 @@ def fp_serve_phase(units):
 
 def fp_protocol_phase(root, small):
     """The train CLI with --fold-parallel on the reference-scale files (1 run
-    x 5 folds x 5 epochs, gbm.yaml, bf16), counted, and the sequential CLI
-    on the same files after it: wall times, pooled AUC / ACC; then a small
+    x 5 folds x FP_PROTOCOL_EPOCHS epochs, gbm.yaml, bf16), counted, and
+    the sequential CLI on the same files after it: wall times, pooled AUC /
+    ACC; then a small
     protocol (f32, dropout off, 2 epochs) fold-parallel on the card, on the
     CPU and sequential on the card, pooled AUC / ACC within TOL_PROTOCOL."""
     from multilevel_gnn_tpu_torch.train import cli
 
-    args = ["--config", GBM_YAML, "--data-dir", root, "--set", "num_run=1", "epochs=5"]
+    E = FP_PROTOCOL_EPOCHS
+    args = ["--config", GBM_YAML, "--data-dir", root, "--set", "num_run=1", f"epochs={E}"]
     runs, launches = {}, {}
     for name, extra in (("fold_parallel", ["--fold-parallel"]), ("sequential", [])):
         sync("cuda")
@@ -3574,7 +3643,7 @@ def fp_protocol_phase(root, small):
     (w_fp, fp), (w_seq, seq) = runs["fold_parallel"], runs["sequential"]
     ok = bool(fp["units"] == 5 and launches["fold_parallel"][k1.KERNEL.name] > 0
               and launches["fold_parallel"][k3.KERNEL.name] == 0
-              and 0.0 <= fp["auc"][5] <= 1.0)
+              and 0.0 <= fp["auc"][E] <= 1.0)
     emit({"phase": "fold_parallel_protocol", "wall_s": {"fold_parallel": w_fp,
                                                         "sequential": w_seq},
           "cli_wall_time_s": {"fold_parallel": fp["wall_time_s"],
@@ -3587,8 +3656,9 @@ def fp_protocol_phase(root, small):
           "stacked_step_ms_median": fp["step_ms_median"],
           "unit_step_ms_median": [f["step_ms_median"] for f in seq["folds"]],
           "windowed": [f["windowed"] for f in seq["folds"]], "launches": launches,
-          "pooled_auc_5": {"fold_parallel": fp["auc"][5], "sequential": seq["auc"][5]},
-          "pooled_acc_5": {"fold_parallel": fp["acc"][5], "sequential": seq["acc"][5]},
+          "epochs": E,
+          "pooled_auc": {"fold_parallel": fp["auc"][E], "sequential": seq["auc"][E]},
+          "pooled_acc": {"fold_parallel": fp["acc"][E], "sequential": seq["acc"][E]},
           "ok": ok})
     if not ok:
         raise AssertionError("fold_parallel_protocol failed")
@@ -3653,19 +3723,381 @@ def fp_ckpt_phase(root, cohort):
         raise AssertionError("fold_parallel_ckpt: resume or predict failed")
 
 
+# ---- fold-parallel CV of DeeperGCN, PathCNN and vae_finetune: the same
+# stacked step, with each unit's raw side channel in its batch, DeeperGCN's
+# edge-id lookup and DiffPool's pathway adjacency in the stacked context
+FP_MEM_SPARE = 0.10  # share of the card's memory left free when U is chosen
+# PathCNN's stacked step (f32): its convolutions one grouped convolution,
+# its head batched GEMMs, summing in other orders than a unit's own
+TOL_GRAD_FP_F32 = TOL_F32
+# the small protocols of the families (f32, dropout off; PathCNN's and the
+# DiffPool head's fixed dropouts off too), card against CPU
+FP_FAMILIES = {
+    "deepergcn_max": (*DGCN_SETS, "gcn_aggr=max"),
+    "deepergcn_softmax": (*DGCN_SETS, "gcn_aggr=softmax"),
+    "pathcnn_learnable": ("model=pathcnn", "learnable_pca=true"),
+    "pathcnn_attrs": ("model=pathcnn", "learnable_pca=false"),
+    "vae_finetune_conv_head": ("model=vae_finetune", "decoder_type=foreach"),
+    "vae_finetune_diff_pooling": ("model=vae_finetune", "reorder_type=diff_pooling"),
+}
+FP_SMALL_SETS = ("num_run=1", "epochs=2", "compute_dtype=null", "spmm_bf16=false",
+                 "feature_drop=false", "head_drop_rate=0.0", "gnn_dropout=0.0", "dropout=0.0")
+
+
+def fpd_folds(cohort, n=FP_UNITS):
+    """The DeeperGCN folds 0 .. n-1 of the protocol files (dgcn_cfg: B 32,
+    H 128, 3 layers, bf16), each derived by fold_setup on the card:
+    [(cfg, fold, X, (train, valid, test))]."""
+    from multilevel_gnn_tpu_torch.train import driver
+
+    cfg = dgcn_cfg()
+    out = []
+    for f in range(n):
+        tr, va, te = driver.fold_indices(cohort.labels(), cfg, f)
+        fcfg, fold, X = driver.fold_setup(cfg, cohort, tr, f, "cuda")
+        out.append((fcfg.replace(pathway_num=cohort.n_pathways), fold, X, (tr, va, te)))
+    return out
+
+
+def fpd_kernel_phase(folds, gen):
+    """The stacked DeeperGCN kernels at the folds' U and F = B * H = 4,096,
+    where U * E * F passes 2^31 elements: K3 (bf16, f32; equal to plain),
+    K1 as edge_segment_sum (over the stacked dst_gather) and as gather_src's
+    backward (src_gather), bf16 and f32, and as the edge-id lookup's
+    backward (f32, H: U rows of ~E entries each, a block a row; index_add_
+    beside it); each against its plain version, bit-equal to the U units'
+    own launches, with ms, the own launches' ms, bound, plain and library
+    ms."""
+    from multilevel_gnn_tpu_torch.core.batch import stack_contexts
+
+    ctxs = [f[1].ctx for f in folds]
+    sctx = stack_contexts(ctxs)
+    g = sctx.graph.view
+    U, E = len(ctxs), int(sctx.graph.fields["senders"].shape[1])
+    B, H = folds[0][0].batch_size, folds[0][0].hidden_channels
+    F = B * H
+    lookup = sctx.view.edge_id_gather
+    emit({"phase": "fold_parallel_deepergcn_plans", "units": U, "edge_stride": E,
+          "edges": [c.graph.n_edges for c in ctxs], "F": F, "elements": U * E * F,
+          "past_2_31": U * E * F >= 2 ** 31, "csr_nnz": g.csr.nnz,
+          "lookup_rows": lookup.n_rows, "lookup_long_rows": int(lookup.long_rows.shape[0])})
+    res = {}
+
+    def own(plans, x, w):
+        return [lambda u=u: k1.segment_spmm_csr(x[u * E:(u + 1) * E], w[:E], plans[u])
+                for u in range(U)]
+
+    for dt in (torch.bfloat16, torch.float32):
+        msg = torch.randn(U * E, F, generator=gen, device="cuda").to(dt)
+        r = time_k3(g, msg, reps=FP_SLOW_REPS)
+        r["case"] = "stacked_deepergcn_csr"
+        units_k3 = [lambda u=u: k3.segment_max_csr(msg[u * E:(u + 1) * E], ctxs[u].graph.csr)
+                    for u in range(U)]
+        fp_equal(f"k3 deepergcn {dt}", lambda: k3.segment_max_csr(msg, g.csr), units_k3)
+        r["per_unit_ms"] = device_ms(lambda: [f() for f in units_k3])
+        emit({"phase": "fold_parallel_deepergcn_k3", **r})
+        res[("stacked_deepergcn_csr", r["dtype"])] = r
+        ones = torch.ones(U * E, device="cuda")
+        for case, plan, attr in (("stacked_edge_segment_sum", g.dst_gather, "dst_gather"),
+                                 ("stacked_gather_src_bwd", g.src_gather, "src_gather")):
+            r = time_k1(case, plan, msg, ones, False, gen, reps=FP_SLOW_REPS)
+            units_k1 = own([getattr(c.graph, attr) for c in ctxs], msg, ones)
+            fp_equal(f"k1 {case} {dt}", lambda: k1.segment_spmm_csr(msg, ones, plan), units_k1)
+            r["per_unit_ms"] = device_ms(lambda: [f() for f in units_k1])
+            emit({"phase": "fold_parallel_deepergcn_k1", **r})
+            res[(case, r["dtype"])] = r
+        del msg
+        torch.cuda.empty_cache()
+    V = lookup.n_rows // U
+    rows = (sctx.fields["edge_ids"] + V * torch.arange(U, device="cuda")[:, None]).reshape(-1)
+    cot = torch.randn(U * E, H, generator=gen, device="cuda")
+    ones = torch.ones(U * E, device="cuda")
+
+    def index_add():
+        return torch.zeros(lookup.n_rows, H, device="cuda").index_add_(0, rows, cot)
+
+    r = time_k1("stacked_edge_id_lookup_bwd", lookup, cot, ones, False, gen, library=index_add)
+    units_k1 = own([c.edge_id_gather for c in ctxs], cot, ones)
+    fp_equal("k1 stacked_edge_id_lookup_bwd", lambda: k1.segment_spmm_csr(cot, ones, lookup),
+             units_k1)
+    r["per_unit_ms"] = device_ms(lambda: [f() for f in units_k1])
+    emit({"phase": "fold_parallel_deepergcn_k1", **r, "rows": lookup.n_rows,
+          "largest_row": int(torch.bincount(rows).max())})
+    res[("stacked_edge_id_lookup_bwd", r["dtype"])] = r
+    del sctx, cot, rows
+    torch.cuda.empty_cache()
+    return res
+
+
+def fpd_units(folds, cohort, n):
+    """The first n folds as fold-parallel units: (cfg, model, graph, ctx,
+    batch), each model built as fold-parallel builds it (no
+    apply_init_weight) from seed u, each batch the fold's first B train
+    patients with its pathway node attrs."""
+    from multilevel_gnn_tpu_torch.train import driver
+
+    units = []
+    for u, (fcfg, fold, X, (tr, _, _)) in enumerate(folds[:n]):
+        model = driver._new_model(fcfg, fold.ctx, u, init_weight=False)
+        units.append((fcfg, model, fold.ctx.graph, fold.ctx,
+                      dgcn_batch(X, fold.raw, cohort, tr, fcfg.batch_size)))
+    return units
+
+
+def fpd_choose_units(folds, cohort):
+    """U for the stacked DeeperGCN step: one unit's train step peak above
+    the memory held before it, then the most units (at most FP_UNITS)
+    whose steps fit the card with FP_MEM_SPARE of it to spare."""
+    cfg, model, _, ctx, batch = fpd_units(folds, cohort, 1)[0]
+    opt = make_optimizer(model, cfg, 6)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cw = torch.tensor([1.0, 1.5], device="cuda")
+    train_step(model, opt, batch, ctx, cw, gen)  # the optimizer's state, allocated
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(model, opt, batch, ctx, cw, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = [u for u in range(1, FP_UNITS + 1) if held + u * peak <= (1 - FP_MEM_SPARE) * total]
+    U = max(fits) if fits else 1
+    why = (f"{U} steps of {peak / 1e9:.2f} GB above {held / 1e9:.2f} GB held fit "
+           f"{1 - FP_MEM_SPARE:.0%} of {total / 1e9:.1f} GB"
+           + ("" if U == FP_UNITS else f"; {U + 1} do not"))
+    emit({"phase": "fold_parallel_deepergcn_units", "units": U, "unit_step_peak_gb": peak / 1e9,
+          "held_gb": held / 1e9, "card_gb": total / 1e9, "spare": FP_MEM_SPARE, "why": why})
+    del model, opt
+    torch.cuda.empty_cache()
+    return U
+
+
+def fpd_phases(cohort, gen):
+    """Every stacked DeeperGCN phase on the protocol files' five folds;
+    returns (the kernel rows, serving launches a stacked batch, launches a
+    stacked step)."""
+    folds = fpd_folds(cohort)
+    r = fpd_kernel_phase(folds, gen)
+    serve, step = fpd_step_phases(folds, cohort)
+    del folds
+    torch.cuda.empty_cache()
+    return r, serve, step
+
+
+def fpd_step_phases(folds, cohort):
+    """The stacked DeeperGCN step and eval batch at the U that fits the
+    card; returns (launches a stacked batch, launches a stacked step)."""
+    U = fpd_choose_units(folds, cohort)
+    L = folds[0][0].num_layers
+    units = fpd_units(folds, cohort, U)
+    # a step: K3 once a layer; K1 as each layer's gather_src backward and once
+    # as the edge-id lookup's backward; a batch: K3 once a layer
+    step = fp_step_phase(units, {k1.KERNEL.name: L + 1, k2.KERNEL.name: 0,
+                                 k3.KERNEL.name: L, k4.name: 0},
+                         "fold_parallel_deepergcn_step", rounds=1)
+    serve = fp_serve_units(units, {k1.KERNEL.name: 0, k2.KERNEL.name: 0,
+                                   k3.KERNEL.name: L, k4.name: 0},
+                           "fold_parallel_deepergcn_serve", rounds=1)
+    del units
+    torch.cuda.empty_cache()
+    return serve, step
+
+
+def fp_eval_errs(units):
+    """(the units' stacked state, max |probability| and max |loss|
+    difference of one stacked eval batch against the units' own
+    eval_steps)."""
+    from multilevel_gnn_tpu_torch.train.step import stacked_eval_step
+
+    st = fp_state(units, units[0][0])
+    pred, loss = stacked_eval_step(st["template"], st["params"], st["batch"], st["sctx"])
+    ref = [eval_step(u[1], u[4], u[3]) for u in units]
+    return (st, max(float((pred[i] - r[0]).abs().max()) for i, r in enumerate(ref)),
+            max(abs(float(loss[i]) - float(r[1])) for i, r in enumerate(ref)))
+
+
+def fp_serve_units(units, want, phase, rounds=2):
+    """One stacked eval batch of the units against their own eval_steps:
+    probabilities within TOL_FP_PROB of the units' trunk, launches ``want``
+    a stacked batch; ms, gap share and peak memory against the sequence of
+    U eval_steps (fp_compare)."""
+    from multilevel_gnn_tpu_torch.train.step import stacked_eval_step
+
+    st, err, err_loss = fp_eval_errs(units)
+    tol = TOL_FP_PROB["bf16" if units[0][0].compute_dtype else "f32"]
+    out = fp_compare(
+        lambda: stacked_eval_step(st["template"], st["params"], st["batch"], st["sctx"]),
+        lambda: [eval_step(u[1], u[4], u[3]) for u in units], want, len(units), rounds)
+    ok = err <= tol and out["ok"]
+    emit({"phase": phase, "units": len(units), "prob_max_abs_err": err,
+          "loss_max_abs_err": err_loss, "tol": tol, **out, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase}: {err}, launches {out['launches_stacked']}")
+    return out["launches_stacked"]
+
+
+def fpf_vae_units(units, head):
+    """The GBM units as vae_finetune units at gbm.yaml's widths (bf16
+    trunk): the DiffPool head over a correlation + I adjacency of each
+    unit's own (P x P), or the ConvHead on the foreach latent."""
+    from multilevel_gnn_tpu_torch.models.vae import VAEClassifier
+
+    kw = dict(reorder_type="diff_pooling") if head == "diff_pooling" else dict(
+        decoder_type="foreach")
+    out = []
+    for s, (cfg, _, graph, ctx, batch) in enumerate(units):
+        vcfg = cfg.replace(model="vae_finetune", **kw)
+        P = vcfg.pathway_num
+        corr = np.corrcoef(np.random.RandomState(6 + s).randn(P, 64)) + np.eye(P)
+        vctx = dataclasses.replace(ctx, pathway_adj=torch.as_tensor(
+            corr.astype(np.float32), device="cuda"))
+        out.append((vcfg, VAEClassifier(vcfg, graph.n_nodes, ctx.num_pca_rows, device="cuda",
+                                        seed=s), graph, vctx, batch))
+    return out
+
+
+def fpf_pathcnn_units(units):
+    """The GBM units as PathCNN units (learnable PCA, f32), each batch with
+    PCA-row values of its own (B, G)."""
+    from multilevel_gnn_tpu_torch.models.pathcnn import PathCNN
+
+    rng = np.random.RandomState(4)
+    out = []
+    for s, (cfg, _, graph, ctx, batch) in enumerate(units):
+        pcfg = cfg.replace(model="pathcnn", learnable_pca=True, compute_dtype=None)
+        raw = (rng.randn(cfg.batch_size, ctx.num_pca_rows) * 0.5).astype(np.float32)
+        out.append((pcfg, PathCNN(pcfg, graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=s),
+                    graph, ctx, dataclasses.replace(batch, raw_data=torch.as_tensor(
+                        raw, device="cuda"))))
+    return out
+
+
+def fpf_gbm_phases(units):
+    """The stacked vae_finetune (DiffPool step and serving; ConvHead
+    serving) and PathCNN (a step) on the GBM units; returns ({path:
+    launches a stacked batch}, {path: launches a stacked step})."""
+    sage_batch = {k1.KERNEL.name: 2, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
+    sage_step = {k1.KERNEL.name: 7, k2.KERNEL.name: 4, k3.KERNEL.name: 0, k4.name: 0}
+    serve, per_step = {}, {}
+    vae = fpf_vae_units(units, "diff_pooling")
+    per_step["fold_parallel_vae_finetune_diff_pooling"] = fp_step_phase(
+        vae, sage_step, "fold_parallel_vae_finetune_step", rounds=1)
+    serve["fold_parallel_serve_vae_finetune_diff_pooling"] = fp_serve_units(
+        vae, sage_batch, "fold_parallel_vae_finetune_serve", rounds=1)
+    vae = fpf_vae_units(units, "conv_head")
+    serve["fold_parallel_serve_vae_finetune_conv_head"] = fp_serve_units(
+        vae, sage_batch, "fold_parallel_vae_finetune_conv_head_serve", rounds=1)
+    del vae
+    none = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: 0, k4.name: 0}
+    per_step["fold_parallel_pathcnn"] = fp_step_phase(
+        fpf_pathcnn_units(units), none, "fold_parallel_pathcnn_step", rounds=1,
+        tol=TOL_GRAD_FP_F32)
+    torch.cuda.empty_cache()
+    return serve, per_step
+
+
+@contextlib.contextmanager
+def dropout_off():
+    """Every Dropout of the port passes its input through, PathCNN's and the
+    DiffPool head's fixed rates too (config has no switch for them)."""
+    from multilevel_gnn_tpu_torch.nn import basic
+
+    fwd = basic.Dropout.forward
+    basic.Dropout.forward = lambda self, x, generator=None: x
+    try:
+        yield
+    finally:
+        basic.Dropout.forward = fwd
+
+
+def fpf_protocol_phase(small):
+    """The train CLI's --fold-parallel for each family of FP_FAMILIES on the
+    small files (f32, dropout off, 1 run x 5 folds x 2 epochs) on the card
+    and on the CPU: pooled AUC / ACC within TOL_PROTOCOL, launches counted
+    on the card; then DeeperGCN's fold-parallel with --ckpt-dir and
+    ckpt_every 1, stopped after 2 of 3 epochs and resumed, equal to the
+    uninterrupted run, and the predict CLI's fold 2 from its checkpoint
+    equal to predict_fold with it loaded in memory."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.train import cli, predict
+    from multilevel_gnn_tpu_torch.train.checkpoint import load_checkpoint
+
+    base = ["--config", GBM_YAML, "--data-dir", small, "--fold-parallel"]
+    keys = ("auc", "auc_by_loss", "auc_by_epoch", "acc")
+    launches = {}
+    for name, sets in FP_FAMILIES.items():
+        runs = {}
+        with dropout_off():
+            for dev in ("cuda", "cpu"):
+                sync("cuda")
+                zero_launches()
+                runs[dev] = cli.main(base + ["--device", dev, "--set", *FP_SMALL_SETS, *sets])
+                sync("cuda")
+                if dev == "cuda":
+                    launches[name] = launch_counts()
+        diff = max(abs(runs["cuda"][k][2] - runs["cpu"][k][2]) for k in keys)
+        got = launches[name]
+        used = {k1.KERNEL.name: not name.startswith("pathcnn"),
+                k3.KERNEL.name: name == "deepergcn_max"}
+        ok = bool(diff <= TOL_PROTOCOL and runs["cuda"]["units"] == 5
+                  and all((got[k] > 0) == v for k, v in used.items()))
+        emit({"phase": "fold_parallel_families_protocol_small", "family": name,
+              "pooled_max_abs_diff": diff, "tol": TOL_PROTOCOL,
+              "pooled_auc": {d: r["auc"][2] for d, r in runs.items()},
+              "pooled_acc": {d: r["acc"][2] for d, r in runs.items()},
+              "wall_s": {d: r["wall_time_s"] for d, r in runs.items()},
+              "launches_cuda": got, "ok": ok})
+        if not ok:
+            raise AssertionError(f"fold-parallel {name} small protocol: {diff}, launches {got}")
+    sets = [*FP_SMALL_SETS, *FP_FAMILIES["deepergcn_max"]]
+    a_dir, b_dir = f"{small}/fp_dgcn_a", f"{small}/fp_dgcn_b"
+    run = base + ["--set", *sets, "ckpt_every=1"]
+    a = cli.main(run + ["epochs=3", "--ckpt-dir", a_dir])
+    cli.main(run + ["epochs=2", "--ckpt-dir", b_dir])
+    b = cli.main(run + ["epochs=3", "--ckpt-dir", b_dir, "--resume"])
+    equal = all(a[k] == b[k] for k in keys + ("acc_by_loss", "acc_by_epoch"))
+    pargs = ["--config", GBM_YAML, "--data-dir", small, "--set", *sets, "epochs=3"]
+    cli_res = predict.main(pargs + ["--ckpt-dir", a_dir, "--fold", "2"])
+    cfg = Config.from_yaml(GBM_YAML, **cli.parse_overrides([*sets, "epochs=3"]))
+    cohort = cli.make_cohort(cfg, False, small)
+    st = predict.load_fold_state(cfg, cohort, None, 0, 2)
+    st["model"].load_state_dict(load_checkpoint(f"{a_dir}/run0_fold2")[0]["model"])
+    mem = predict.predict_fold(cfg, cohort, None, 0, 2, model=st["model"])
+    prob = np.asarray(cli_res["prob"])
+    ok = bool(equal and cli_res["prob"] == mem["prob"] and len(prob) > 0
+              and np.isfinite(prob).all())
+    emit({"phase": "fold_parallel_deepergcn_ckpt", "pooled_auc": [a["auc"][3], b["auc"][3]],
+          "resumed_equal": equal, "predict_auc": cli_res["auc"],
+          "predict_patients": len(prob), "cli_equals_in_memory": cli_res["prob"] == mem["prob"],
+          "ok": ok})
+    if not ok:
+        raise AssertionError("fold-parallel deepergcn: resume or predict failed")
+    return launches
+
+
 def fold_parallel_phases(root, cohort, small, gen):
     """Every fold-parallel phase; returns (the kernel rows of
-    fold_parallel_plans, {path: launches}, launches a stacked step)."""
+    fold_parallel_plans and of the stacked DeeperGCN, {path: launches},
+    {path: launches a stacked step})."""
     units = fp_units()
     torch.cuda.synchronize()
     r = fp_plans_phase(units, gen)
-    step = fp_step_phase(units)
-    serve = fp_serve_phase(units)
+    per_step = {"fold_parallel": fp_step_phase(units)}
+    paths = {"fold_parallel_serve": fp_serve_phase(units)}
+    serve, step = fpf_gbm_phases(units)
+    paths.update(serve)
+    per_step.update(step)
     del units
     torch.cuda.empty_cache()
-    protocol = fp_protocol_phase(root, small)
+    paths["fold_parallel_protocol"] = fp_protocol_phase(root, small)
     fp_ckpt_phase(root, cohort)
-    return r, {"fold_parallel_serve": serve, "fold_parallel_protocol": protocol}, step
+    r_dgcn, paths["fold_parallel_serve_deepergcn"], per_step["fold_parallel_deepergcn"] = (
+        fpd_phases(cohort, gen))
+    r.update(r_dgcn)
+    for name, got in fpf_protocol_phase(small).items():
+        paths[f"fold_parallel_protocol_{name}"] = got
+    return r, paths, per_step
 
 
 def card_setup() -> str:
@@ -3839,9 +4271,9 @@ def main() -> int:
         paths["explain_cli"] = explain_cli_phase(root, ckpt_dir)
         # ---- fold-parallel CV: the units in one stacked step
         small = small_files(root)
-        r_fp, fp_paths, per_step["fold_parallel"] = fold_parallel_phases(
-            root, cohort, small, gen)
+        r_fp, fp_paths, fp_step = fold_parallel_phases(root, cohort, small, gen)
         paths.update(fp_paths)
+        per_step.update(fp_step)
         # ---- DeeperGCN on the same files' gene-level fold graph
         dg = deepergcn_phases(root, cohort, gen)
         paths["serve_deepergcn"] = dg["serve"]
@@ -3904,11 +4336,14 @@ def main() -> int:
     forms[k1.KERNEL.name] += [r for key, r in rz.items() if key[0].startswith(("gat", "gcn_res"))]
     forms[k2.KERNEL.name] += [r for key, r in rz.items() if key[0] in ("gcn_k2", "gcn_k2_t",
                                                                       "gin_k2")]
-    # the stacked forms of fold-parallel CV (U = 5, F = 2,048): each with
-    # per_unit_ms, the time of the U units' own launches
+    # the stacked forms of fold-parallel CV (U = 5, F = 2,048; DeeperGCN's at
+    # F = 4,096 and H = 128): each with per_unit_ms, the time of the U units'
+    # own launches
     for (case, _), r in r_fp.items():
         name = {"stacked_residual": k1, "stacked_all_edges": k1, "stacked_forward": k2,
-                "stacked_transpose": k2, "stacked_csr": k3}[case].KERNEL.name
+                "stacked_transpose": k2, "stacked_csr": k3, "stacked_deepergcn_csr": k3,
+                "stacked_edge_segment_sum": k1, "stacked_gather_src_bwd": k1,
+                "stacked_edge_id_lookup_bwd": k1}[case].KERNEL.name
         forms[name].append(r)
     # launches: the count on the kernel's first serving path (sage for K1
     # and K2, mr for K3); every path's count is in launches_by_path

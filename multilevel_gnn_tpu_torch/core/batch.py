@@ -130,9 +130,11 @@ def make_fold_context(
     )
 
 
-# a context's per-unit tensors (FoldContext fields) in the fold-parallel step
+# a context's per-unit tensors (FoldContext fields) in the fold-parallel step;
+# OPTIONAL_UNIT_FIELDS are stacked where the contexts carry them
 UNIT_CTX_FIELDS = ("gene_pca_match", "pca_rows", "raw_indice", "info_mask",
                    "reorder_idxs")
+OPTIONAL_UNIT_FIELDS = ("edge_ids", "pathway_adj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +143,12 @@ class StackedContext:
     them (train/fold_parallel.py).
 
     view: a FoldContext whose plans are block-diagonal over the units (the
-    graph's, graph2's and pca_gather: unit u's node rows at u * N, its
-    PCA rows at u * G) and whose UNIT_CTX_FIELDS are unit 0's.  fields:
-    those tensors of every unit, (U, ...); graphs: the stacked graph and
-    graph2 (or None).  Inside the vmapped step, unit(fields, graph_fields,
+    graph's, graph2's, pca_gather and edge_id_gather: unit u's node rows
+    at u * N, its PCA rows at u * G, its edge-id table rows at u * V and
+    its edge slots at u * E) and whose per-unit fields are unit 0's.
+    fields: UNIT_CTX_FIELDS and the OPTIONAL_UNIT_FIELDS the contexts
+    carry, of every unit, (U, ...); graphs: the stacked graph and graph2
+    (or None).  Inside the vmapped step, unit(fields, graph_fields,
     graph2_fields) is a unit's FoldContext."""
 
     view: FoldContext
@@ -166,25 +170,42 @@ class StackedContext:
 def stack_contexts(ctxs: Sequence[FoldContext], names: Optional[Sequence[str]] = None
                    ) -> StackedContext:
     """Stack U fold contexts on one device (stack_graphs for their graphs).
-    They must match in shape: node count, PCA rows and the aggregation
-    path; a context that does not raises ValueError naming its unit.  The
-    DeeperGCN and DiffPool fields (edge_ids, pathway_adj) and pca_seed
-    (each unit's model is seeded before its parameters are stacked) are
-    not stacked."""
+    They must match in shape: node count, PCA rows, the aggregation path,
+    the edge-id table's rows and which optional fields they carry; a
+    context that does not raises ValueError naming its unit.  DeeperGCN's
+    edge ids are padded, as the graph's edges are, to the stacked edge
+    stride E (padding slots take table row 0 and get no gradient: their
+    messages are masked out), and their lookup plans stacked over U * V
+    table rows and U * E edge slots, so the lookup's backward is one K1
+    launch for all units; DiffPool's pathway_adj (P, P) is each unit's
+    fold's.  pca_seed is not stacked: each unit's model is seeded before
+    its parameters are."""
     names = list(names) if names is not None else [f"unit {u}" for u in range(len(ctxs))]
     c0 = ctxs[0]
     for name, c in zip(names, ctxs):
         if c.num_pca_rows != c0.num_pca_rows:
             raise ValueError(f"{name} has {c.num_pca_rows} PCA rows, {names[0]} "
                              f"{c0.num_pca_rows}: fold-parallel units need one count")
+        for f in OPTIONAL_UNIT_FIELDS:
+            if (getattr(c, f) is None) != (getattr(c0, f) is None):
+                raise ValueError(f"{name} and {names[0]} differ in carrying {f}")
     graph = stack_graphs([c.graph for c in ctxs], names)
     graph2 = (stack_graphs([c.graph2 for c in ctxs], names)
               if c0.graph2 is not None else None)
+    E = int(graph.fields["senders"].shape[1])
     fields = {f: torch.stack([getattr(c, f) for c in ctxs]) for f in UNIT_CTX_FIELDS}
+    edge_id_gather = None
+    if c0.edge_ids is not None:
+        fields["edge_ids"] = torch.stack([
+            torch.cat([c.edge_ids, c.edge_ids.new_zeros(E - c.edge_ids.shape[0])])
+            for c in ctxs])
+        edge_id_gather = CSRPlan.stack([c.edge_id_gather for c in ctxs], E, E)
+    if c0.pathway_adj is not None:
+        fields["pathway_adj"] = torch.stack([c.pathway_adj for c in ctxs])
     G = c0.num_pca_rows
     view = dataclasses.replace(
         c0, graph=graph.view, graph2=graph2.view if graph2 is not None else None,
         pca_gather=CSRPlan.stack([c.pca_gather for c in ctxs], G, G),
-        edge_ids=None, edge_id_gather=None, pathway_adj=None, pca_seed=None,
+        edge_id_gather=edge_id_gather, pca_seed=None,
     )
     return StackedContext(view=view, fields=fields, graph=graph, graph2=graph2)

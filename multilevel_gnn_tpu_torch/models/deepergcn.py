@@ -45,6 +45,7 @@ from multilevel_gnn_tpu_torch.nn.basic import (
     EmbedTable,
     Linear,
     Norm,
+    apply_dropout,
     uniform_,
     xavier_bound,
 )
@@ -94,10 +95,7 @@ class MultiHeadAttention(nn.Module):
         if self.training and self.rate > 0.0:
             if generator is None:
                 raise ValueError("training-mode dropout needs a torch.Generator")
-            keep_prob = 1.0 - self.rate
-            keep = torch.rand((1, 1) + tuple(w.shape[-2:]), generator=generator,
-                              device=w.device) < keep_prob
-            w = w * keep.to(w.dtype) / keep_prob
+            w = apply_dropout(w, generator, 1.0 - self.rate, (1, 1) + tuple(w.shape[-2:]))
         o = torch.einsum("bhqs,bshk->bqhk", w, v)
         return torch.einsum("bqhk,hkd->bqd", o, self.out.weight) + self.out.bias
 
@@ -222,7 +220,8 @@ class DeeperGCN(nn.Module):
         if not self.onehot_edges:
             return self.edge_encoder(graph.edge_attr[:, :1])
         plan = ctx.edge_id_gather
-        if plan is None or plan.n_rows != self.vocab:
+        # V table rows a unit (U * V in a plan stacked over U units)
+        if plan is None or plan.n_rows != self.vocab * plan.units:
             raise ValueError(
                 f"the fold context needs edge ids over {self.vocab} table rows "
                 "(make_fold_context(edge_vocab=...))")

@@ -47,7 +47,10 @@ def normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
 
 class VAE(AutoEncoder):
     """forward(batch, ctx, generator, eps) -> dict(pred_x, mu, sigma, z,
-    aux_losses, embedding)."""
+    aux_losses, embedding).  samples_latent: training draws z, which the
+    CV loss refuses (train/step.py:make_loss_fn), as JAX's does."""
+
+    samples_latent = True
 
     def _build_head(self, width: int, generator) -> None:
         _, H = self.latent_shape(width)
@@ -93,7 +96,10 @@ class VAE(AutoEncoder):
 class VAEClassifier(VAE):
     """The VAE's classifier under the CV driver (model 'vae_finetune'):
     forward(batch, ctx, generator) -> (pred, image, DiffPool link +
-    entropy losses, 0 for the ConvHead)."""
+    entropy losses, 0 for the ConvHead).  It reads mu and draws no sample,
+    so dropout is its training forward's only draw."""
+
+    samples_latent = False
 
     def _build_head(self, width: int, generator) -> None:
         cfg = self.cfg

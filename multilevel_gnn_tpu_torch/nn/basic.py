@@ -115,12 +115,14 @@ class _UnitDropout(torch.autograd.Function):
     unit axis routes each unit's call here (its vmap rule), so the masks
     equal the ones the units' sequential steps draw.  The product and its
     gradient are torch.where(keep, x / keep_prob, 0) and where(keep,
-    g / keep_prob, 0), Dropout's own."""
+    g / keep_prob, 0), Dropout's own.  mask_shape: a unit's mask shape
+    where it broadcasts over x (flax's broadcast_dropout), else x's."""
 
     @staticmethod
-    def forward(x, generators, keep_prob: float):
+    def forward(x, generators, keep_prob: float, mask_shape=None):
+        shape = x.shape[1:] if mask_shape is None else mask_shape
         keep = torch.stack([
-            torch.rand(x.shape[1:], generator=g, device=x.device) < keep_prob
+            torch.rand(shape, generator=g, device=x.device) < keep_prob
             for g in generators])
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                               device=x.device)), keep
@@ -135,16 +137,29 @@ class _UnitDropout(torch.autograd.Function):
     def backward(ctx, g, _):
         (keep,) = ctx.saved_tensors
         return torch.where(keep, g / ctx.keep_prob, torch.zeros((), dtype=g.dtype,
-                                                                  device=g.device)), None, None
+                                                                  device=g.device)), None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, x, generators, keep_prob):
+    def vmap(info, in_dims, x, generators, keep_prob, mask_shape=None):
         if len(generators) != info.batch_size:
             raise ValueError(f"{len(generators)} generators for {info.batch_size} units")
         x = x.movedim(in_dims[0], 0) if in_dims[0] is not None else x.expand(
             (info.batch_size,) + tuple(x.shape))
-        out, keep = _UnitDropout.apply(x, generators, keep_prob)
+        out, keep = _UnitDropout.apply(x, generators, keep_prob, mask_shape)
         return (out, keep), (0, 0)
+
+
+def apply_dropout(x: torch.Tensor, generator, keep_prob: float, mask_shape=None) -> torch.Tensor:
+    """x with each element kept with probability keep_prob and scaled by
+    1 / keep_prob.  The keep mask, of mask_shape (broadcast over x, flax's
+    broadcast_dropout) or of x's shape, is drawn from ``generator``, a
+    torch.Generator, or under the fold-parallel step's vmap unit u's from
+    generators[u] of UnitGenerators."""
+    if isinstance(generator, UnitGenerators):
+        return _UnitDropout.apply(x, generator, keep_prob, mask_shape)[0]
+    shape = x.shape if mask_shape is None else mask_shape
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dropout(nn.Module):
@@ -165,11 +180,7 @@ class Dropout(nn.Module):
             raise ValueError("training-mode dropout needs a torch.Generator")
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        keep_prob = 1.0 - self.rate
-        if isinstance(generator, UnitGenerators):
-            return _UnitDropout.apply(x, generator, keep_prob)[0]
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+        return apply_dropout(x, generator, 1.0 - self.rate)
 
 
 class Linear(nn.Module):

@@ -75,7 +75,8 @@ class CSRPlan:
             overwrite mode visits (to write zeros).
     long_rows: int32 rows with more than LONG_ROW entries, a block each.
     max_col / max_eid: largest col / eid (-1 when empty), checked against
-    the inputs' sizes by the wrapper."""
+    the inputs' sizes by the wrapper.
+    units: the per-unit plans a stacked plan holds (stack), else 1."""
 
     rowptr: torch.Tensor
     col: torch.Tensor
@@ -87,6 +88,7 @@ class CSRPlan:
     n_busy: int
     max_col: int
     max_eid: int
+    units: int = 1
 
     @staticmethod
     def build(
@@ -193,6 +195,7 @@ class CSRPlan:
             n_busy=sum(p.n_busy for p in plans),
             max_col=top("max_col", col_stride),
             max_eid=top("max_eid", eid_stride),
+            units=U,
         )
 
     @property

@@ -180,18 +180,21 @@ def class_weight(Y: np.ndarray, train_idx, weight_power: float = 1.0) -> np.ndar
     return (counts.max() / counts) ** weight_power
 
 
-def _new_model(cfg: Config, ctx: FoldContext, seed: int) -> torch.nn.Module:
+def _new_model(cfg: Config, ctx: FoldContext, seed: int,
+               init_weight: bool = True) -> torch.nn.Module:
     """A fold's model of cfg.model with its initial parameters drawn from
     ``seed``; DeeperGCN's then re-initialised by apply_init_weight under
-    all_init / head_init, as driver.py:327-334 does (the tests replace
-    this function to start from the JAX package's parameters)."""
+    all_init / head_init, as driver.py:327-334 does, unless init_weight is
+    False (fold-parallel CV, whose JAX counterpart leaves the re-init out,
+    fold_parallel.py:170-192).  The tests replace this function to start
+    from the JAX package's parameters."""
     cls = get_model(cfg.model)
     if cls is MultiOmixGCN:
         return cls(cfg, device=ctx.device, seed=seed)
     if cls is not DeeperGCN:
         return cls(cfg, ctx.graph.n_nodes, ctx.num_pca_rows, device=ctx.device, seed=seed)
     model = DeeperGCN(cfg, device=ctx.device, seed=seed)
-    if cfg.all_init or cfg.head_init:
+    if init_weight and (cfg.all_init or cfg.head_init):
         apply_init_weight(model, torch.Generator().manual_seed(seed + 7),
                           head_only=not cfg.all_init)
     return model
@@ -409,7 +412,7 @@ def fold_setup(cfg: Config, cohort, train_idx, fold_i: int, device="cuda"):
         fold = cohort.deepergcn_fold(np.asarray(train_idx), fold_i, device=device)
         cfg = cfg.replace(pathway_edge_num=max(cohort.pathway_edge_num, 1),
                           node_num=cohort.node_size + cohort.n_pathways)
-        return cfg, fold, cohort.gene_level_features()
+        return cfg, fold, fold_features(cfg, cohort)
     fold = cohort.fold(np.asarray(train_idx), fold_i, device=device)
     if cfg.model == "pathcnn":
         if cfg.learnable_pca:
@@ -418,7 +421,13 @@ def fold_setup(cfg: Config, cohort, train_idx, fold_i: int, device="cuda"):
         else:
             raw = fold.pathway_node_attr.reshape(len(cohort.patients), -1)
         fold = dataclasses.replace(fold, raw=raw.astype(np.float32))
-    return cfg.replace(node_num=cohort.num_nodes // 3), fold, cohort.X
+    return cfg.replace(node_num=cohort.num_nodes // 3), fold, fold_features(cfg, cohort)
+
+
+def fold_features(cfg: Config, cohort) -> np.ndarray:
+    """The batches' X of fold_setup, the same for every fold: deepergcn's
+    gene_level_features (P, N, omics), else the cohort's X (P, NODES)."""
+    return cohort.gene_level_features() if cfg.model == "deepergcn" else cohort.X
 
 
 class _Prefetcher:

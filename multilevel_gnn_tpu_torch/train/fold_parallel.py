@@ -34,8 +34,26 @@ collectives; with more groups than cards, group g takes card g modulo
 the count and the groups on a card step in turn.  So one H100 runs the
 published 150 units (about 0.9 GB of activations each in a GBM-scale
 bf16 step, PERF.md), which do not fit its 80 GB as one group, as
-devices=2 or more.  Models other than MultilevelGNN (DeeperGCN, MultiOmixGCN,
-PathCNN, vae_finetune) raise NotImplementedError (ROADMAP section 1).
+devices=2 or more.
+
+Every model of the registry goes through here, as through JAX's.
+MultilevelGNN, DeeperGCN, PathCNN and vae_finetune run stacked: a fold's
+raw side channel (DeeperGCN's pathway node attrs, PathCNN's PCA-row values
+or pathway image) is kept on the group's device once per fold and each
+unit's batch rows are gathered from its fold's, so raw_data enters the
+stacked step as a (U, B, ...) leaf; DeeperGCN's edge-id lookup and
+DiffPool's pathway adjacency ride the stacked context
+(core/batch.py:stack_contexts).  DeeperGCN's units start from the model's
+own init, without apply_init_weight: JAX's fold-parallel leaves that
+re-init out (fold_parallel.py:170-192) where its run_fold applies it, so
+both packages' fold-parallel DeeperGCN starts elsewhere than their
+sequential drivers (ROADMAP section 3).  The models JAX's cannot train
+fail as they do there, in the first stacked step's forward, before any
+update: MultiOmixGCN (AttributeError: its forward takes the pathway attrs
+where the step passes the generators), the AutoEncoder (TypeError: its
+reconstruction against the (B, 2) targets), the VAE (RuntimeError naming
+flax's InvalidRngError: its training draw has no 'sample' stream) and
+the VQ-VAE (KeyError: its output is a dict).
 
 Checkpoints (ckpt_dir) are per unit, in run_fold's layout
 (run{r}_fold{f}/step_{e} plus its host state), every cfg.ckpt_every
@@ -57,13 +75,17 @@ import torch
 from multilevel_gnn_tpu_torch.core.batch import Batch, stack_contexts
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.core.device import resolve_device
-from multilevel_gnn_tpu_torch.models import get_model
-from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN, seed_pca_params
+from multilevel_gnn_tpu_torch.models.multilevel_gnn import seed_pca_params
 from multilevel_gnn_tpu_torch.nn.basic import UnitGenerators
 from multilevel_gnn_tpu_torch.train import checkpoint as C
 from multilevel_gnn_tpu_torch.train import driver
 from multilevel_gnn_tpu_torch.train import metrics as M
-from multilevel_gnn_tpu_torch.train.driver import epoch_plan, fold_setup, stratified_kfold
+from multilevel_gnn_tpu_torch.train.driver import (
+    epoch_plan,
+    fold_features,
+    fold_setup,
+    stratified_kfold,
+)
 from multilevel_gnn_tpu_torch.train.step import (
     Optimizer,
     stack_params,
@@ -109,7 +131,8 @@ class _Group:
     """The units on one device, stacked: the fold contexts, the parameters
     (with a template model whose parameters functional_call replaces), the
     optimizer over them, the dropout generators, the class weights, the
-    data and the epoch's batch plans."""
+    data (with each fold's raw side channel once) and the epoch's batch
+    plans."""
 
     def __init__(self, cfg, units, folds, X, Y, ages, device, steps_per_epoch):
         self.units, self.device = units, device
@@ -118,7 +141,8 @@ class _Group:
         self.sctx = stack_contexts(ctxs, names)
         models = []
         for u, ctx in zip(units, ctxs):
-            model = driver._new_model(cfg, ctx, cfg.seed * 10_000 + u.run_i * 100 + u.fold_i)
+            model = driver._new_model(cfg, ctx, cfg.seed * 10_000 + u.run_i * 100 + u.fold_i,
+                                      init_weight=False)
             if cfg.init_with_pca and ctx.pca_seed is not None:
                 seed_pca_params(model, ctx.pca_seed)
             models.append(model)
@@ -134,18 +158,34 @@ class _Group:
             [folds[u.fold_i].class_weight for u in units]).astype(np.float32)).to(device)
         self.data = {k: torch.as_tensor(np.asarray(a, np.float32)).to(device)
                      for k, a in (("x", X), ("y", Y), ("age", ages))}
+        # the group's folds' raw side channels, each fold's once: (n_folds *
+        # P, ...) rows, unit u's fold's rows from raw_offset[u] on
+        self.raw = self.raw_offset = None
+        fold_ids = sorted({u.fold_i for u in units})
+        if folds[fold_ids[0]].raw is not None:
+            self.raw = torch.as_tensor(np.concatenate(
+                [folds[f].raw for f in fold_ids]).astype(np.float32)).to(device)
+            n = len(folds[fold_ids[0]].raw)
+            self.raw_offset = torch.as_tensor(
+                [fold_ids.index(u.fold_i) * n for u in units]).to(device)
         self.mults = None
 
     def batch(self, take: torch.Tensor, mask: torch.Tensor, mult=None) -> Batch:
-        """The (U, B, ...) batch of the (U, B) rows take, gathered here."""
+        """The (U, B, ...) batch of the (U, B) rows take, gathered here;
+        each unit's raw_data rows from its own fold's side channel."""
         flat = take.reshape(-1)
         shape = tuple(take.shape)
         x = self.data["x"].index_select(0, flat).reshape(shape + self.data["x"].shape[1:])
+        raw = None
+        if self.raw is not None:
+            rows = (take + self.raw_offset[:, None]).reshape(-1)
+            raw = self.raw.index_select(0, rows).reshape(shape + self.raw.shape[1:])
         return Batch(
             x=x * mult if mult is not None else x,
             y=self.data["y"].index_select(0, flat).reshape(shape + (2,)),
             age=self.data["age"].index_select(0, flat).reshape(shape),
             sample_mask=mask,
+            raw_data=raw,
         )
 
     def load_epoch(self, plans) -> None:
@@ -239,10 +279,6 @@ def run_experiment_foldparallel(
     also epoch_s (host s of each epoch run) and setup_s (s deriving the
     folds, and stacking the groups: contexts, models, eval plans)."""
     t0 = time.perf_counter()
-    if get_model(cfg.model) is not MultilevelGNN:
-        raise NotImplementedError(
-            f"fold-parallel CV of model {cfg.model!r} is not ported (ROADMAP section 1): "
-            "only MultilevelGNN runs stacked")
     labels = cohort.labels()
     check_epochs = list(range(5, cfg.epochs + 1, 5)) or [cfg.epochs]
     outer = stratified_kfold(labels, 5, cfg.split_shaffle, cfg.split_seed)
@@ -264,11 +300,10 @@ def run_experiment_foldparallel(
     for gdev in dict.fromkeys(group_devs):
         for u in units:
             if (u.fold_i, gdev) not in fold_cache:
-                fcfg, fold, X = fold_setup(cfg, cohort, u.train_idx, u.fold_i, gdev)
-                if fold.raw is not None:
-                    raise NotImplementedError("fold-parallel takes no raw data (ROADMAP section 1)")
+                fcfg, fold, _ = fold_setup(cfg, cohort, u.train_idx, u.fold_i, gdev)
                 fold_cache[(u.fold_i, gdev)] = fold
     cfg = fcfg.replace(pathway_num=cohort.n_pathways)
+    X = fold_features(cfg, cohort)
     t_folds = time.perf_counter()
     Y, ages = cohort.Y, cohort.ages
     shuffle = not cfg.class_sample

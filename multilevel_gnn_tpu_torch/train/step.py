@@ -51,7 +51,14 @@ class _BCE(torch.autograd.Function):
 
 def bce_elementwise(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """-(t log p + (1 - t) log(1 - p)), logs clamped at -100; gradient as
-    ATen's BCE backward."""
+    ATen's BCE backward.  Shapes that do not broadcast raise TypeError, as
+    jnp's product t * log p does (an AutoEncoder's (B, NODES)
+    reconstruction against the (B, 2) targets)."""
+    try:
+        torch.broadcast_shapes(target.shape, pred.shape)
+    except RuntimeError:
+        raise TypeError("mul got incompatible shapes for broadcasting: "
+                        f"{tuple(target.shape)}, {tuple(pred.shape)}.") from None
     return _BCE.apply(pred, target)
 
 
@@ -255,9 +262,19 @@ def make_loss_fn(cfg: Config) -> Callable:
     plus the classification loss plus, for the models with learnable-PCA
     params that return a feature, the feature losses (DeeperGCN returns no
     features and has no PCA parameters).  Returns loss_fn(model, batch,
-    ctx, class_weight, generator) -> (loss, pred)."""
+    ctx, class_weight, generator) -> (loss, pred).
+
+    ``generator`` is the dropout masks' only source, as JAX's loss gives
+    flax only a 'dropout' stream: a model that draws a latent sample in
+    training mode (the VAE, samples_latent) raises RuntimeError there, as
+    flax raises InvalidRngError for its 'sample' stream (vae.py:52)."""
 
     def loss_fn(model, batch: Batch, ctx: FoldContext, class_weight, generator):
+        if getattr(model, "samples_latent", False):
+            raise RuntimeError(
+                f"flax.errors.InvalidRngError: {type(model).__name__} needs PRNG for "
+                '"sample": the training loss gives the model a dropout generator only, '
+                "as the JAX package's gives flax only a 'dropout' stream")
         out = model(batch, ctx, generator)
         pred, feat = out[0], out[1]
         extra = out[2] if len(out) > 2 else 0.0
@@ -351,9 +368,14 @@ class _Objective(torch.nn.Module):
 
 
 def _batch_fields(batch: Batch) -> dict:
+    """The stacked batch's (U, B, ...) leaves that torch.vmap maps over:
+    x, y, age, sample_mask and, where the model reads one (DeeperGCN's
+    pathway node attrs, PathCNN's PCA-row values or pathway image), each
+    unit's raw_data rows."""
+    fields = {"x": batch.x, "y": batch.y, "age": batch.age, "sample_mask": batch.sample_mask}
     if batch.raw_data is not None:
-        raise NotImplementedError("the fold-parallel step takes no raw_data (ROADMAP section 1)")
-    return {"x": batch.x, "y": batch.y, "age": batch.age, "sample_mask": batch.sample_mask}
+        fields["raw_data"] = batch.raw_data
+    return fields
 
 
 def stacked_train_step(
@@ -380,7 +402,10 @@ def stacked_train_step(
         return functional_call(objective, p, (Batch(**b), ctx, cw, generators))[0]
 
     # randomness "same": the one draw inside the forward other than dropout,
-    # pca_lowrank's start block from a generator seeded 0, is every unit's
+    # pca_lowrank's start block from a generator seeded 0, is every unit's;
+    # a model that draws a latent sample in training (the VAE) would get one
+    # draw for all units, and make_loss_fn refuses it before it draws
+    # (vae_finetune's classifier reads mu and draws nothing)
     losses = torch.vmap(unit, randomness="same")(
         named, _batch_fields(batch), *sctx.inputs(), class_weight)
     losses.sum().backward()

@@ -23,8 +23,7 @@ bf16 trunk) against the sequential protocol too.
 
 Also: the first stacked step's per-unit gradients against each unit's own
 train step; the ragged-trim warning; the ValueError on folds that do not
-stack (one composed among windowed); the models that do not run stacked;
-and the CLI's --fold-parallel (no value parses to 0, --pretrain exits 2,
+stack (one composed among windowed); and the CLI's --fold-parallel (no value parses to 0, --pretrain exits 2,
 the protocol's JSON line).
 
 Tolerances: pooled AUC, AUC by loss, AUC by epoch and ACC within rtol
@@ -215,7 +214,7 @@ class _JaxInit:
         monkeypatch.setattr(jmlg, "seed_pca_params", spy)
         monkeypatch.setattr(driver, "_new_model", self.new_model)
 
-    def new_model(self, cfg, ctx, seed):
+    def new_model(self, cfg, ctx, seed, init_weight=True):
         m = get_model(cfg.model)(cfg, ctx.graph.n_nodes, ctx.num_pca_rows, device=ctx.device)
         load_flax_params(m, self.params.pop(0))
         return m
@@ -339,13 +338,6 @@ def test_folds_that_do_not_stack_raise(monkeypatch):
     monkeypatch.setattr(fp, "fold_setup", setup)
     with pytest.raises(ValueError, match="run 0 fold 3"):
         fp.run_experiment_foldparallel(cfg, cohort, device="cpu")
-
-
-@pytest.mark.parametrize("model", ["deepergcn", "pathcnn", "vae_finetune", "multiomix"])
-def test_other_models_are_not_stacked(model):
-    cfg = _cfg(model=model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fp.run_experiment_foldparallel(cfg, None, device="cpu")
 
 
 def test_recommended_arm():
