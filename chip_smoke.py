@@ -106,7 +106,7 @@ Then the sorted segment-sum and the protocol from files:
            fold 0 derived; seconds by stage, the MI estimator's seconds at
            k = 7 and 15, node slots, edges, mask share, whether the
            windowed plan engaged
-  experiment  the train CLI's main on those files, 1 run x 5 folds x 3
+  experiment  the train CLI's main on those files, 1 run x 5 folds x 2
            epochs at gbm.yaml's widths, bf16, launch counts zeroed just
            before and read just after (K1 > 0; K2 as the folds' plans say);
            per-fold derivation s, ms per step, host s per epoch, pooled AUC
@@ -157,7 +157,7 @@ seeds 0-4, windowed, bf16, B = 32) and the same files:
            units' own eval_steps within TOL_FP_PROB (bf16 and f32 trunks),
            K1 2 / K2 2, ms, gap and peak memory against five eval_steps
   fold_parallel_protocol  the train CLI with --fold-parallel on the files
-           (1 run x 5 folds x 3 epochs, counted), then the sequential CLI:
+           (1 run x 5 folds x 2 epochs, counted), then the sequential CLI:
            wall s, derivation and stacking s, host s per epoch, the stacked
            step's ms; fold_parallel_protocol_small: a small protocol (f32,
            dropout off, 2 epochs) fold-parallel on the card and on the CPU
@@ -227,7 +227,7 @@ maxpool readout, bf16 trunk, B = 32, so F = B*H = 4,096 at K3 and K1):
   profile_train_deepergcn  launches per step from the counters: K3 3 (one
            a layer), K1 4 (each layer's gather_src backward and the edge-id
            lookup's backward); kernel ms and gap share; peak memory
-  experiment_deepergcn  the train CLI's main, 1 run x 5 folds x 2 epochs,
+  experiment_deepergcn  the train CLI's main, 1 run x 5 folds x 1 epoch,
            bf16, counted, peak memory; then a small protocol (f32, dropout
            off, 2 epochs) card against CPU, gcn_aggr softmax and max,
            fold test scores within 1e-4
@@ -276,7 +276,7 @@ sources and warm, each failing the run when its check fails:
            first-call seconds, CUDA-event and device ms of an exported call
            against a live one, the mgtpu ops in the graph and whether
            functionalization added copies (auto_functionalized nodes)
-  profile_cli  (after experiment) the train CLI with --profile-dir on the
+  profile_cli  (after experiment) the train CLI with --profile-dir on the small
            protocol files, 1 run x 5 folds x 1 epoch: the trace's bytes,
            K1's kernel symbol in it; wall time against the same protocol
            without it, run before it
@@ -293,8 +293,47 @@ sources and warm, each failing the run when its check fails:
            x 5 folds x 2 epochs) on the card and on the CPU: fold test scores
            within 1e-4, pooled AUC / ACC equal
   warm     the warm CLI in a copy of the package with nothing built (its
-           builds' seconds), then the train CLI from that copy: every
-           kernel and data library found built (0.0 s)
+           builds' seconds), then the train CLI's --bench-scaling from
+           that copy: every kernel and data library found built (0.0 s)
+  bench_scaling  that run's line: JAX's keys, the anchor only on one card
+           (the mean aggregation on the windowed GBM graph, forward and
+           backward, B = 2, C = 64, K2 + K1, CUDA events)
+
+Then the ('data', 'model') mesh (parallel/).  NCCL refuses two ranks on
+one card, so NCCL runs at world size 1 and two gloo ranks share cuda:0,
+each collective of card tensors staged through host memory; the kernels
+run on the card in both:
+
+  mesh_ws1  a spawned rank of an NCCL group of world size 1: NCCL's
+           all_reduce (sum, max), all_to_all_single and all_gather on card
+           tensors; the edge-shard sum, mean (K1) and max (K3) and the
+           halo form at k = 1 (K2 + K1) of the GBM fold (f32, B*C =
+           2,048) against single-device gather_scatter (TOL_F32; max
+           equal), launches counted
+  mesh_halo  two gloo ranks, 1 x 2: the halo mean of the GBM fold (bf16,
+           windowed interiors) forward and backward against the single
+           device's bf16 sum over the degree (TOL_BF16; the input gradient
+           within one bf16 ulp, TOL_BF16_ULP) and, in f32, the single
+           device's mean (TOL_F32); every K1 / K2 call against its plain
+           version (MeshPerCall); launches as _halo_predicted says; H,
+           interior / boundary edges, the all_to_all's and the
+           all-gather's bytes against the psum's; CUDA-event ms of a
+           forward and backward and each rank's kernels' device ms
+  mesh_step  the GBM sage model (gbm.yaml's dropouts), one train step on
+           1 x 2 with the halo and one on 2 x 1, bf16 and f32 trunks: the
+           loss (1e-4) and each parameter's gradient against the single
+           device step's (TOL_MESH_GRAD), 2 x 1 against the single device
+           step on its own SpMM (TOL_GRAD), the witnesses of the bf16 gap,
+           launches, ms a step a rank
+  mesh_protocol  the small protocol (f32, dropout off, 2 epochs) on 2 x 1
+           and on 1 x 2 with the halo: every fold's test scores against
+           the experiment phase's runs on the card and on the CPU
+           (TOL_PROTOCOL), pooled AUC equal on both ranks, launches
+  mesh_forms  rank 0's plans of the GBM fold on two ranks, timed in this
+           process alone on the card, against their plain versions, with
+           ms, bound, plain and library ms: the halo's interior K2
+           (forward, transpose), boundary K1 (by receiver; by halo slot),
+           the send gather's backward K1, the edge shard's K1 (csr) and K3
 
 Kernel cases off the main path (other feature widths, permuted plans,
 empty plans) are in tests/test_torch_cuda_kernels.py.
@@ -1567,7 +1606,7 @@ def _spy_folds():
     return out, lambda: setattr(driver, "run_fold", real)
 
 
-EXPERIMENT_EPOCHS = 3  # the experiment phase's epochs on the files
+EXPERIMENT_EPOCHS = 2  # the experiment phase's epochs on the files
 
 
 def experiment_phase(root, device="cuda"):
@@ -1622,6 +1661,7 @@ def experiment_phase(root, device="cuda"):
                 float(np.abs(a.epoch_pred_by_epoch[2] - b.epoch_pred_by_epoch[2]).max()))
             for a, b in zip(scores[device][0], scores["cpu"][0])]
     ok = len(errs) == 5 and max(errs) <= TOL_PROTOCOL
+    SMALL_SCORES.update(scores)  # mesh_protocol's single-device references
     emit({"phase": "experiment_small_vs_cpu", "fold_max_abs_err": errs, "tol": TOL_PROTOCOL,
           "pooled_auc_cuda": scores[device][1]["auc"][2],
           "pooled_auc_cpu": scores["cpu"][1]["auc"][2], "ok": ok})
@@ -2081,23 +2121,23 @@ def export_phase(model, ctx, batch, phase="export", want=None):
 
 def warm_phase():
     """The warm CLI in a fresh copy of the package (nothing built), then
-    the train CLI from the same copy (--fold-parallel): it must find every
-    kernel and data library built (0.0 s each)."""
+    the train CLI from the same copy with --bench-scaling (the
+    bench_scaling phase's run): it must find every kernel and data library
+    built (0.0 s each).  Returns (the bench's line, its process s)."""
     import shutil
 
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copytree(REPO / "multilevel_gnn_tpu_torch", Path(tmp) / "multilevel_gnn_tpu_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         env = dict(os.environ, PYTHONPATH=tmp)
-        args = ["--config", GBM_YAML, "--synthetic", "--debug"]
         out = {}
-        # the train CLI's quickest protocol (--debug fixes 5 epochs): its
-        # units stacked, fold-parallel
-        for name, module, extra in (
-                ("warm", "multilevel_gnn_tpu_torch.train.warm", []),
-                ("train", "multilevel_gnn_tpu_torch.train.cli", ["--fold-parallel"])):
+        for name, module, args in (
+                ("warm", "multilevel_gnn_tpu_torch.train.warm",
+                 ["--config", GBM_YAML, "--synthetic", "--debug"]),
+                ("train", "multilevel_gnn_tpu_torch.train.cli",
+                 ["--config", GBM_YAML, "--synthetic", "--bench-scaling"])):
             t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", module, *args, *extra],
+            r = subprocess.run([sys.executable, "-m", module, *args],
                                capture_output=True,
                                text=True, env=env, timeout=600, cwd=tmp)
             if r.returncode != 0:
@@ -2114,12 +2154,14 @@ def warm_phase():
           "next_train_process_s": train_wall, "ok": ok})
     if not ok:
         raise AssertionError("warm: the next process still had something to build")
+    return train, train_wall
 
 
 def profile_phase(root):
-    """The train CLI with --profile-dir on the protocol files (1 run x 5
-    folds x 1 epoch) against the same protocol without it, run first: the
-    trace's bytes and K1's kernel symbol in it, and both wall times."""
+    """The train CLI with --profile-dir on the small protocol files under
+    root (1 run x 5 folds x 1 epoch) against the same protocol without it,
+    run first: the trace's bytes and K1's kernel symbol in it, and both
+    wall times."""
     from multilevel_gnn_tpu_torch.train import cli
     from multilevel_gnn_tpu_torch.utils.profiling import TRACE_FILE
 
@@ -2261,7 +2303,7 @@ TOL_PROB_DGCN = {"f32": 1e-5, "bf16": 5e-3}
 # gene edge's cotangent into row 0 (about 120k rows, K1's long-row blocks
 # against index_add_), read 9.1e-6 on an H100 where sage's step reads 6e-7
 TOL_GRAD_DGCN = {"bf16": 7e-2, "f32": TOL_F32}
-DGCN_EPOCHS = 2
+DGCN_EPOCHS = 1
 
 
 def dgcn_cfg(**kw):
@@ -3382,7 +3424,7 @@ def slice10_phases(cfg, ctx, batch):
 # stacked step, K1 / K2 / K3 launched once per SpMM or segment op for all of
 # them over block-diagonal plans (core/graph.py:stack_graphs)
 FP_UNITS = 5
-FP_PROTOCOL_EPOCHS = 3  # fold_parallel_protocol's epochs on the files
+FP_PROTOCOL_EPOCHS = 2  # fold_parallel_protocol's epochs on the files
 # calls a profiled window of the stacked forms' plain versions and library
 # calls, which take 30-70 ms each at U = 5 (10 for the other forms)
 FP_SLOW_REPS = 3
@@ -4100,6 +4142,514 @@ def fold_parallel_phases(root, cohort, small, gen):
     return r, paths, per_step
 
 
+# ---- the ('data', 'model') mesh (parallel/).  NCCL refuses two ranks on
+# one card, so on a one-card machine the script runs NCCL at world size 1
+# (mesh_ws1) and puts two ranks on cuda:0 over gloo for the rest,
+# each collective of card tensors staged through host memory
+# (parallel/comm.py:_call); the kernels run on the card in both.
+MESH_RANKS = 2
+MESH_B, MESH_C = 32, 64  # the GBM fold's F = B*C = 2,048 at the SpMMs
+MESH_DEADLINE_S = 400
+# The halo mean divides each rank's f32 sum by the degree (halo.py:
+# halo_gather_scatter, as JAX's), where the single-device mean rounds each
+# weight w / deg to bf16: its bf16 reference is the single-device bf16 sum
+# over the degree, held at TOL_BF16 (K2 rounds an entry's summed weights,
+# K1 each weight, and the two paths send different edges through each);
+# its input gradient comes back in bf16 in both, so one bf16 ulp of
+# max|ref| (2^-7 of it) is the limit there.  In f32 the halo mean is held
+# to the single-device mean at TOL_F32.
+TOL_BF16_ULP = 2.0 ** -7
+# A mesh step's gradients against the single-device step's, per parameter
+# max|diff| / max|grad| (the worst): the single device runs the windowed
+# SpMM (K2 over a permuted plan), the mesh its shard's composed K1 or the
+# halo's per-rank plans.  The f32 trunk is held to TOL_GRAD's f32 limit
+# (read 1.6e-6 on an H100, PERF.md).  In the bf16 trunk that change of
+# route alone moves the single device's own gradients by 0.124
+# (node_embedding; mesh_step's "order" witness: the single-device step on
+# K1 composed against the windowed one; run twice, the step reads 0), and
+# the mesh reads 0.115 (1 x 2 halo) and 0.124 (2 x 1); the limit is twice
+# that.  The mesh's own share is held at TOL_GRAD: 2 x 1 against the
+# single-device step on its own SpMM ("split", read 3.6e-3 in bf16).
+TOL_MESH_GRAD = {"bf16": 0.25, "f32": TOL_GRAD["f32"]}
+
+
+def _rank_setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rel(got, ref):
+    e, m = err_of(got.float(), ref.float())
+    return e / max(1.0, m)
+
+
+class MeshPerCall:
+    """Inside this block every K1, K2 (with its residual K1) and K3 call
+    that ops.spmm makes with its kernel on this rank is held against the
+    plain version on the same inputs: K3 equal, K1 / K2 within TOL_F32
+    (TOL_BF16 for bf16 rows) times max(1, max|ref|); ``worst`` the largest
+    reading of each and ``calls`` their count."""
+
+    def __enter__(self):
+        self.real = (spmm._k1, spmm._k2, spmm._k3)
+        self.worst = Counter()
+        self.calls = Counter()
+        real_k1, real_k2, real_k3 = self.real
+
+        def wrap(real, name, plain_fn, exact=False):
+            def pick(plain):
+                fn = real(plain)
+                if plain:
+                    return fn
+
+                def both(x, w_or_plan, *rest, **kw):
+                    out = kw.get("out", rest[1] if len(rest) > 1 else None)
+                    base = out.clone() if out is not None else None
+                    got = fn(x, w_or_plan, *rest, **kw)
+                    if base is not None:
+                        ref = plain_fn(x, w_or_plan, rest[0], base)
+                    else:
+                        ref = plain_fn(x, w_or_plan, *rest, **kw)
+                    tol = 0.0 if exact else (TOL_BF16 if x.dtype == torch.bfloat16
+                                             else TOL_F32)
+                    rel = _rel(got, ref)
+                    self.calls[name] += 1
+                    self.worst[name] = max(self.worst[name], rel)
+                    if not rel <= tol:
+                        raise AssertionError(
+                            f"{name} call {self.calls[name]}: {rel} against plain > {tol}")
+                    return got
+                return both
+            return pick
+
+        spmm._k1 = wrap(real_k1, k1.KERNEL.name, k1.segment_spmm_csr_plain)
+        spmm._k2 = wrap(real_k2, k2.KERNEL.name, k2.windowed_spmm_plain)
+        spmm._k3 = wrap(real_k3, k3.KERNEL.name, k3.segment_max_csr_plain, exact=True)
+        return self
+
+    def __exit__(self, *exc):
+        spmm._k1, spmm._k2, spmm._k3 = self.real
+        return False
+
+    def summary(self):
+        return {"calls": dict(self.calls), "worst_rel_err": dict(self.worst)}
+
+
+def mesh_ws1_rank(rank):
+    """A spawned rank of an NCCL group of world size 1 on cuda:0: NCCL's
+    collectives on card tensors, then the edge-partitioned sum, mean and
+    max and the halo form (k = 1) of the GBM fold against single-device
+    gather_scatter, counted."""
+    import torch.distributed as dist
+
+    from multilevel_gnn_tpu_torch.parallel import halo as PH
+    from multilevel_gnn_tpu_torch.parallel import mesh as PM
+    from multilevel_gnn_tpu_torch.parallel import scaling
+
+    _rank_setup()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    t = torch.arange(4.0, device="cuda")
+    dist.all_reduce(t)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    r = torch.empty_like(t)
+    dist.all_to_all_single(r, t)
+    g = [torch.empty_like(t)]
+    dist.all_gather(g, t)
+    out["collectives_ok"] = bool(torch.equal(r, t) and torch.equal(g[0], t)
+                                 and torch.equal(t, torch.arange(4.0, device="cuda")))
+    graph = scaling.gbm_graph("cuda")
+    group = dist.group.WORLD
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(graph.n_nodes, MESH_B, MESH_C, generator=gen, device="cuda")
+    shard = PM.edge_block(graph, 1, 0, group)
+    hp = PH.build_halo_partition(PM.padded_graph(graph, 1), 1, windowed=True)
+    halo = dataclasses.replace(shard, halo=hp.for_rank(0, group, "cuda", graph))
+    errs, counts = {}, {}
+    for name, g_, reduce in (("edge_sum", shard, "sum"), ("edge_mean", shard, "mean"),
+                             ("edge_max", shard, "max"), ("halo_mean", halo, "mean"),
+                             ("halo_sum", halo, "sum")):
+        ref = spmm.gather_scatter(x, graph, reduce, graph.edge_attr)
+        torch.cuda.synchronize()
+        zero_launches()
+        got = spmm.gather_scatter(x, g_, reduce, g_.edge_attr)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+        errs[name] = _rel(got, ref)
+        if reduce == "max" and not torch.equal(got, ref):
+            raise AssertionError(f"mesh_ws1 {name}: K3 not equal to single device")
+        if errs[name] > TOL_F32:
+            raise AssertionError(f"mesh_ws1 {name}: {errs[name]} > {TOL_F32}")
+    out.update(rel_err=errs, launches=counts)
+    return out
+
+
+def mesh_ws1_phase():
+    from multilevel_gnn_tpu_torch.parallel.multihost import spawn
+
+    t0 = time.perf_counter()
+    r = spawn(mesh_ws1_rank, 1, backend="nccl", deadline_s=MESH_DEADLINE_S)[0]
+    want = {"edge_sum": {k1.KERNEL.name: 1}, "edge_mean": {k1.KERNEL.name: 1},
+            "edge_max": {k3.KERNEL.name: 1}}
+    for name, w in want.items():
+        for k, n in w.items():
+            expect_launches(f"mesh_ws1 {name}", r["launches"][name][k], n)
+    ok = r["collectives_ok"] and r["backend"] == "nccl" and all(
+        r["launches"][n][k2.KERNEL.name] == 1 for n in ("halo_mean", "halo_sum"))
+    emit({"phase": "mesh_ws1", **r, "wall_s": time.perf_counter() - t0,
+          "tol": TOL_F32, "ok": ok})
+    if not ok:
+        raise AssertionError("mesh_ws1 failed")
+    return r["launches"]
+
+
+def _halo_predicted(rh):
+    """K1 / K2 launches of one halo forward and backward on a rank: the
+    interior K2 (and its residual K1 where there is one), the boundary K1;
+    backward K2's transpose (with tres / res_csc K1), the boundary's csc
+    K1 and the send gather's backward K1."""
+    w = rh.win
+    fwd1 = (1 if w.res.nnz else 0) + 1
+    bwd1 = (1 if w.tres.nnz else 0) + (1 if w.res_csc.nnz else 0) + 2
+    return {k1.KERNEL.name: fwd1 + bwd1, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
+
+
+def _mesh_halo(rank):
+    """The halo mean aggregation of the GBM fold (bf16, windowed interiors)
+    on a 1 x 2 mesh, forward and backward, against single device; every
+    kernel call against its plain version; launches as predicted; each
+    rank's kernels' device ms."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from multilevel_gnn_tpu_torch.parallel import comm
+    from multilevel_gnn_tpu_torch.parallel import halo as PH
+    from multilevel_gnn_tpu_torch.parallel import mesh as PM
+    from multilevel_gnn_tpu_torch.parallel import scaling
+
+    graph = scaling.gbm_graph("cuda")
+    mesh = PM.make_mesh(1, MESH_RANKS)
+    k = MESH_RANKS
+    hp = PH.build_halo_partition(PM.padded_graph(graph, k), k, windowed=True)
+    rh = hp.for_rank(rank, mesh.model_group, "cuda", graph)
+    sg = dataclasses.replace(PM.edge_block(graph, k, rank, mesh.model_group), halo=rh)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(graph.n_nodes, MESH_B, MESH_C, generator=gen, device="cuda")
+    t = torch.randn(graph.n_nodes, MESH_B, MESH_C, generator=gen, device="cuda")
+    xr = x.clone().requires_grad_(True)
+    deg = torch.clamp(graph.in_degree(), min=1.0)[:, None, None]
+    ref = spmm.gather_scatter(xr, graph, "sum", graph.edge_attr, dtype=torch.bfloat16) / deg
+    (ref * t).sum().backward()
+    mean_ref = spmm.gather_scatter(x, graph, "mean", graph.edge_attr, dtype=torch.bfloat16)
+    xm = x.clone().requires_grad_(True)
+
+    def call(v):
+        return spmm.gather_scatter(v, sg, "mean", sg.edge_attr, dtype=torch.bfloat16)
+
+    torch.cuda.synchronize()
+    zero_launches()
+    with MeshPerCall() as pc:
+        out = call(xm)
+        (out * t).sum().div(k).backward()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    dx = comm.all_reduce_(xm.grad.clone(), mesh.model_group)
+    e_out, e_dx = _rel(out, ref), _rel(dx, xr.grad)
+    e_mean = _rel(out, mean_ref)
+    with torch.no_grad():
+        e_f32 = _rel(spmm.gather_scatter(x, sg, "mean", sg.edge_attr),
+                     spmm.gather_scatter(x, graph, "mean", graph.edge_attr))
+    xt = x.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        xt.grad = None
+        (call(xt) * t).sum().backward()
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    dist.barrier()
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    for _ in range(3):
+        fwd_bwd()
+    ev[1].record()
+    ev[1].synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / 3
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fwd_bwd()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, 3)
+    syms = {name: sum(r[1] for r in rows if any(s in r[0] for s in SYMBOLS[name]))
+            for name in (k1.KERNEL.name, k2.KERNEL.name)}
+    H, Nl, F = hp.halo, hp.n_local, MESH_B * MESH_C
+    return {
+        "rank": rank, "H": H, "n_local": Nl, "interior": rh.n_interior,
+        "boundary": rh.n_boundary, "launches": launches,
+        "predicted": _halo_predicted(rh), "per_call": pc.summary(),
+        "rel_err_out": e_out, "rel_err_dx": e_dx,
+        "rel_err_out_vs_rounded_mean": e_mean, "rel_err_f32": e_f32,
+        "fwd_bwd_event_ms": step_ms, "kernel_device_ms": syms,
+        # the all_to_all per conv, in the SpMM's bf16, against the psum of
+        # f32 (N_pad, F) partials a ring all-reduce would move
+        "wire_bytes_all_to_all": k * (k - 1) * H * F * 2,
+        "wire_bytes_all_gather": k * (k - 1) * Nl * F * 4,
+        "psum_equiv_bytes": 2 * (k - 1) * k * Nl * F * 4,
+    }
+
+
+def _grad_errs(got, ref):
+    """{parameter: max|diff| / max|grad|} of two {parameter: gradient}."""
+    return {k: float((got[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+            for k in ref if k in got}
+
+
+def _worst(errs):
+    return max(errs.values())
+
+
+def _mesh_step(rank):
+    """One train step of the GBM sage model (windowed, B = 32, gbm.yaml's
+    dropouts), bf16 and f32 trunks, on 1 x 2 with the halo and on 2 x 1:
+    the loss and each parameter's gradient against the single-device
+    step's; launches; ms a step (bf16).  Witnesses of the bf16 gap, each
+    the worst parameter's max|diff| / max|grad|: the single-device step
+    run twice (rerun); the single-device step on the 2 x 1 path's own
+    SpMM, the window plan stripped and K1 composed over one rank's edge
+    block (order); and 2 x 1 against that step (split)."""
+    import torch.distributed as dist
+
+    from multilevel_gnn_tpu_torch.parallel import mesh as PM
+    from multilevel_gnn_tpu_torch.train import driver
+
+    cfg, bf16_model, graph, ctx, batch = gbm_fold()
+    tcfg, ctx = train_setup(cfg, ctx)
+    f32_cfg = tcfg.replace(compute_dtype=None, spmm_bf16=False)
+    f32_model = MultilevelGNN(f32_cfg, graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0)
+    k1_ctx = PM.shard_ctx(ctx, PM.Mesh(1, 1, 0, 0))  # no group: the rank's SpMM alone
+    cw = torch.tensor([1.0, 1.5], device="cuda")
+    out = {}
+    for trunk, model, mcfg0 in (("bf16", bf16_model, tcfg), ("f32", f32_model, f32_cfg)):
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def step_of(c, mesh=None, mcfg=mcfg0):
+            model.load_state_dict(init)
+            opt = make_optimizer(model, mcfg, 1)
+            loss = train_step(model, opt, batch, c, cw,
+                              torch.Generator(device="cuda").manual_seed(3), mesh)
+            return loss, {k: p.grad.clone() for k, p in model.named_parameters()
+                          if p.grad is not None}
+
+        ref_loss, ref = step_of(ctx)
+        _, again = step_of(ctx)
+        _, on_k1 = step_of(k1_ctx)
+        out[f"{trunk}_witness"] = {"rerun": _worst(_grad_errs(again, ref)),
+                                   "order": _worst(_grad_errs(on_k1, ref))}
+        for name, (d, m, halo) in (("1x2_halo", (1, 2, True)), ("2x1", (2, 1, False))):
+            mesh = PM.make_mesh(d, m)
+            mcfg = mcfg0.replace(halo_exchange=halo)
+            mctx = driver.mesh_ctx(mcfg, ctx, mesh)
+            torch.cuda.synchronize()
+            zero_launches()
+            loss, grads = step_of(mctx, mesh, mcfg)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            errs = _grad_errs(grads, ref)
+            worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+            row = {"loss": float(loss), "ref_loss": float(ref_loss),
+                   "grad_rel_err": worst[0][1], "worst_params": worst,
+                   "median_param_err": float(np.median(list(errs.values()))),
+                   "grad_dtypes": sorted({str(g.dtype) for g in grads.values()}),
+                   "launches": launches, "ms_per_step": None}
+            if name == "2x1":
+                row["split"] = _worst(_grad_errs(grads, on_k1))
+            if trunk == "bf16":
+                model.load_state_dict(init)
+                opt = make_optimizer(model, mcfg, 1)
+                gen = torch.Generator(device="cuda").manual_seed(4)
+                dist.barrier()
+                row["ms_per_step"] = cuda_ms(
+                    lambda: train_step(model, opt, batch, mctx, cw, gen, mesh),
+                    iters=3, warmup=1)
+            out[f"{trunk}_{name}"] = row
+        model.load_state_dict(init)
+    return out
+
+
+def _mesh_protocol(rank):
+    """The small protocol (SMALL_COHORT, f32, dropout off, 2 epochs) on 2 x 1
+    and on 1 x 2 with the halo: every fold's test scores and the pooled
+    metrics."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multilevel_gnn_tpu_torch.train import driver
+
+    cfg = Config.from_yaml(GBM_YAML).replace(
+        num_run=1, epochs=2, compute_dtype=None, spmm_bf16=False, feature_drop=False,
+        head_drop_rate=0.0, gnn_dropout=0.0)
+    out = {}
+    for name, (d, m, halo) in (("2x1", (2, 1, False)), ("1x2_halo", (1, 2, True))):
+        cohort = make_synthetic_cohort(cfg, **SMALL_COHORT)
+        rec, undo = _spy_folds()
+        zero_launches()
+        t0 = time.perf_counter()
+        try:
+            res = driver.run_experiment(
+                cfg.replace(mesh_data_axis=d, mesh_model_axis=m, halo_exchange=halo),
+                cohort, device="cuda")
+        finally:
+            undo()
+        out[name] = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+                     "auc": res["auc"][2], "acc": res["acc"][2],
+                     "epoch_pred": [r.epoch_pred[2] for r in rec],
+                     "epoch_pred_by_epoch": [r.epoch_pred_by_epoch[2] for r in rec]}
+    return out
+
+
+def mesh_group_rank(rank):
+    """A rank of the two-rank gloo group on cuda:0: mesh_halo, mesh_step
+    and mesh_protocol's parts, with their seconds."""
+    _rank_setup()
+    out = {}
+    for name, fn in (("halo", _mesh_halo), ("step", _mesh_step),
+                     ("protocol", _mesh_protocol)):
+        t0 = time.perf_counter()
+        out[name] = fn(rank)
+        out[name]["rank_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+SMALL_SCORES = {}  # experiment_phase's small protocol: (fold results, result) by device
+
+
+def mesh_phases(gen):
+    """mesh_halo, mesh_step and mesh_protocol on two gloo ranks of cuda:0;
+    returns ({path: launches}, the per-rank kernel forms)."""
+    from multilevel_gnn_tpu_torch.parallel.multihost import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_group_rank, MESH_RANKS, backend="gloo", deadline_s=MESH_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    paths = {}
+    halo = [r["halo"] for r in ranks]
+    ok = True
+    for h in halo:
+        ok &= h["launches"] == h["predicted"]
+        ok &= h["rel_err_out"] <= TOL_BF16 and h["rel_err_dx"] <= TOL_BF16_ULP
+        ok &= h["rel_err_f32"] <= TOL_F32
+        paths[f"mesh_halo_rank{h['rank']}"] = h["launches"]
+    emit({"phase": "mesh_halo", "backend": "gloo", "ranks_per_card": MESH_RANKS,
+          "ranks": halo, "tol_out": TOL_BF16, "tol_dx": TOL_BF16_ULP, "tol_f32": TOL_F32,
+          "ok": bool(ok)})
+    if not ok:
+        raise AssertionError("mesh_halo failed")
+    step = [r["step"] for r in ranks]
+    ok = True
+    for i, s in enumerate(step):
+        for trunk in TOL_MESH_GRAD:
+            for name in ("1x2_halo", "2x1"):
+                c = s[f"{trunk}_{name}"]
+                ok &= abs(c["loss"] - c["ref_loss"]) <= 1e-4 * abs(c["ref_loss"])
+                ok &= c["grad_rel_err"] <= TOL_MESH_GRAD[trunk]
+                ok &= c["grad_dtypes"] == ["torch.float32"]
+                ok &= c["launches"][k1.KERNEL.name] > 0
+            ok &= s[f"{trunk}_2x1"]["split"] <= TOL_GRAD[trunk]
+        for name in ("1x2_halo", "2x1"):
+            paths[f"mesh_step_{name}_rank{i}"] = s[f"bf16_{name}"]["launches"]
+        ok &= s["bf16_1x2_halo"]["launches"][k2.KERNEL.name] > 0
+    emit({"phase": "mesh_step", "backend": "gloo", "ranks_per_card": MESH_RANKS,
+          "note": "the two ranks share one card: ms per step is each rank's, both running",
+          "ranks": step, "tol": TOL_MESH_GRAD, "tol_loss_rel": 1e-4, "ok": bool(ok)})
+    step_ok = ok
+    prot = [r["protocol"] for r in ranks]
+    errs, ok = {}, True
+    for dev in ("cuda", "cpu"):
+        rec, res = SMALL_SCORES[dev]
+        for name in ("2x1", "1x2_halo"):
+            got = prot[0][name]
+            e = max(max(float(np.abs(a - b.epoch_pred[2]).max()),
+                        float(np.abs(c - b.epoch_pred_by_epoch[2]).max()))
+                    for a, c, b in zip(got["epoch_pred"], got["epoch_pred_by_epoch"], rec))
+            errs[f"{name}_vs_{dev}"] = e
+            ok &= len(got["epoch_pred"]) == 5 and e <= TOL_PROTOCOL
+    for i, p in enumerate(prot):
+        for name in ("2x1", "1x2_halo"):
+            paths[f"mesh_protocol_{name}_rank{i}"] = p[name]["launches"]
+            ok &= p[name]["auc"] == prot[0][name]["auc"]
+    emit({"phase": "mesh_protocol", "backend": "gloo", "ranks_per_card": MESH_RANKS,
+          "fold_max_abs_err": errs, "tol": TOL_PROTOCOL,
+          "pooled": {n: {"auc": prot[0][n]["auc"], "acc": prot[0][n]["acc"],
+                         "wall_s": prot[0][n]["wall_s"]} for n in ("2x1", "1x2_halo")},
+          "rank_s": [{k: r[k]["rank_s"] for k in ("halo", "step", "protocol")}
+                     for r in ranks],
+          "spawn_wall_s": spawn_s, "ok": bool(ok)})
+    if not (ok and step_ok):
+        raise AssertionError("mesh_step or mesh_protocol failed")
+    return paths, mesh_forms(gen)
+
+
+def mesh_forms(gen):
+    """The per-rank kernel forms at rank 0's plans of the GBM fold on two
+    ranks (timed in this process, alone on the card): the halo's interior
+    K2 (forward and transpose), boundary K1 (by receiver; backward by halo
+    slot), the send gather's backward K1, and the edge shard's K1 (csr) and
+    K3, bf16, F = 2,048."""
+    from multilevel_gnn_tpu_torch.parallel import halo as PH
+    from multilevel_gnn_tpu_torch.parallel import mesh as PM
+    from multilevel_gnn_tpu_torch.parallel import scaling
+
+    graph = scaling.gbm_graph("cuda")
+    k, F, bf = MESH_RANKS, MESH_B * MESH_C, torch.bfloat16
+    hp = PH.build_halo_partition(PM.padded_graph(graph, k), k, windowed=True)
+    rh = hp.for_rank(0, None, "cuda", graph)
+    sg = PM.edge_block(graph, k, 0)
+    w = rh.edge_attr
+    Nl, KH = hp.n_local, hp.k * hp.halo
+
+    def rows(n):
+        return torch.randn(n, F, generator=gen, device="cuda").to(bf)
+
+    res = {
+        "halo_interior_rank0": ("k2", time_k2("halo_interior_rank0", rh.win, rows(Nl), w, False)),
+        "halo_interior_t_rank0": ("k2", time_k2("halo_interior_t_rank0", rh.win, rows(Nl), w,
+                                                True)),
+        "halo_boundary_rank0": ("k1", time_k1("halo_boundary_rank0", rh.bnd_csr, rows(KH), w,
+                                              False, gen)),
+        "halo_boundary_bwd_rank0": ("k1", time_k1("halo_boundary_bwd_rank0", rh.bnd_csc,
+                                                  rows(Nl), w, False, gen)),
+        "halo_send_gather_bwd_rank0": ("k1", time_k1(
+            "halo_send_gather_bwd_rank0", rh.send_plan, rows(KH),
+            torch.ones(KH, device="cuda"), False, gen)),
+        "edge_shard_csr_rank0": ("k1", time_k1(
+            "edge_shard_csr_rank0", sg.csr, rows(graph.n_nodes),
+            spmm.edge_weights(sg, "mean", sg.edge_attr), False, gen)),
+    }
+    msg = rows(sg.num_padded_edges)
+    r3 = time_k3(sg, msg)
+    r3["case"] = "edge_shard_csr_rank0 " + r3["case"]
+    res["edge_shard_k3_rank0"] = ("k3", r3)
+    for name, (kind, r) in res.items():
+        emit({"phase": "mesh_forms", "kernel": kind, **r, "H": hp.halo, "n_local": Nl})
+    return res
+
+
+def bench_scaling_phase(line, process_s):
+    """The train CLI's --bench-scaling on the card (warm_phase runs it): the
+    anchor only on one card (K2 + K1, forward and backward, B = 2,
+    C = 64); JAX's keys and the CLI's builds."""
+    keys = {"metric", "value", "unit", "backend", "n_devices", "E", "B", "C", "sizes", "ms",
+            "edges_per_s_per_chip", "efficiency", "wire_bytes_per_conv",
+            "psum_equiv_bytes", "halo_H", "builds"}
+    n = torch.cuda.device_count()
+    ok = (set(line) == keys and line["backend"] == "cuda" and line["n_devices"] == n
+          and (line["sizes"] == [1] if n == 1 else line["sizes"][0] == 1)
+          and all(np.isfinite(v) and v > 0 for v in line["ms"].values()))
+    emit({"phase": "bench_scaling", **line, "process_s": process_s, "ok": ok})
+    if not ok:
+        raise AssertionError("bench_scaling failed")
+
+
 def card_setup() -> str:
     """TF32 off for matmuls and cuDNN; the card's nvidia-smi name and power
     limit."""
@@ -4265,12 +4815,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         cohort = cohort_phase(root)
         paths["experiment"] = experiment_phase(root)
-        profile_phase(root)
+        small = small_files(root)
+        profile_phase(small)
         ckpt_dir = ckpt_phase(root, cohort)
         paths["predict"] = predict_phase(root, cohort, ckpt_dir)
         paths["explain_cli"] = explain_cli_phase(root, ckpt_dir)
         # ---- fold-parallel CV: the units in one stacked step
-        small = small_files(root)
         r_fp, fp_paths, fp_step = fold_parallel_phases(root, cohort, small, gen)
         paths.update(fp_paths)
         per_step.update(fp_step)
@@ -4296,7 +4846,13 @@ def main() -> int:
             torch.cuda.empty_cache()
         paths["gat_protocol"] = gat_protocol_phase(small)
         paths["pretrain_protocol"], paths["pathcnn_protocol"] = pretrain_protocol_phase(small)
-    warm_phase()
+    bench_scaling_phase(*warm_phase())
+    # ---- the mesh (parallel/): NCCL at world size 1, then two gloo ranks
+    # on cuda:0
+    ws1 = mesh_ws1_phase()
+    paths["mesh_ws1"] = {k: sum(c[k] for c in ws1.values()) for k in build.REGISTRY}
+    mesh_paths, r_mesh = mesh_phases(gen)
+    paths.update(mesh_paths)
 
     main_k1 = r1[("residual", "bfloat16")]
     main_k2 = r2["bfloat16"]
@@ -4345,6 +4901,9 @@ def main() -> int:
                 "stacked_edge_segment_sum": k1, "stacked_gather_src_bwd": k1,
                 "stacked_edge_id_lookup_bwd": k1}[case].KERNEL.name
         forms[name].append(r)
+    # the mesh's per-rank forms (rank 0's plans of the GBM fold on two ranks)
+    for form_of, r in r_mesh.values():
+        forms[{"k1": k1, "k2": k2, "k3": k3}[form_of].KERNEL.name].append(r)
     # launches: the count on the kernel's first serving path (sage for K1
     # and K2, mr for K3); every path's count is in launches_by_path
     first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",

@@ -49,7 +49,10 @@ class FoldContext:
     (CSRPlan.gather over the table's rows), for DeeperGCN's one-hot edge
     encoder; None elsewhere.  pathway_adj: (P, P) float32 pathway
     correlation + I of the fold's PCA (Cohort.fold), the DiffPool head's
-    adjacency (batch.py:75)."""
+    adjacency (batch.py:75).  data: on a data rank of a mesh, the rank's
+    parallel/comm.py:DataShard (set by parallel/mesh.py:DataParallel for
+    one forward), which the batch-coupled statistics read; None
+    elsewhere."""
 
     graph: Graph
     gene_pca_match: torch.Tensor
@@ -63,6 +66,7 @@ class FoldContext:
     edge_ids: Optional[torch.Tensor] = None
     edge_id_gather: Optional[CSRPlan] = None
     pathway_adj: Optional[torch.Tensor] = None
+    data: Optional[object] = None
 
     @property
     def num_pca_rows(self) -> int:

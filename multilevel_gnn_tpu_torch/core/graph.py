@@ -46,7 +46,11 @@ class Graph:
     receivers and whose columns are the edge rows (the backward of the
     edge gathers x[senders] / x[receivers]), in_deg: (n_nodes,) float32
     real in-degree, winplan: K2 plan or None; all are set by
-    with_sorted_meta / with_window_meta."""
+    with_sorted_meta / with_window_meta.  On a mesh (parallel/mesh.py:
+    shard_ctx) a rank's graph holds its block of the edges, with shard its
+    EdgeShard, and the halo form's per-rank plans in halo (parallel/
+    halo.py); in_deg, gcn_self and the block's gcn_coef stay the whole
+    graph's."""
 
     senders: Array
     receivers: Array
@@ -62,6 +66,8 @@ class Graph:
     gcn_coef: Optional[torch.Tensor] = None
     gcn_self: Optional[torch.Tensor] = None
     winplan: Optional[object] = None
+    shard: Optional[object] = None
+    halo: Optional[object] = None
 
     @staticmethod
     def from_edges(

@@ -52,6 +52,7 @@ from multilevel_gnn_tpu_torch.nn.basic import (
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import compute_dtype
 from multilevel_gnn_tpu_torch.nn.conv import GENConv
 from multilevel_gnn_tpu_torch.ops.spmm import gather_rows
+from multilevel_gnn_tpu_torch.parallel.comm import batch_moments
 
 
 class _Projection(nn.Module):
@@ -191,7 +192,7 @@ class DeeperGCN(nn.Module):
                 dtype=cdt, generator=g))
         for i in range(cfg.num_layers):
             self.add_module(f"norm_{i}", Norm(cfg.norm, H, dtype=cdt))
-        self.drop = Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout, batch_axis=1)  # (N, B, H)
         head_in = H
         if cfg.pathway_global_node and cfg.pathway_readout == "MSA":
             self.pred_norm_scale = nn.Parameter(torch.ones(P))
@@ -303,9 +304,11 @@ class DeeperGCN(nn.Module):
                     h = drop(h)
         return h.float()
 
-    def readout_head(self, h, batch: Batch, generator=None) -> torch.Tensor:
+    def readout_head(self, h, batch: Batch, generator=None, data=None) -> torch.Tensor:
         """Pathway readout (or graph pooling), age and head (:266-323) on
-        the stack's float32 (N, B, H); returns the probabilities."""
+        the stack's float32 (N, B, H); returns the probabilities.  data:
+        the fold context's DataShard on a data rank of a mesh, whose MSA
+        statistics then take the whole batch."""
         cfg, P = self.cfg, self.P
         age = batch.age[:, None].float()
         if cfg.pathway_global_node:
@@ -314,8 +317,7 @@ class DeeperGCN(nn.Module):
                 hg = pw.mean(1)
             elif cfg.pathway_readout == "MSA":
                 # batch statistics per pathway over (B, H), padded rows in
-                m = pw.mean(dim=(0, 2), keepdim=True)
-                v = pw.var(dim=(0, 2), unbiased=False, keepdim=True)
+                m, v = batch_moments(pw, (0, 2), data)
                 pwn = (pw - m) * torch.rsqrt(v + 1e-5)
                 pwn = pwn * self.pred_norm_scale[None, :, None] + self.pred_norm_bias[None, :, None]
                 hg = self.readout_msa(pwn, generator).mean(1)
@@ -345,7 +347,7 @@ class DeeperGCN(nn.Module):
         the dropout masks' source in training mode."""
         h, e = self.encode(batch, ctx)
         h = self.stack(h, ctx.graph, e, generator)
-        return self.readout_head(h, batch, generator), None
+        return self.readout_head(h, batch, generator, ctx.data), None
 
 
 @torch.no_grad()

@@ -21,6 +21,7 @@ from torch import nn
 
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.nn.basic import BatchNorm1d, Linear
+from multilevel_gnn_tpu_torch.parallel.comm import data_sum
 
 
 class DenseSAGEConv(nn.Module):
@@ -70,17 +71,24 @@ class SAGEConvolutions(nn.Module):
 
 
 def dense_diff_pool(x: torch.Tensor, adj: torch.Tensor, s: torch.Tensor,
-                    eps: float = 1e-15):
+                    eps: float = 1e-15, data=None):
     """PyG's dense_diff_pool: (S^T X, S^T A S, link loss, entropy loss) of
-    the softmax assignment S = softmax(s) (B, N, K)."""
+    the softmax assignment S = softmax(s) (B, N, K).  data: the fold
+    context's DataShard on a data rank of a mesh, whose losses are then
+    the whole batch's."""
     s = torch.softmax(s, dim=-1)
     st = s.transpose(-1, -2)
     out = st @ x
     adj_b = adj.expand(s.shape[0], *adj.shape) if adj.dim() == 2 else adj
     out_adj = (st @ adj_b) @ s
     link = adj_b - s @ st
-    link_loss = torch.sqrt((link * link).sum()) / adj_b.numel()
-    ent_loss = torch.mean(torch.sum(-s * torch.log(s + eps), dim=-1))
+    ent = torch.sum(-s * torch.log(s + eps), dim=-1)
+    if data is None or data.size == 1:
+        link_loss = torch.sqrt((link * link).sum()) / adj_b.numel()
+        ent_loss = torch.mean(ent)
+    else:
+        link_loss = torch.sqrt(data_sum((link * link).sum(), data)) / (adj_b.numel() * data.size)
+        ent_loss = data_sum(ent.sum(), data) / (ent.numel() * data.size)
     return out, out_adj, link_loss, ent_loss
 
 
@@ -94,16 +102,16 @@ class DiffPoolLayer(nn.Module):
         self.gnn_pool = SAGEConvolutions(1, in_channels, no_new_clusters, generator=generator)
         self.gnn_embed = SAGEConvolutions(1, in_channels, dim_embedding, generator=generator)
 
-    def forward(self, x, adj):
+    def forward(self, x, adj, data=None):
         s = self.gnn_pool(x, adj)
-        return dense_diff_pool(self.gnn_embed(x, adj), adj, s)
+        return dense_diff_pool(self.gnn_embed(x, adj), adj, s, data=data)
 
 
 class DiffPool(nn.Module):
     """The multi-level stack (diffpool.py:114-143): forward(x (B, N, C),
     adj (N, N)) -> (x_coarse, link_loss, entropy_loss), each level followed
     by cfg.after_pooling_layer SAGE convs; out_dim is gnn_output_dim at the
-    last level, gnn_hidden_dim before it."""
+    last level, gnn_hidden_dim before it; data: dense_diff_pool's."""
 
     def __init__(self, cfg: Config, num_features: int, max_num_nodes: int,
                  num_layers: int, gnn_hidden_dim: int, gnn_output_dim: int,
@@ -125,10 +133,10 @@ class DiffPool(nn.Module):
             no_new = math.ceil(no_new * coarse)
         self.out_width = self.n_clusters[-1] * width
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor):
+    def forward(self, x: torch.Tensor, adj: torch.Tensor, data=None):
         l_total = e_total = 0.0
         for i in range(self.num_layers):
-            x, adj, l, e = getattr(self, f"diffpool_{i}")(x, adj)
+            x, adj, l, e = getattr(self, f"diffpool_{i}")(x, adj, data)
             x = getattr(self, f"after_pool_{i}")(x, adj)
             l_total = l_total + l
             e_total = e_total + e

@@ -39,6 +39,7 @@ from multilevel_gnn_tpu_torch.nn.conv import GraphConvLayer
 from multilevel_gnn_tpu_torch.ops.pathway import pathway_contract, slot_onehot, slots_to_image
 from multilevel_gnn_tpu_torch.ops.pca import pca_lowrank, pca_svd
 from multilevel_gnn_tpu_torch.ops.spmm import gather_rows
+from multilevel_gnn_tpu_torch.parallel.comm import data_gather, data_local
 
 
 def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
@@ -250,7 +251,7 @@ class MultilevelGNN(nn.Module):
                 raise ValueError("runtime PCA reduction needs cfg.slot_sizes "
                                  "(set it from Cohort.slot_sizes())")
         self.input_drop = Dropout(cfg.input_drop)
-        self.input_emb_drop = Dropout(cfg.input_emb_drop)
+        self.input_emb_drop = Dropout(cfg.input_emb_drop, batch_axis=1)  # (N, B, D)
         # merge concatenates the two graphs' features (the reference doubles
         # final_channels for the head only), dense_gnn every layer's
         if cfg.edge_type == "merge":
@@ -368,7 +369,10 @@ class MultilevelGNN(nn.Module):
         if cfg.reduction_method == "linear_projection":
             image = self.learnable_pca_image(xg, ctx)
         else:
-            image = self.runtime_pca_image(xg)
+            # a PCA over the batch: on a data rank of a mesh, over the whole
+            # batch's rows, keeping the rank's rows of the image
+            image = data_local(self.runtime_pca_image(data_gather(xg, 1, ctx.data)), 0,
+                               ctx.data)
         return image.float()
 
     def runtime_pca_image(self, xg):

@@ -137,17 +137,18 @@ class VAEClassifier(VAE):
             img = h.permute(0, 2, 1).reshape(B, Ch, cfg.pathway_num, -1)
         if cfg.reorder_pathway:
             img = img.index_select(2, ctx.reorder_idxs)
-        return self.predict_head(img, batch.age, ctx.pathway_adj, generator)
+        return self.predict_head(img, batch.age, ctx.pathway_adj, generator, ctx.data)
 
-    def predict_head(self, img, age, pathway_adj, generator=None):
+    def predict_head(self, img, age, pathway_adj, generator=None, data=None):
         """vae.py:147-184: DiffPool over the pathways of each image column
-        with reorder_type 'diff_pooling', else the ConvHead."""
+        with reorder_type 'diff_pooling', else the ConvHead; data: the fold
+        context's DataShard (DiffPool's losses over the whole batch)."""
         cfg = self.cfg
         if cfg.reorder_type != "diff_pooling":
             return self.conv_head(img, age, generator), img, 0.0, 0.0
         B, C, P, D = img.shape
         x = img.permute(0, 3, 2, 1).reshape(-1, P, C)
-        x, l, e = self.diff_pooling(x, pathway_adj)
+        x, l, e = self.diff_pooling(x, pathway_adj, data)
         x = self.feature_drop(x.reshape(B, -1), generator)
         if cfg.use_age:
             x = torch.cat([x, age[:, None].to(x.dtype)], dim=-1)

@@ -109,6 +109,38 @@ class UnitGenerators(tuple):
     u's mask from generator u, as that unit's own run_fold would."""
 
 
+class RowShardGenerator:
+    """The dropout generator of a forward on one data rank of a mesh
+    (parallel/mesh.py:DataParallel), whose batch holds the rows
+    [rank * rows, (rank + 1) * rows) of a batch of size * rows (shard, a
+    parallel/comm.py:DataShard): each Dropout draws the whole batch's mask
+    from generator, as the single-device step draws it, and keeps the
+    rank's rows along its batch axis.  Reads through to the generator's
+    attributes."""
+
+    def __init__(self, generator: torch.Generator, shard):
+        self.generator, self.shard = generator, shard
+
+    def __getattr__(self, name):
+        return getattr(self.generator, name)
+
+    def rand(self, shape, batch_axis: int, device) -> torch.Tensor:
+        """Uniform draws of a mask of shape, the rank's rows of the whole
+        batch's; a mask broadcast over the batch (size 1 there) is drawn as
+        it is."""
+        d = self.shard
+        if len(shape) == 0 or shape[batch_axis] == 1:
+            return torch.rand(shape, generator=self.generator, device=device)
+        if shape[batch_axis] != d.rows:
+            raise ValueError(
+                f"dropout over a batch axis {batch_axis} of {shape[batch_axis]} rows; "
+                f"the data rank holds {d.rows}")
+        full = list(shape)
+        full[batch_axis] = d.rows * d.size
+        u = torch.rand(full, generator=self.generator, device=device)
+        return u.narrow(batch_axis, d.rank * d.rows, d.rows)
+
+
 class _UnitDropout(torch.autograd.Function):
     """Dropout of stacked (U, ...) values, unit u's keep mask drawn from
     generators[u] with unit u's shape, in unit order; torch.vmap over the
@@ -149,16 +181,23 @@ class _UnitDropout(torch.autograd.Function):
         return (out, keep), (0, 0)
 
 
-def apply_dropout(x: torch.Tensor, generator, keep_prob: float, mask_shape=None) -> torch.Tensor:
+def apply_dropout(x: torch.Tensor, generator, keep_prob: float, mask_shape=None,
+                  batch_axis: int = 0) -> torch.Tensor:
     """x with each element kept with probability keep_prob and scaled by
     1 / keep_prob.  The keep mask, of mask_shape (broadcast over x, flax's
     broadcast_dropout) or of x's shape, is drawn from ``generator``, a
     torch.Generator, or under the fold-parallel step's vmap unit u's from
-    generators[u] of UnitGenerators."""
+    generators[u] of UnitGenerators, or on a data rank of a mesh the
+    rank's rows along batch_axis of the whole batch's mask from a
+    RowShardGenerator."""
     if isinstance(generator, UnitGenerators):
         return _UnitDropout.apply(x, generator, keep_prob, mask_shape)[0]
-    shape = x.shape if mask_shape is None else mask_shape
-    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    shape = tuple(x.shape if mask_shape is None else mask_shape)
+    if isinstance(generator, RowShardGenerator):
+        u = generator.rand(shape, batch_axis, x.device)
+    else:
+        u = torch.rand(shape, generator=generator, device=x.device)
+    keep = u < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -166,12 +205,16 @@ class Dropout(nn.Module):
     """flax.linen.Dropout: in training mode each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate); rate 1 drops all.
     The mask is drawn from ``generator``, a torch.Generator on x's device
-    (or UnitGenerators, one a unit, under the fold-parallel step's vmap);
-    in eval mode, or at rate 0, x passes through and nothing is drawn."""
+    (or UnitGenerators, one a unit, under the fold-parallel step's vmap,
+    or a RowShardGenerator on a data rank of a mesh);
+    in eval mode, or at rate 0, x passes through and nothing is drawn.
+    batch_axis: x's batch axis (1 for node-major (N, B, C) values), where a
+    data rank of a mesh keeps its rows of the whole batch's mask."""
 
-    def __init__(self, rate: Optional[float]):
+    def __init__(self, rate: Optional[float], batch_axis: int = 0):
         super().__init__()
         self.rate = float(rate or 0.0)
+        self.batch_axis = batch_axis
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -180,7 +223,7 @@ class Dropout(nn.Module):
             raise ValueError("training-mode dropout needs a torch.Generator")
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        return apply_dropout(x, generator, 1.0 - self.rate)
+        return apply_dropout(x, generator, 1.0 - self.rate, batch_axis=self.batch_axis)
 
 
 class Linear(nn.Module):
@@ -347,7 +390,8 @@ class MLP(nn.Module):
     like the flax submodules.  act_type 'prelu' learns one slope per
     activated layer, prelu_1, prelu_2, ... (initialised to 0.2; flax's
     param names), and where(x >= 0, x, slope * x) with the float32 slope
-    gives a float32 result, as JAX promotes a bf16 x (basic.py:228-232)."""
+    gives a float32 result, as JAX promotes a bf16 x (basic.py:228-232).
+    batch_axis: the dropout's (Dropout's), 1 for node-major values."""
 
     def __init__(
         self,
@@ -359,6 +403,7 @@ class MLP(nn.Module):
         last_lin: bool = False,
         dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
+        batch_axis: int = 0,
     ):
         super().__init__()
         self.act_type = act_type
@@ -380,7 +425,7 @@ class MLP(nn.Module):
                 self.add_module(f"Norm_{i - 1}", Norm(norm_type, channels[i], dtype))
             if self.prelu:
                 self.register_parameter(f"prelu_{i}", nn.Parameter(torch.full((1,), 0.2)))
-        self.drop = Dropout(drop)
+        self.drop = Dropout(drop, batch_axis)
 
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None

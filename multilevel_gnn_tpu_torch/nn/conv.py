@@ -122,7 +122,7 @@ class GenAggregate(nn.Module):
         if a == "mean":
             return spmm.edge_segment_mean(msg, graph)
         if a == "max":
-            return spmm.edge_segment_max(msg, graph.receivers, graph.edge_mask, graph.csr)
+            return spmm.graph_segment_max(msg, graph)
         if a in SOFTMAX_AGGRS:
             if self.t is not None:
                 w = spmm.segment_softmax_weights((msg * self.t).float(), graph)
@@ -253,7 +253,7 @@ class RSAGEConv(nn.Module):
         self.nn = MLP(
             [in_channels + out_channels, out_channels],
             act_type=act_type, norm_type=mlp_norm, use_bias=use_bias,
-            drop=drop, dtype=dtype, generator=generator,
+            drop=drop, dtype=dtype, generator=generator, batch_axis=1,
         )
 
     def forward(
@@ -491,9 +491,7 @@ class MRConv(_MaxConv):
     def forward(self, x, graph: Graph, edge_attr=None, generator=None):
         x = _node_rows(x, self.dtype)
         diff = spmm.gather_src(x, graph) - spmm.gather_dst(x, graph)
-        agg = spmm.edge_segment_max(
-            diff, graph.receivers, graph.edge_mask, graph.csr
-        )
+        agg = spmm.graph_segment_max(diff, graph)
         return self.nn(torch.cat([x, agg.to(x.dtype)], dim=-1))
 
 
@@ -506,9 +504,7 @@ class EdgeConv(_MaxConv):
         x_i = spmm.gather_dst(_node_rows(x, self.dtype), graph)
         x_j = spmm.gather_src(_node_rows(x, self.dtype), graph)
         msg = self.nn(torch.cat([x_i, x_j - x_i], dim=-1))
-        return spmm.edge_segment_max(
-            msg, graph.receivers, graph.edge_mask, graph.csr
-        )
+        return spmm.graph_segment_max(msg, graph)
 
 
 def dynamic_graph(senders: torch.Tensor, receivers: torch.Tensor, n_nodes: int) -> Graph:

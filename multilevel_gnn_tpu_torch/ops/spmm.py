@@ -36,7 +36,11 @@ Layout: the port keeps the trunk node-major, (N, B, C), so the SpMM reads
 it as (N, B*C) rows without the transpose the JAX package's
 ``_to_2d``/``_from_2d`` (:121-134) do around it; the values are the same.
 Dispatch: a graph with a window plan goes through the windowed path,
-otherwise K1 over all real edges.  Accumulation is f32; the result is f32.
+otherwise K1 over all real edges; a rank's edge shard on a mesh
+(parallel/mesh.py) goes through parallel/edge_partition.py, which runs the
+same kernels over the rank's block and reduces over the model group (or,
+when the shard carries the halo form's plans, through parallel/halo.py).
+Accumulation is f32; the result is f32.
 The kernels are reached through their torch.library ops (mgtpu::*), so an
 eval forward traced by torch.export under torch.no_grad() (train/export.py)
 records each Function's forward, op calls included; plain_versions() calls
@@ -66,6 +70,14 @@ from multilevel_gnn_tpu_torch.ops.kernels.windowed import (
 )
 
 _PLAIN = False
+
+
+def _edge_partition():
+    """parallel/edge_partition.py, which routes an edge shard's ops (it
+    imports this module, so the import waits for the first shard)."""
+    from multilevel_gnn_tpu_torch.parallel import edge_partition
+
+    return edge_partition
 
 
 @contextlib.contextmanager
@@ -275,6 +287,14 @@ def edge_segment_min(msg, receivers, mask, csr) -> torch.Tensor:
     return -edge_segment_max(-msg, receivers, mask, csr)
 
 
+def graph_segment_max(msg: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """edge_segment_max of (E, ...) edge values into graph's receivers,
+    over every model rank's edges when graph is an edge shard."""
+    if graph.shard is not None:
+        return _edge_partition().segment_max(msg, graph)
+    return edge_segment_max(msg, graph.receivers, graph.edge_mask, graph.csr)
+
+
 class _EdgeSegmentSum(torch.autograd.Function):
     """edge_segment_sum (spmm.py:195-232) on (E, F) edge rows: K1 over the
     receiver-sorted plan of edge rows with unit weights (f32 out); the
@@ -314,6 +334,8 @@ def edge_segment_sum(msg: torch.Tensor, graph: Graph) -> torch.Tensor:
     msg: (E, ...) edge-major values, bf16 or f32, over all E edge slots;
     returns (N, ...) float32.  Padding edges take no part and get no
     gradient; an empty segment gives 0."""
+    if graph.shard is not None:
+        return _edge_partition().segment_sum(msg, graph)
     shape = msg.shape
     m2 = msg.reshape(shape[0], -1).contiguous()
     out = _EdgeSegmentSum.apply(m2, graph.receivers, graph.edge_mask,
@@ -339,8 +361,11 @@ def segment_softmax_weights(z: torch.Tensor, graph: Graph) -> torch.Tensor:
     z: (E, ...) float32 edge-major; padding edges get weight 0."""
     pad = ~graph.edge_mask.reshape((-1,) + (1,) * (z.dim() - 1))
     zm = torch.where(pad, -torch.inf, z)
-    with torch.no_grad():
-        gmax = torch.where(torch.isfinite(zm), zm, -1e30).amax(dim=0, keepdim=True)
+    if graph.shard is not None:
+        gmax = _edge_partition().column_max(zm, graph)
+    else:
+        with torch.no_grad():
+            gmax = torch.where(torch.isfinite(zm), zm, -1e30).amax(dim=0, keepdim=True)
     e = torch.where(pad, 0.0, torch.exp(zm - gmax))
     denom = edge_segment_sum(e, graph)
     denom = torch.where(denom == 0.0, 1.0, denom)
@@ -388,6 +413,9 @@ def gather_scatter(
         raise NotImplementedError(f"reduce={reduce!r} is not ported yet")
     if graph.csr is None:
         raise ValueError("graph needs with_sorted_meta() before aggregation")
+    if graph.shard is not None:
+        return _edge_partition().edge_partitioned_gather_scatter(
+            x, graph, None, reduce, edge_weight, dtype)
     if reduce in ("max", "min"):
         msg = gather_src(x, graph)
         if edge_weight is not None:

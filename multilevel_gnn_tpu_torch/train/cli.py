@@ -4,7 +4,7 @@
         [--data-dir DIR | --synthetic] [--set key=value ...] [--device cpu] \\
         [--ckpt-dir DIR [--resume]] [--profile-dir DIR] \\
         [--pretrain {autoencoder,vae,mmd_vae,vq_vae} [--pretrain-epochs N]] \\
-        [--fold-parallel [DEVICES]]
+        [--fold-parallel [DEVICES]] [--mesh DxM] [--bench-scaling]
 
 Runs run_experiment, the num_run x 5-fold protocol, on a cohort read from
 reference-format files under --data-dir (or on a generated one with
@@ -22,9 +22,19 @@ reconstruction model's encoder on the whole cohort for --pretrain-epochs
 (the config's epochs by default), and every fold's model starts from it
 (train/pretrain.py).  --fold-parallel runs the protocol's units in
 lockstep as one stacked step (train/fold_parallel.py), on DEVICES groups
-(cuda:0 .. DEVICES-1) when given; it does not combine with --pretrain
-(exit 2, as the JAX CLI refuses it).  The JAX CLI's mesh and scaling
-options are not ported.
+(cuda:0 .. DEVICES-1) when given; it does not combine with --pretrain or
+--mesh (exit 2, as the JAX CLI refuses them).
+
+--mesh DxM runs the protocol on a D x M ('data', 'model') mesh of ranks
+(parallel/mesh.py; --set halo_exchange=true for the halo form), one
+process a rank: without the MGTPU_* variables the CLI spawns D*M ranks on
+cuda:0 .. D*M-1 over NCCL (it exits with an error when the host has fewer
+cards), or over gloo with --device cpu; with MGTPU_COORDINATOR (host:port
+of rank 0), MGTPU_NUM_PROC and MGTPU_PROC_ID set, this process is rank
+MGTPU_PROC_ID of the group, one command on every host.  Rank 0 alone
+prints the line and writes --out.  --bench-scaling runs the halo scaling
+bench (parallel/scaling.py) instead of training and prints its line
+(JAX's keys, then the builds' seconds).
 """
 from __future__ import annotations
 
@@ -34,6 +44,9 @@ import dataclasses
 import json
 import logging
 import os
+import sys
+
+import torch
 
 from multilevel_gnn_tpu_torch.core.config import Config
 
@@ -146,27 +159,61 @@ def main(argv=None) -> dict:
                          "stacked step; an optional count splits the units into "
                          "that many groups, one a card (in turn where groups "
                          "outnumber cards)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="device mesh, e.g. 4x2 = 4-way data x 2-way edge partition")
+    ap.add_argument("--bench-scaling", action="store_true",
+                    help="instead of training: run the halo-aggregation scaling bench "
+                         "at GBM scale over the --mesh model axis (multihost via "
+                         "MGTPU_COORDINATOR/MGTPU_NUM_PROC/MGTPU_PROC_ID env); one "
+                         "JSON line with edges/s/chip + efficiency + predicted wire "
+                         "bytes")
     ap.add_argument("--set", nargs="*", default=[], help="key=value overrides")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
+    import torch.distributed as dist
+
     from multilevel_gnn_tpu_torch.core.device import resolve_device
+    from multilevel_gnn_tpu_torch.parallel.scaling import (
+        maybe_init_multihost,
+        run_bench_scaling,
+    )
     from multilevel_gnn_tpu_torch.train.driver import run_experiment
     from multilevel_gnn_tpu_torch.train.warm import warm_builds
     from multilevel_gnn_tpu_torch.utils.profiling import trace
 
     cfg = Config.from_yaml(args.config, **parse_overrides(args.set))
-    if args.resume and not args.ckpt_dir:
-        ap.error("--resume requires --ckpt-dir")
-    if args.fold_parallel is not None and args.pretrain:
-        ap.error("--fold-parallel is incompatible with --pretrain")
-    device = resolve_device(args.device)
-    # every kernel and data library at once, before the cohort is read
-    builds = warm_builds(device)
     if args.debug:
         cfg = cfg.replace(num_run=1, epochs=5, batch_size=8)
+    if args.mesh:
+        d, m = (int(v) for v in args.mesh.lower().split("x"))
+        cfg = cfg.replace(mesh_data_axis=d, mesh_model_axis=m)
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
+    if args.fold_parallel is not None and (args.pretrain or args.mesh):
+        ap.error("--fold-parallel is incompatible with --pretrain/--mesh")
+    device = resolve_device(args.device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    maybe_init_multihost(backend)
+    ranks = cfg.mesh_data_axis * cfg.mesh_model_axis
+    if dist.is_initialized() and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    # every kernel and data library at once, before the cohort is read (and
+    # before any rank is spawned, so the ranks find them built)
+    builds = warm_builds(device)
+    if args.bench_scaling:
+        return run_bench_scaling(cfg, device=device, extra={"builds": builds})
+    if ranks > 1 and not dist.is_initialized():
+        if device.type == "cuda" and torch.cuda.device_count() < ranks:
+            ap.error(f"--mesh {args.mesh} needs {ranks} cards; the host has "
+                     f"{torch.cuda.device_count()}")
+        from multilevel_gnn_tpu_torch.parallel.multihost import spawn
+
+        return spawn(_mesh_rank, ranks, list(argv) if argv is not None else sys.argv[1:],
+                     backend=backend, deadline_s=MESH_DEADLINE_S)[0]
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     cohort = make_cohort(cfg, args.synthetic, args.data_dir, args.debug)
-    prof = trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    prof = trace(args.profile_dir) if args.profile_dir and rank0 else contextlib.nullcontext()
     with prof:
         if args.fold_parallel is not None:
             results = _fold_parallel(args, cfg, cohort, device)
@@ -175,6 +222,8 @@ def main(argv=None) -> dict:
                                      resume=args.resume, pretrain=args.pretrain,
                                      pretrain_epochs=args.pretrain_epochs)
     final_e = results["check_epochs"][-1]
+    if not rank0:
+        return results
     print(json.dumps({
         "cancer_type": cfg.cancer_type,
         "model": cfg.model,
@@ -190,6 +239,15 @@ def main(argv=None) -> dict:
         with open(args.out, "w") as f:
             json.dump({**results, "config": dataclasses.asdict(cfg)}, f, indent=2)
     return results
+
+
+# a spawned mesh run's ranks must all finish within this many seconds
+MESH_DEADLINE_S = 7 * 24 * 3600
+
+
+def _mesh_rank(rank: int, argv) -> dict:
+    """A rank of --mesh spawned by main: main(argv) inside its group."""
+    return main(argv)
 
 
 def _fold_parallel(args, cfg, cohort, device) -> dict:

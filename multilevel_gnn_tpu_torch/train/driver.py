@@ -18,8 +18,15 @@ ckpt_dir/result_run{r}_fold{f}.npy, and resume=True loads finished folds
 and resumes an unfinished one at its latest complete step.
 run_experiment(pretrain=...) first pretrains an AE / VAE / VQ-VAE encoder
 on the cohort (train/pretrain.py) and run_fold copies its parameters into
-every fold's model after the PCA seeding.  Left out of run_fold and
-run_experiment: the mesh, warm_only, and epoch_scan / fold_scan, which
+every fold's model after the PCA seeding.  With cfg.mesh_data_axis x
+cfg.mesh_model_axis > 1, run_experiment runs on the ('data', 'model') mesh
+of the process group's ranks (parallel/mesh.py; driver.py:284-355,
+647-690): each rank takes its rows of every batch and its block of the
+fold graph's edges (with cfg.halo_exchange and more than one model rank,
+the halo partition of parallel/halo.py for sum and mean), the ranks'
+parameters stay equal, evaluate gathers the predictions over the data
+group, and rank 0 alone writes checkpoints and fold results.  Left out of
+run_fold and run_experiment: warm_only, and epoch_scan / fold_scan, which
 only change how JAX dispatches the same steps.  DeeperGCN's folds carry
 the pathway node attrs as each batch's raw_data, and PathCNN's its raw
 values or PCA attrs (fold_setup's FoldData.raw).
@@ -38,6 +45,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext
 from multilevel_gnn_tpu_torch.core.config import Config
@@ -45,6 +53,7 @@ from multilevel_gnn_tpu_torch.models import get_model
 from multilevel_gnn_tpu_torch.models.deepergcn import DeeperGCN, apply_init_weight
 from multilevel_gnn_tpu_torch.models.multiomix import MultiOmixGCN
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import seed_pca_params
+from multilevel_gnn_tpu_torch.parallel.mesh import maybe_make_mesh, replicate
 from multilevel_gnn_tpu_torch.train import checkpoint as C
 from multilevel_gnn_tpu_torch.train import metrics as M
 from multilevel_gnn_tpu_torch.train.step import eval_step, make_optimizer, train_step
@@ -157,12 +166,14 @@ def iter_batches(X, Y, ages, idxs, batch_size: int, device, raw=None) -> Iterato
         )
 
 
-def evaluate(model, ctx: FoldContext, X, Y, ages, idxs, batch_size: int, raw=None):
+def evaluate(model, ctx: FoldContext, X, Y, ages, idxs, batch_size: int, raw=None,
+             mesh=None):
     """Score idxs in order; returns (auc, acc, y_true, score0, mean loss)
-    like the JAX driver's evaluate."""
+    like the JAX driver's evaluate.  On a mesh, ctx is the rank's and the
+    predictions are gathered over the data group (equal on every rank)."""
     preds, losses = [], []
     for batch in iter_batches(X, Y, ages, idxs, batch_size, ctx.device, raw):
-        pred, loss = eval_step(model, batch, ctx)
+        pred, loss = eval_step(model, batch, ctx, mesh)
         m = batch.sample_mask.cpu().numpy()
         preds.append(pred.float().cpu().numpy()[m])
         losses.append(float(loss))
@@ -235,6 +246,7 @@ def run_fold(
     interrupt_after: Optional[List[int]] = None,
     raw: Optional[np.ndarray] = None,
     pretrained_params: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> FoldResult:
     """Train one prepared fold for cfg.epochs and score it (driver.py:243-739,
     per-step path), with the seeds of (run_i, fold_i).
@@ -254,8 +266,12 @@ def run_fold(
     interrupt_after: [n], a test hook counted down once per epoch across
     calls; at 0 it checkpoints and raises KeyboardInterrupt.
     pretrained_params: a pretrained model's state_dict, copied in after the
-    PCA seeding so its PCA params win (driver.py:334-343)."""
+    PCA seeding so its PCA params win (driver.py:334-343).
+    mesh: a parallel.mesh.Mesh (run_experiment's); ctx is then the whole
+    fold's, sharded here."""
     dev = ctx.device
+    if mesh is not None:
+        ctx = mesh_ctx(cfg, ctx, mesh)
     seed = cfg.seed * 10_000 + run_i * 100 + fold_i  # driver.py:317
     if model is None:
         model = _new_model(cfg, ctx, seed)
@@ -265,9 +281,12 @@ def run_fold(
         from multilevel_gnn_tpu_torch.train.pretrain import transfer_pretrained
 
         transfer_pretrained(pretrained_params, model)
+    if mesh is not None:
+        replicate(model, mesh)
     optimizer = make_optimizer(
         model, cfg, max(len(train_idx) // cfg.batch_size, 1)
     )
+    writer = mesh is None or mesh.rank == 0
     generator = torch.Generator(device=dev).manual_seed(seed)
     cw = torch.as_tensor(np.asarray(fold_class_weight, np.float32)).to(dev)
     sampler_weights = None
@@ -363,7 +382,7 @@ def run_fold(
                     ev = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                     ev[0].record()
-                losses.append(train_step(model, optimizer, batch, ctx, cw, generator))
+                losses.append(train_step(model, optimizer, batch, ctx, cw, generator, mesh))
                 if timed:
                     ev[1].record()
                     events.append(ev)
@@ -371,20 +390,22 @@ def run_fold(
             out.step_ms += [a.elapsed_time(b) for a, b in events]
             step_i += len(plan)
         valid_auc, valid_acc, _, _, valid_loss = evaluate(
-            model, ctx, X, Y, ages, valid_idx, cfg.batch_size, raw
+            model, ctx, X, Y, ages, valid_idx, cfg.batch_size, raw, mesh
         )
         _, _, out.y_true, test_score, _ = evaluate(
-            model, ctx, X, Y, ages, test_idx, cfg.batch_size, raw
+            model, ctx, X, Y, ages, test_idx, cfg.batch_size, raw, mesh
         )
         record(epoch, valid_auc, valid_acc, valid_loss, test_score)
         out.epoch_valid.append((valid_auc, valid_acc, valid_loss))
         out.epoch_times.append(time.perf_counter() - t0)
         interrupt = interrupt_after is not None and interrupt_after[0] == 1
-        if tag_dir is not None and (
+        if writer and tag_dir is not None and (
             (cfg.ckpt_every > 0 and epoch % cfg.ckpt_every == 0)
             or interrupt or (cfg.ckpt_every <= 0 and epoch == cfg.epochs)
         ):
             save(epoch)
+        if interrupt and mesh is not None and mesh.size > 1:
+            dist.barrier()  # rank 0's checkpoint is whole before any rank stops
         if interrupt_after is not None:
             interrupt_after[0] -= 1
             if interrupt_after[0] <= 0:
@@ -394,6 +415,28 @@ def run_fold(
     out.epoch_pred_by_loss = {e: results["epoch_by_loss"][e] for e in check_epochs}
     out.epoch_pred_by_epoch = {e: results["epoch_by_epoch"][e] for e in check_epochs}
     return out
+
+
+def mesh_ctx(cfg: Config, ctx: FoldContext, mesh) -> FoldContext:
+    """The rank's fold context on the mesh (driver.py:284-311): batch_size
+    must split over the data ranks; the rank's edge block (shard_ctx); with
+    cfg.halo_exchange and more than one model rank, the halo partition of
+    the shard-padded graph (edge_sel indexes it) with the rank's plans
+    (windowed interior under cfg.windowed_spmm) on the rank's graph, which
+    routes its sum and mean through the halo form (ops/spmm.py)."""
+    from multilevel_gnn_tpu_torch.parallel.halo import build_halo_partition
+    from multilevel_gnn_tpu_torch.parallel.mesh import padded_graph, shard_ctx
+
+    if cfg.batch_size % mesh.n_data:
+        raise AssertionError((cfg.batch_size, mesh.shape))
+    sharded = shard_ctx(ctx, mesh)
+    if cfg.halo_exchange and mesh.n_model > 1:
+        hp = build_halo_partition(padded_graph(ctx.graph, mesh.n_model), mesh.n_model,
+                                  windowed=cfg.windowed_spmm)
+        rank = hp.for_rank(mesh.model_rank, mesh.model_group, ctx.device, ctx.graph)
+        sharded = dataclasses.replace(
+            sharded, graph=dataclasses.replace(sharded.graph, halo=rank))
+    return sharded
 
 
 def fold_setup(cfg: Config, cohort, train_idx, fold_i: int, device="cuda"):
@@ -498,7 +541,13 @@ def run_experiment(
     pretrain: 'autoencoder', 'vae', 'mmd_vae' or 'vq_vae': first
     pretrain_autoencoder for pretrain_epochs (cfg.epochs when None), then
     every fold's model starts from its matching parameters
-    (driver.py:795-826)."""
+    (driver.py:795-826); on a mesh each rank pretrains alike and rank 0's
+    parameters are broadcast.
+
+    On a mesh (cfg.mesh_data_axis x cfg.mesh_model_axis > 1) every rank of
+    the process group calls run_experiment with its own device; all return
+    the same result, and only rank 0 writes under ckpt_dir."""
+    mesh = maybe_make_mesh(cfg)
     pretrained_params = None
     if pretrain is not None:
         from multilevel_gnn_tpu_torch.train.pretrain import pretrain_autoencoder
@@ -508,6 +557,8 @@ def run_experiment(
             epochs=pretrain_epochs, device=device)
         pretrained_params = {k: v.detach().clone() for k, v in pre.state_dict().items()}
         del pre
+        if mesh is not None:
+            replicate(pretrained_params, mesh)
     labels = cohort.labels()
     check_epochs = list(range(5, cfg.epochs + 1, 5)) or [cfg.epochs]
     agg = {
@@ -561,9 +612,9 @@ def run_experiment(
                         fold.class_weight, check_epochs, run_i=run_i, fold_i=fold_i,
                         ckpt_dir=ckpt_dir, resume=resume,
                         interrupt_after=interrupt_after, raw=fold.raw,
-                        pretrained_params=pretrained_params,
+                        pretrained_params=pretrained_params, mesh=mesh,
                     )
-                    if done is not None:
+                    if done is not None and (mesh is None or mesh.rank == 0):
                         os.makedirs(ckpt_dir, exist_ok=True)
                         with open(f"{done}.tmp", "wb") as f:
                             np.save(f, fr, allow_pickle=True)

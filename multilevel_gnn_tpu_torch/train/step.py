@@ -20,6 +20,7 @@ from torch.func import functional_call
 from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext, StackedContext
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import get_feature_loss
+from multilevel_gnn_tpu_torch.parallel.mesh import DataParallel, reduce_gradients
 
 CLIP_NORM = 20.0
 
@@ -298,26 +299,37 @@ def train_step(
     ctx: FoldContext,
     class_weight: Optional[torch.Tensor],
     generator: Optional[torch.Generator],
+    mesh=None,
 ) -> torch.Tensor:
     """One update in training mode (step.py:218-225); dropout masks come
     from ``generator``.  Returns the loss (a 0-d tensor on the device, not
-    synchronised)."""
+    synchronised).  mesh: a parallel.mesh.Mesh (make_parallel_train_step,
+    mesh.py:129-153): batch is the global batch on every rank and ctx the
+    rank's (shard_ctx); the forward runs on the data rank's rows
+    (DataParallel), each rank's gradient share of loss / world is summed
+    over the world, and the parameters stay equal on every rank."""
     model.train()
     optimizer.zero_grad()
-    loss, _ = make_loss_fn(model.cfg)(model, batch, ctx, class_weight, generator)
-    loss.backward()
+    forward = model if mesh is None else DataParallel(model, mesh)
+    loss, _ = make_loss_fn(model.cfg)(forward, batch, ctx, class_weight, generator)
+    if mesh is None:
+        loss.backward()
+    else:
+        (loss / mesh.size).backward()
+        reduce_gradients(model.parameters(), mesh)
     optimizer.step()
     return loss.detach()
 
 
 @torch.no_grad()
-def eval_step(model, batch: Batch, ctx: FoldContext
+def eval_step(model, batch: Batch, ctx: FoldContext, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(pred (B, 2), loss) in eval mode, class weighting off."""
+    """(pred (B, 2), loss) in eval mode, class weighting off; on a mesh
+    (train_step's) the whole batch's, equal on every rank."""
     was_training = model.training
     model.eval()
     try:
-        pred = model(batch, ctx)[0]
+        pred = (model if mesh is None else DataParallel(model, mesh))(batch, ctx)[0]
     finally:
         model.train(was_training)
     cfg = model.cfg.replace(
