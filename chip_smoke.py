@@ -19,7 +19,10 @@ each:
            around one call, which adds the host's launch time):
            K1 over all edges (the composed forward) and over the windowed
            residual, with the rows it visits (warp items, long-row
-           blocks); K2's forward side, with its block and entry counts
+           blocks, split rows and their chunks; every K1 line of the
+           script carries these counts and fails unless two calls from
+           the same inputs are equal bit for bit); K2's forward side, with
+           its block and entry counts
   serve    the main path: predict_patients over 4 batches (123 patients, the
            last batch padded), launch counts zeroed just before, read just
            after; ms per batch
@@ -580,10 +583,23 @@ def k2_bytes_flops(plan, side, F, dsize):
     return b, 2.0 * side.n_entries * F
 
 
+def k1_classes(plan, acc):
+    """The rows and chunks K1 visits on a plan, by class (a device-built
+    plan's -1 padding left out)."""
+    def real(t):
+        return int((t >= 0).sum())
+
+    items = plan.items[:plan.n_busy] if acc else plan.items
+    return dict(warp_rows=real(items), long_rows=real(plan.long_rows),
+                split_rows=real(plan.split_rows), chunks=real(plan.chunk_row))
+
+
 def time_k1(name, plan, x, w, acc, gen, library=None, reps=10):
     """K1 on one plan against its plain version (accumulating into a random
-    base when acc), with its ms, plain ms, bound and library ms (the plain
-    version and the library call timed over ``reps`` calls a window)."""
+    base when acc), and against itself (a second call from the same inputs
+    must be equal bit for bit), with its ms, plain ms, bound and library ms
+    (the plain version and the library call timed over ``reps`` calls a
+    window)."""
     dt = x.dtype
     base = torch.randn(plan.n_rows, x.shape[1], generator=gen, device="cuda")
     # accumulate mode adds into its output: the check starts both from
@@ -598,8 +614,12 @@ def time_k1(name, plan, x, w, acc, gen, library=None, reps=10):
         return k1.segment_spmm_csr_plain(x, w, plan, buf)
 
     out = k1.segment_spmm_csr(x, w, plan, base.clone() if acc else None)
+    again = k1.segment_spmm_csr(x, w, plan, base.clone() if acc else None)
     ref = k1.segment_spmm_csr_plain(x, w, plan, base.clone() if acc else None)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"k1 {name} {dt}: two calls differ by "
+                             f"{float((out - again).abs().max())}")
     e, m = err_of(out, ref)
     tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
     limit = check(f"k1 {name} {dt}", e, m, tol)
@@ -613,9 +633,8 @@ def time_k1(name, plan, x, w, acc, gen, library=None, reps=10):
     ms, src = kernel_ms(kern, bms)
     return dict(
         case=name, dtype=str(dt).split(".")[-1], nnz=plan.nnz, F=x.shape[1],
-        warp_rows=plan.n_busy if acc else int(plan.items.shape[0]),
-        long_rows=int(plan.long_rows.shape[0]),
-        max_abs_err=e, ref_max=m, limit=limit, ms=ms, ms_source=src,
+        **k1_classes(plan, acc), bitwise_repeat=True, max_abs_err=e, ref_max=m,
+        limit=limit, ms=ms, ms_source=src,
         event_ms=cuda_ms(kern), plain_ms=device_ms(plain, iters=reps),
         library_ms=device_ms(library, iters=reps) if library is not None else None,
         bound_ms=bms, bound_by=by, bytes=b, flops=fl,
@@ -2032,13 +2051,11 @@ def ops_phase(graph, gen):
     w = spmm.edge_weights(graph, "mean", graph.edge_attr)
     splan = k1.SortedPlan.build(graph.receivers.cpu().numpy(), N,
                                 graph.edge_mask.cpu().numpy()).to("cuda")
-    k1_args = (csr.rowptr, csr.col, csr.eid, csr.row, csr.items, csr.long_rows)
     res = wp.res
     cases = [
-        ("segment_spmm_csr", k1.segment_spmm_csr_op, (x, w) + k1_args),
+        ("segment_spmm_csr", k1.segment_spmm_csr_op, (x, w) + csr.op_args),
         ("segment_spmm_csr_acc", k1.segment_spmm_csr_acc_op,
-         (rand(N, 64, dtype=torch.float32), x, w, res.rowptr, res.col, res.eid, res.row,
-          res.items, res.long_rows, res.n_busy)),
+         (rand(N, 64, dtype=torch.float32), x, w) + res.op_args + (res.n_busy,)),
         ("windowed_tile_spmm", k2.windowed_tile_spmm_op, (x, w) + k2._side_args(wp, False)),
         ("windowed_tile_spmm_transpose", k2.windowed_tile_spmm_op,
          (x, w) + k2._side_args(wp, True)),
@@ -3428,7 +3445,7 @@ FP_PROTOCOL_EPOCHS = 2  # fold_parallel_protocol's epochs on the files
 # calls a profiled window of the stacked forms' plain versions and library
 # calls, which take 30-70 ms each at U = 5 (10 for the other forms)
 FP_SLOW_REPS = 3
-FP_STEPS = 10  # timed stacked steps (and timed sequences of five unit steps)
+FP_STEPS = 6  # timed stacked steps (and timed sequences of five unit steps)
 # a stacked eval batch's probabilities against each unit's own eval_step
 # (its dense layers batched GEMMs, its head a grouped convolution, summing
 # in other orders than the unit's own).  Reading on an H100 (PERF.md):
@@ -3822,7 +3839,8 @@ def fpd_kernel_phase(folds, gen):
     emit({"phase": "fold_parallel_deepergcn_plans", "units": U, "edge_stride": E,
           "edges": [c.graph.n_edges for c in ctxs], "F": F, "elements": U * E * F,
           "past_2_31": U * E * F >= 2 ** 31, "csr_nnz": g.csr.nnz,
-          "lookup_rows": lookup.n_rows, "lookup_long_rows": int(lookup.long_rows.shape[0])})
+          "lookup_rows": lookup.n_rows, **{f"lookup_{k}": v for k, v in
+                                           k1_classes(lookup, False).items()}})
     res = {}
 
     def own(plans, x, w):
@@ -4936,7 +4954,8 @@ def main() -> int:
             "forms": [
                 {key: b.get(key) for key in ("case", "dtype", "shape", "F", "max_abs_err",
                                              "ms", "ms_source", "event_ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms", "per_unit_ms")}
+                                             "bound_by", "library_ms", "per_unit_ms",
+                                             "split_rows", "chunks")}
                 for b in forms.get(k.name, [])
             ],
         })

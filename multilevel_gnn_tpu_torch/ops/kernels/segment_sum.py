@@ -9,12 +9,13 @@ for the functions of those names :286, :384 and :585) and the kernels'
 plain PyTorch versions.
 
 The TPU layout pads each 128-row output tile's edges to whole te-chunks so
-one-hot matmuls stream them; on Hopper a warp (or, for a long row, a
-block) per output row reads the gathered rows directly, so the plan is a
-plain receiver-sorted CSR: ``rowptr`` per output row, the source row
-``col`` and original edge id ``eid`` per entry, and the lists of rows the
-kernel visits.  Weights stay per original edge and are read through
-``eid`` inside the kernel; with bf16 data each is rounded to bf16 first,
+one-hot matmuls stream them; on Hopper a warp (for a long row, a block;
+for the longest rows, a block per chunk of entries) per output row reads
+the gathered rows directly, so the plan is a plain receiver-sorted CSR:
+``rowptr`` per output row, the source row ``col`` and original edge id
+``eid`` per entry, and the lists of rows and chunks the kernel visits.
+Weights stay per original edge and are read through ``eid`` inside the
+kernel; with bf16 data each is rounded to bf16 first,
 as ``flat_segment_sum`` does (segment_sum.py:481-490).
 
 Each kernel is a ``torch.library`` op in namespace ``mgtpu`` whose
@@ -40,9 +41,10 @@ KERNEL = register(
         name="segment_spmm_csr",
         source="segment_spmm_csr.cu",
         symbol="segment_spmm_csr",
-        # rowptr, col, eid, w, items, long_rows, x, out, n_items, n_long, F,
+        # rowptr, col, eid, w, items, long_rows, split_rows, chunk_ptr,
+        # chunk_row, partial, tickets, x, out, n_items, n_long, n_chunks, F,
         # is_bf16, accumulate, vector, stream
-        argtypes=[_P] * 8 + [_I] * 6 + [_P],
+        argtypes=[_P] * 13 + [_I] * 7 + [_P],
         replaces="multilevel_gnn_tpu/ops/pallas/segment_sum.py:497",
     )
 )
@@ -60,6 +62,27 @@ SORTED_KERNEL = register(
 
 
 LONG_ROW = 64  # rows with more entries are summed by a whole block
+# rows with more entries are cut into chunks of at most SPLIT_ROW entries, a
+# block each (chosen on an H100 by probes/variants.py's sweep; PERF.md)
+SPLIT_ROW = 512
+
+
+def _chunk_lists(n_chunks: torch.Tensor, slots: int):
+    """chunk_ptr, the exclusive prefix sum of each split row's chunk count,
+    and chunk_row, the split row of each of `slots` chunk slots by a binary
+    search of chunk_ptr (-1 past the last chunk), int32 on n_chunks' device
+    without a copy to the host."""
+    dev = n_chunks.device
+    ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                     torch.cumsum(n_chunks.long(), 0)])
+    slot = torch.arange(slots, device=dev)
+    row = torch.searchsorted(ptr, slot, right=True) - 1
+    return ptr.int(), torch.where(slot < ptr[-1], row, -1).int()
+
+
+def _keep(t: torch.Tensor, s: int) -> torch.Tensor:
+    """A row or chunk list shifted by s, its -1 entries kept."""
+    return torch.where(t >= 0, t.long() + s, -1).int()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +96,16 @@ class CSRPlan:
     items:  int32 rows a warp each sums: the rows with 1 .. LONG_ROW
             entries (n_busy of them), then the empty rows, which only the
             overwrite mode visits (to write zeros).
-    long_rows: int32 rows with more than LONG_ROW entries, a block each.
+    long_rows: int32 rows with LONG_ROW + 1 .. SPLIT_ROW entries, a block
+            each.
+    split_rows: int32 rows with more than SPLIT_ROW entries, each cut into
+            n = ceil(len / SPLIT_ROW) chunks, chunk k holding the entries
+            len * k // n .. len * (k + 1) // n of the row, a block each.
+    chunk_ptr: (len(split_rows) + 1,) int32; the chunks of split_rows[s]
+            are chunk_ptr[s]:chunk_ptr[s+1].
+    chunk_row: int32 index into split_rows of each chunk.
+    A plan built on the device (on_device) pads items, long_rows,
+    split_rows and chunk_row with -1 to lengths known from the shapes.
     max_col / max_eid: largest col / eid (-1 when empty), checked against
     the inputs' sizes by the wrapper.
     units: the per-unit plans a stacked plan holds (stack), else 1."""
@@ -84,6 +116,9 @@ class CSRPlan:
     row: torch.Tensor
     items: torch.Tensor
     long_rows: torch.Tensor
+    split_rows: torch.Tensor
+    chunk_ptr: torch.Tensor
+    chunk_row: torch.Tensor
     n_rows: int
     n_busy: int
     max_col: int
@@ -111,6 +146,9 @@ class CSRPlan:
         rowptr = np.searchsorted(rows, np.arange(n_rows + 1), "left")
         lens = np.diff(rowptr)
         busy = np.flatnonzero((lens > 0) & (lens <= LONG_ROW))
+        split = np.flatnonzero(lens > SPLIT_ROW)
+        n_chunks = -(-lens[split] // SPLIT_ROW)
+        chunk_ptr, chunk_row = _chunk_lists(torch.from_numpy(n_chunks), int(n_chunks.sum()))
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32))
@@ -121,7 +159,10 @@ class CSRPlan:
             eid=t(eids),
             row=t(rows),
             items=t(np.concatenate([busy, np.flatnonzero(lens == 0)])),
-            long_rows=t(np.flatnonzero(lens > LONG_ROW)),
+            long_rows=t(np.flatnonzero((lens > LONG_ROW) & (lens <= SPLIT_ROW))),
+            split_rows=t(split),
+            chunk_ptr=chunk_ptr,
+            chunk_row=chunk_row,
             n_rows=int(n_rows),
             n_busy=len(busy),
             max_col=int(cols.max()) if len(cols) else -1,
@@ -141,17 +182,40 @@ class CSRPlan:
     def on_device(rows: torch.Tensor, cols: torch.Tensor, eids: torch.Tensor,
                   n_rows: int, max_col: int) -> "CSRPlan":
         """The plan of entries already sorted by row, built on their device
-        without a copy to the host (dynamic_graph's knn edges): rowptr by
-        a binary search of the rows, every row a warp item (a warp sums a
-        row of any length; no long-row blocks), max_col the caller's bound
-        on cols, max_eid the last entry's position."""
+        without a copy to the host (dynamic_graph's knn edges) and without
+        a sort: rowptr by a binary search of the rows; items every row in
+        order, -1 for a row of more than LONG_ROW entries (n_busy counts
+        them all: the kernel skips an empty row in accumulate mode); the
+        long and split rows, build's, each list found by a binary search
+        of its running count and padded with -1 to a length known from the
+        shapes: nnz // (LONG_ROW + 1) long rows, nnz // (SPLIT_ROW + 1) + 1
+        split rows (the last always padding, so stack can join chunk_ptr)
+        and nnz // SPLIT_ROW plus that many chunk slots.  max_col is the
+        caller's bound on cols, max_eid the last entry's position."""
         dev = rows.device
-        rowptr = torch.searchsorted(rows, torch.arange(n_rows + 1, device=dev))
-        items = torch.arange(n_rows, device=dev, dtype=torch.int32)
+        nnz = int(rows.shape[0])
+        idx = torch.arange(n_rows + 1, device=dev)
+        rowptr = torch.searchsorted(rows, idx)
+        lens = rowptr[1:] - rowptr[:-1]
+
+        def listed(mask, bound):
+            """The rows where mask holds, in order, then -1: bound entries."""
+            found = torch.searchsorted(torch.cumsum(mask, 0),
+                                       torch.arange(1, bound + 1, device=dev))
+            return torch.where(found < n_rows, found, -1).int()
+
+        n_split = min(n_rows, nnz // (SPLIT_ROW + 1)) + 1
+        split_rows = listed(lens > SPLIT_ROW, n_split)
+        n_chunks = torch.where(split_rows >= 0, -(-lens[split_rows.clamp(min=0)] // SPLIT_ROW), 0)
+        chunk_ptr, chunk_row = _chunk_lists(n_chunks, nnz // SPLIT_ROW + n_split)
         return CSRPlan(
             rowptr=rowptr.int(), col=cols.int(), eid=eids.int(), row=rows.int(),
-            items=items, long_rows=items[:0], n_rows=int(n_rows), n_busy=int(n_rows),
-            max_col=int(max_col), max_eid=int(rows.shape[0]) - 1,
+            items=torch.where(lens <= LONG_ROW, idx[:-1], -1).int(),
+            long_rows=listed((lens > LONG_ROW) & (lens <= SPLIT_ROW),
+                             min(n_rows, nnz // (LONG_ROW + 1))),
+            split_rows=split_rows, chunk_ptr=chunk_ptr, chunk_row=chunk_row,
+            n_rows=int(n_rows), n_busy=int(n_rows),
+            max_col=int(max_col), max_eid=nnz - 1,
         )
 
     @staticmethod
@@ -161,9 +225,11 @@ class CSRPlan:
         col_stride and eid_stride, so one launch over (U * col_stride, F)
         inputs and (U * eid_stride,) weights sums every unit's rows, each
         in its own plan's order.  The busy rows of all units come first in
-        items, then their empty rows (accumulate mode reads n_busy).
-        Offsets stay int32: the kernels index x and out in 64 bits, and the
-        stacked counts must fit int32, as checked here."""
+        items, then their empty rows (accumulate mode reads n_busy); the
+        split rows, chunk_ptr and chunk_row follow the units' own lists,
+        shifted past the earlier units' entries.  Offsets stay int32: the
+        kernels index x and out in 64 bits, and the stacked counts must fit
+        int32, as checked here."""
         n = plans[0].n_rows
         if any(p.n_rows != n for p in plans):
             raise ValueError("stacked plans need one row count")
@@ -176,8 +242,11 @@ class CSRPlan:
                            + [torch.tensor([int(nnz[-1])], dtype=torch.int32, device=dev)])
         cat = torch.cat
         shift = lambda t, s: (t.long() + s).int()  # noqa: E731
-        busy = [shift(p.items[:p.n_busy], u * n) for u, p in enumerate(plans)]
-        empty = [shift(p.items[p.n_busy:], u * n) for u, p in enumerate(plans)]
+        busy = [_keep(p.items[:p.n_busy], u * n) for u, p in enumerate(plans)]
+        empty = [_keep(p.items[p.n_busy:], u * n) for u, p in enumerate(plans)]
+        # a unit's chunks and split rows start past the earlier units' slots
+        c_off = np.cumsum([0] + [int(p.chunk_row.shape[0]) for p in plans])
+        s_off = np.cumsum([0] + [int(p.split_rows.shape[0]) for p in plans])
 
         def top(attr, stride):
             tops = [getattr(p, attr) + u * stride for u, p in enumerate(plans)
@@ -190,7 +259,11 @@ class CSRPlan:
             eid=cat([shift(p.eid, u * eid_stride) for u, p in enumerate(plans)]),
             row=cat([shift(p.row, u * n) for u, p in enumerate(plans)]),
             items=cat(busy + empty),
-            long_rows=cat([shift(p.long_rows, u * n) for u, p in enumerate(plans)]),
+            long_rows=cat([_keep(p.long_rows, u * n) for u, p in enumerate(plans)]),
+            split_rows=cat([_keep(p.split_rows, u * n) for u, p in enumerate(plans)]),
+            chunk_ptr=cat([shift(p.chunk_ptr[:-1], int(c_off[u])) for u, p in enumerate(plans)]
+                          + [shift(plans[-1].chunk_ptr[-1:], int(c_off[-2]))]),
+            chunk_row=cat([_keep(p.chunk_row, int(s_off[u])) for u, p in enumerate(plans)]),
             n_rows=U * n,
             n_busy=sum(p.n_busy for p in plans),
             max_col=top("max_col", col_stride),
@@ -202,6 +275,12 @@ class CSRPlan:
     def nnz(self) -> int:
         return int(self.col.shape[0])
 
+    @property
+    def op_args(self):
+        """The plan's tensors as the mgtpu::segment_spmm_csr ops take them."""
+        return (self.rowptr, self.col, self.eid, self.row, self.items, self.long_rows,
+                self.split_rows, self.chunk_ptr, self.chunk_row)
+
     def to(self, device) -> "CSRPlan":
         return dataclasses.replace(
             self,
@@ -211,8 +290,10 @@ class CSRPlan:
             row=self.row.to(device),
             items=self.items.to(device),
             long_rows=self.long_rows.to(device),
+            split_rows=self.split_rows.to(device),
+            chunk_ptr=self.chunk_ptr.to(device),
+            chunk_row=self.chunk_row.to(device),
         )
-
 
 def _k1_plain(x, w, col, eid, row, n_rows: int) -> torch.Tensor:
     we = w.index_select(0, eid.long()).float()
@@ -242,7 +323,7 @@ def _check_inputs(x, w, plan, out):
         raise ValueError("w must be a contiguous (E,) float32 tensor")
     if plan.max_col >= x.shape[0] or plan.max_eid >= w.shape[0]:
         raise ValueError("plan indexes past x rows or w entries")
-    for t in (w, plan.rowptr, plan.col, plan.eid, plan.items):
+    for t in (w,) + plan.op_args:
         if t.device != x.device:
             raise ValueError("x, w and the plan must be on one device")
     if out is not None and (
@@ -254,21 +335,28 @@ def _check_inputs(x, w, plan, out):
         raise ValueError("out must be a contiguous (n_rows, F) float32 tensor")
 
 
-def _k1_launch(out, x, w, rowptr, col, eid, items, long_rows, n_items: int,
-               accumulate: bool) -> None:
+def _k1_launch(out, x, w, rowptr, col, eid, items, long_rows, split_rows,
+               chunk_ptr, chunk_row, n_items: int, accumulate: bool) -> None:
     """K1 on the card into out (n_rows, F) f32: overwrite the first n_items
-    rows of items and every long row, or add into them (accumulate)."""
+    rows of items, every long row and every split row, or add into them
+    (accumulate).  The split rows' partial sums and tickets are this call's
+    own, from the caching allocator."""
     F = x.shape[1]
-    n_long = int(long_rows.shape[0])
-    if out.numel() == 0 or n_items + n_long == 0:
+    n_long, n_chunks = int(long_rows.shape[0]), int(chunk_row.shape[0])
+    if out.numel() == 0 or n_items + n_long + n_chunks == 0:
         return
     vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    partial = out.new_empty((n_chunks, F))
+    tickets = torch.zeros(split_rows.shape[0] if n_chunks else 0, dtype=torch.int32,
+                          device=out.device)
     fn = KERNEL.fn()
     err = fn(
         rowptr.data_ptr(), col.data_ptr(), eid.data_ptr(), w.data_ptr(),
-        items.data_ptr(), long_rows.data_ptr(), x.data_ptr(), out.data_ptr(),
-        n_items, n_long, F, int(x.dtype == torch.bfloat16), int(accumulate),
-        int(vector), stream_handle(x),
+        items.data_ptr(), long_rows.data_ptr(), split_rows.data_ptr(),
+        chunk_ptr.data_ptr(), chunk_row.data_ptr(), partial.data_ptr(),
+        tickets.data_ptr(), x.data_ptr(), out.data_ptr(), n_items, n_long,
+        n_chunks, F, int(x.dtype == torch.bfloat16), int(accumulate), int(vector),
+        stream_handle(x),
     )
     KERNEL.launches += 1
     KERNEL.check(err)
@@ -283,43 +371,51 @@ def _k1_launch(out, x, w, rowptr, col, eid, items, long_rows, n_items: int,
 # Python autograd and aliasing layers run on the host at every call
 # (probes/op_dispatch.py times a call's host cost).
 _K1_ARGS = ("Tensor x, Tensor w, Tensor rowptr, Tensor col, Tensor eid, Tensor row, "
-            "Tensor items, Tensor long_rows")
+            "Tensor items, Tensor long_rows, Tensor split_rows, Tensor chunk_ptr, "
+            "Tensor chunk_row")
 torch.library.define("mgtpu::segment_spmm_csr", f"({_K1_ARGS}) -> Tensor")
 torch.library.define("mgtpu::segment_spmm_csr_acc",
                      f"(Tensor(a!) out, {_K1_ARGS}, SymInt n_busy) -> ()")
 
 
 @torch.library.impl("mgtpu::segment_spmm_csr", "cpu")
-def _(x, w, rowptr, col, eid, row, items, long_rows):
+def _(x, w, rowptr, col, eid, row, items, long_rows, split_rows, chunk_ptr,
+      chunk_row):
     return _k1_plain(x, w, col, eid, row, rowptr.shape[0] - 1)
 
 
 @torch.library.impl("mgtpu::segment_spmm_csr", "cuda")
-def _(x, w, rowptr, col, eid, row, items, long_rows):
+def _(x, w, rowptr, col, eid, row, items, long_rows, split_rows, chunk_ptr,
+      chunk_row):
     out = torch.empty((rowptr.shape[0] - 1, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    _k1_launch(out, x, w, rowptr, col, eid, items, long_rows,
-               int(items.shape[0]), False)
+    _k1_launch(out, x, w, rowptr, col, eid, items, long_rows, split_rows, chunk_ptr,
+               chunk_row, int(items.shape[0]), False)
     return out
 
 
 @torch.library.register_fake("mgtpu::segment_spmm_csr")
-def _(x, w, rowptr, col, eid, row, items, long_rows):
+def _(x, w, rowptr, col, eid, row, items, long_rows, split_rows, chunk_ptr,
+      chunk_row):
     return x.new_empty((rowptr.shape[0] - 1, x.shape[1]), dtype=torch.float32)
 
 
 @torch.library.impl("mgtpu::segment_spmm_csr_acc", "cpu")
-def _(out, x, w, rowptr, col, eid, row, items, long_rows, n_busy):
+def _(out, x, w, rowptr, col, eid, row, items, long_rows, split_rows, chunk_ptr,
+      chunk_row, n_busy):
     out.add_(_k1_plain(x, w, col, eid, row, rowptr.shape[0] - 1))
 
 
 @torch.library.impl("mgtpu::segment_spmm_csr_acc", "cuda")
-def _(out, x, w, rowptr, col, eid, row, items, long_rows, n_busy):
-    _k1_launch(out, x, w, rowptr, col, eid, items, long_rows, n_busy, True)
+def _(out, x, w, rowptr, col, eid, row, items, long_rows, split_rows, chunk_ptr,
+      chunk_row, n_busy):
+    _k1_launch(out, x, w, rowptr, col, eid, items, long_rows, split_rows, chunk_ptr,
+               chunk_row, n_busy, True)
 
 
 @torch.library.register_fake("mgtpu::segment_spmm_csr_acc")
-def _(out, x, w, rowptr, col, eid, row, items, long_rows, n_busy):
+def _(out, x, w, rowptr, col, eid, row, items, long_rows, split_rows, chunk_ptr,
+      chunk_row, n_busy):
     return None
 
 
@@ -341,10 +437,9 @@ def segment_spmm_csr(
     CPU tensor takes the plain version; a CUDA tensor launches the
     kernel."""
     _check_inputs(x, w, plan, out)
-    args = (plan.rowptr, plan.col, plan.eid, plan.row, plan.items, plan.long_rows)
     if out is None:
-        return segment_spmm_csr_op(x, w, *args)
-    segment_spmm_csr_acc_op(out, x, w, *args, plan.n_busy)
+        return segment_spmm_csr_op(x, w, *plan.op_args)
+    segment_spmm_csr_acc_op(out, x, w, *plan.op_args, plan.n_busy)
     return out
 
 

@@ -3,13 +3,19 @@
 built as it is and in variants that each change or remove one part by a
 text edit, timed at the GBM fold of chip_smoke.py.
 
-    python3 probes/variants.py KERNEL SOURCE.cu
+    python3 probes/variants.py KERNEL SOURCE.cu [SPLIT_ROW ...]
 
 KERNEL is one of
   k2_pr4  PR 4's windowed-SpMM kernel (K2), whose plan layout only PR 4's
           tree has: run with PYTHONPATH=<checkout of that commit>
   k2      the windowed-SpMM kernel of this tree
-  k1      the CSR SpMM kernel (K1) of this tree
+  k1      the CSR SpMM kernel (K1) of this tree, on the GBM fold's forms
+          and on the long-row forms: DeeperGCN's edge-id lookup backward
+          (one row of 120,001 entries into 5,548 table rows, (E, 128) f32),
+          five such lookups stacked, and the kNN graph's gather backwards
+          (N 15,405, k 9, F 64 f32, plans built on the card); each
+          SPLIT_ROW given (default: the tree's) rebuilds every plan with
+          that chunk length and times every variant on it
   k1_pr4  PR 4's K1 source (one block per row), on this tree's plans
 Every edit must match the source, or the script fails.  Each variant and
 form is timed as the device time of its kernels per call (torch.profiler,
@@ -28,6 +34,7 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -112,6 +119,9 @@ K1 = {
                            "const int b = warp == 0 ? beg : beg + len;"),
                           ("const int e = beg + (int)((long long)len * (warp + 1) / WARPS);",
                            "const int e = beg + len;")],
+    # entries of a narrow row's lane group in flight
+    "narrow_u2": [("constexpr int NARROW_U = 4;", "constexpr int NARROW_U = 2;")],
+    "narrow_u8": [("constexpr int NARROW_U = 4;", "constexpr int NARROW_U = 8;")],
 }
 
 
@@ -194,24 +204,49 @@ def k2_forms(graph, w, gen, new_layout):
             yield name, args, out, ref
 
 
-def k1_forms(graph, ctx, w, gen, pr4=False):
+def replan(p, on_device):
+    """The plan p rebuilt from its entries with the module's SPLIT_ROW (on
+    the card for a device-built plan)."""
+    from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
+
+    if on_device:
+        return k1.CSRPlan.on_device(p.row, p.col, p.eid, p.n_rows, p.max_col)
+    return k1.CSRPlan.build(p.row.cpu().numpy(), p.col.cpu().numpy(),
+                            p.eid.cpu().numpy(), p.n_rows).to("cuda")
+
+
+def k1_forms(graph, ctx, knn, w, gen, pr4=False):
     from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 
     plan = graph.winplan
     N, F = graph.n_nodes, 2048
-    ones = torch.ones(max(graph.num_padded_edges, ctx.num_pca_rows), device="cuda")
-    cases = [("csr", graph.csr, w, F, torch.bfloat16, False),
-             ("csr", graph.csr, w, F, torch.float32, False),
-             ("csc", graph.csc, w, F, torch.bfloat16, False),
-             ("residual", plan.res, w, F, torch.bfloat16, True),
-             ("tres", plan.tres, w, F, torch.bfloat16, True),
-             ("res_csc", plan.res_csc, w, F, torch.bfloat16, True),
-             ("gather_rows_bwd", ctx.pca_gather, ones, 1024, torch.bfloat16, False),
-             ("src_gather", graph.src_gather, ones, F, torch.bfloat16, False),
-             ("dst_gather", graph.dst_gather, ones, F, torch.bfloat16, False)]
-    for name, p, wt, Fc, dt, acc in cases:
-        rows = graph.num_padded_edges if name.endswith("_gather") else (
-            ctx.num_pca_rows if name == "gather_rows_bwd" else N)
+    ones = torch.ones(max(graph.num_padded_edges, ctx.num_pca_rows, 5 * 120_001),
+                      device="cuda")
+    lookup = k1.CSRPlan.gather(np.zeros(120_001, np.int64), 5_548)
+    stacked = k1.CSRPlan.stack([lookup] * 5, 120_001, 120_001)
+    cases = [("csr", graph.csr, w, F, torch.bfloat16, False, N),
+             ("csr", graph.csr, w, F, torch.float32, False, N),
+             ("csc", graph.csc, w, F, torch.bfloat16, False, N),
+             ("residual", plan.res, w, F, torch.bfloat16, True, N),
+             ("tres", plan.tres, w, F, torch.bfloat16, True, N),
+             ("res_csc", plan.res_csc, w, F, torch.bfloat16, True, N),
+             ("gather_rows_bwd", ctx.pca_gather, ones, 1024, torch.bfloat16, False,
+              ctx.num_pca_rows),
+             ("src_gather", graph.src_gather, ones, F, torch.bfloat16, False,
+              graph.num_padded_edges),
+             ("dst_gather", graph.dst_gather, ones, F, torch.bfloat16, False,
+              graph.num_padded_edges)]
+    if not pr4:
+        cases += [("edge_id_lookup_bwd", lookup, ones, 128, torch.float32, False, 120_001),
+                  ("stacked_edge_id_lookup_bwd", stacked, ones, 128, torch.float32, False,
+                   5 * 120_001),
+                  ("knn_gather_src_bwd", knn.src_gather, ones, 64, torch.float32, False,
+                   knn.n_edges),
+                  ("knn_gather_dst_bwd", knn.dst_gather, ones, 64, torch.float32, False,
+                   knn.n_edges)]
+    for name, p, wt, Fc, dt, acc, rows in cases:
+        if not pr4:
+            p = replan(p, name.startswith("knn"))
         x = torch.randn(rows, Fc, generator=gen, device="cuda").to(dt)
         base = torch.randn(p.n_rows, Fc, generator=gen, device="cuda")
         out = base.clone()
@@ -222,10 +257,19 @@ def k1_forms(graph, ctx, w, gen, pr4=False):
                     x.data_ptr(), out.data_ptr(), p.n_rows, Fc, int(dt == torch.bfloat16),
                     int(acc), 1, stream]
         else:
+            n_chunks = int(p.chunk_row.shape[0])
+            partial = torch.empty(n_chunks, Fc, device="cuda")
+            # the kernel sets each ticket back to 0, so one buffer serves
+            # the calls of this single stream
+            tickets = torch.zeros(max(1, int(p.split_rows.shape[0])), dtype=torch.int32,
+                                  device="cuda")
             args = [p.rowptr.data_ptr(), p.col.data_ptr(), p.eid.data_ptr(), wt.data_ptr(),
-                    p.items.data_ptr(), p.long_rows.data_ptr(), x.data_ptr(),
-                    out.data_ptr(), n_items, int(p.long_rows.shape[0]), Fc,
-                    int(dt == torch.bfloat16), int(acc), 1, stream]
+                    p.items.data_ptr(), p.long_rows.data_ptr(), p.split_rows.data_ptr(),
+                    p.chunk_ptr.data_ptr(), p.chunk_row.data_ptr(), partial.data_ptr(),
+                    tickets.data_ptr(), x.data_ptr(), out.data_ptr(), n_items,
+                    int(p.long_rows.shape[0]), n_chunks, Fc, int(dt == torch.bfloat16),
+                    int(acc), 1, stream]
+            args.append((partial, tickets))  # kept alive; dropped before the call
         ref = k1.segment_spmm_csr_plain(x, wt, p, base.clone() if acc else None)
         yield f"{name} {str(dt)[6:]}", args, (out, base if acc else None), ref
 
@@ -236,30 +280,43 @@ def main() -> int:
         return 2
     kernel, source = sys.argv[1], Path(sys.argv[2])
     from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup
+    from multilevel_gnn_tpu_torch.nn.conv import dynamic_graph
     from multilevel_gnn_tpu_torch.ops import spmm
+    from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
+    from multilevel_gnn_tpu_torch.ops.knn import knn_graph
 
     _, _, graph, ctx, _ = make_gbm_scale_setup(
         topology="cohort", windowed=True, batch=32, compute_dtype="bfloat16",
         spmm_bf16=True, device="cuda")
     w = spmm.edge_weights(graph, "mean", graph.edge_attr)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    knn = dynamic_graph(*knn_graph(torch.randn(15_405, 64, generator=gen, device="cuda"), 9),
+                        15_405)
+    splits = [int(a) for a in sys.argv[3:]] or [k1.SPLIT_ROW]
     P, I = ctypes.c_void_p, ctypes.c_int
     if kernel == "k1":
-        variants, symbol, argtypes = K1, "segment_spmm_csr", [P] * 8 + [I] * 6 + [P]
-        forms = k1_forms(graph, ctx, w, gen)
+        variants, symbol, argtypes = K1, "segment_spmm_csr", [P] * 13 + [I] * 7 + [P]
+
+        def forms_at(split):
+            k1.SPLIT_ROW = split
+            return k1_forms(graph, ctx, knn, w, gen)
+
+        forms = ((split, f) for split in splits for f in forms_at(split))
     elif kernel == "k1_pr4":
         variants, symbol, argtypes = K1_PR4, "segment_spmm_csr", [P] * 6 + [I] * 5 + [P]
-        forms = k1_forms(graph, ctx, w, gen, pr4=True)
+        forms = ((None, f) for f in k1_forms(graph, ctx, knn, w, gen, pr4=True))
     else:
         new = kernel == "k2"
         variants = K2 if new else K2_PR4
         symbol = "windowed_tile_spmm"
         argtypes = [P] * 12 + [I] * 6 + [P] if new else [P] * 10 + [I] * 5 + [P]
-        forms = k2_forms(graph, w, gen, new)
+        forms = ((None, f) for f in k2_forms(graph, w, gen, new))
     with tempfile.TemporaryDirectory() as tmp:
         fns = build(source.read_text(), variants, symbol, argtypes, Path(tmp))
-        for form, args, out, ref in forms:
+        for split, (form, args, out, ref) in forms:
             out, base = out if isinstance(out, tuple) else (out, None)
+            if isinstance(args[-1], tuple):  # K1's workspace, held for the calls
+                args, _workspace = args[:-1], args[-1]
             for name, fn in fns.items():
                 def launch(fn=fn, name=name):
                     err = fn(*args)
@@ -271,7 +328,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err = float((out - ref).abs().max())
                 print(json.dumps({"kernel": kernel, "variant": name, "form": form,
-                                  "device_ms": device_ms(launch),
+                                  "split_row": split, "device_ms": device_ms(launch),
                                   "max_abs_err_vs_plain": err}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

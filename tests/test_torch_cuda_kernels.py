@@ -24,7 +24,12 @@ a star graph with a 5,000-edge hub (K1's long-row blocks on csr and csc,
 K2's hub rows on both sides), accumulate mode over 3 rows of 10,000 edges
 (the other rows untouched), K2 on a permuted plan at F = 8, 20, 64, 2048,
 2056 on both sides, and a dense sub-block split into blocks at the entry
-cap.  Integrated gradients with K1 / K2 against the same with the plain
+cap.  K1's three row classes: DeeperGCN's edge-id lookup (one row of
+120,001 entries at (E, 128) f32) alone and five stacked (equal to the own
+launches), a plan built on the card with kNN-like hub rows at F 64 (equal
+bit for bit to the host-built plan), and warp, long and split rows at F
+8, 20, 64, 128 and 256 in both modes, each form's two calls equal bit for
+bit.  Integrated gradients with K1 / K2 against the same with the plain
 versions (windowed and composed, bf16 and f32, same tolerances), and a
 checkpoint written on the card loaded on the CPU and on the card.  The
 mgtpu custom ops: torch.library.opcheck on CUDA tensors and each op's CUDA
@@ -358,7 +363,7 @@ def test_star_hub_matches_plain(dev, dtype, F):
     w = torch.rand(len(s), generator=g, device=dev)
     for rows, cols in ((d, s), (s, d)):  # csr, csc
         plan = k1.CSRPlan.build(rows, cols, eid, n)
-        assert plan.long_rows.tolist() == [7]
+        assert plan.split_rows.tolist() == [7] and plan.long_rows.numel() == 0
         plan = plan.to(dev)
         _close(k1.segment_spmm_csr(x, w, plan), k1.segment_spmm_csr_plain(x, w, plan), dtype)
     plan = k2.build_plan(s, d, n, Wb=512, nwin=2).to(dev)
@@ -377,7 +382,7 @@ def test_k1_accumulate_over_few_long_rows(dev, dtype):
     rows = np.repeat([3, 1000, 9999], 10000)
     cols = rng.randint(0, n, len(rows))
     plan = k1.CSRPlan.build(rows, cols, np.arange(len(rows)), n)
-    assert plan.n_busy == 0 and plan.long_rows.tolist() == [3, 1000, 9999]
+    assert plan.n_busy == 0 and plan.split_rows.tolist() == [3, 1000, 9999]
     plan = plan.to(dev)
     g = torch.Generator(device=dev).manual_seed(13)
     x = torch.randn(n, F, generator=g, device=dev).to(dtype)
@@ -388,6 +393,119 @@ def test_k1_accumulate_over_few_long_rows(dev, dtype):
     keep = torch.ones(n, dtype=torch.bool, device=dev)
     keep[[3, 1000, 9999]] = False
     assert torch.equal(out[keep], base[keep])
+
+
+def _twice(fn):
+    """fn() twice, the two results equal bit for bit (K1's order of
+    additions does not depend on which block finishes last)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    return a
+
+
+def _lookup_plan(hub=120_001, n_rows=5_548):
+    """DeeperGCN's edge-id lookup backward: every gene edge into table row 0."""
+    return k1.CSRPlan.gather(np.zeros(hub, np.int64), n_rows)
+
+
+def test_k1_lookup_row(dev):
+    """One row of 120,001 entries at (E, 128) f32, cut into chunks over the
+    card; the other table rows empty and set to zero."""
+    plan = _lookup_plan()
+    assert plan.split_rows.tolist() == [0]
+    assert plan.chunk_row.numel() == -(-120_001 // k1.SPLIT_ROW)
+    plan = plan.to(dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(plan.nnz, 128, generator=g, device=dev)
+    w = torch.ones(plan.nnz, device=dev)
+    out = _twice(lambda: k1.segment_spmm_csr(x, w, plan))
+    _close(out, k1.segment_spmm_csr_plain(x, w, plan), torch.float32)
+    assert float(out[1:].abs().max()) == 0.0
+
+
+def test_k1_stacked_lookup_rows(dev):
+    """Five such rows stacked (CSRPlan.stack): equal bit for bit to the five
+    units' own launches, and within TOL of the plain version."""
+    U, E, V = 5, 120_001, 5_548
+    units = [_lookup_plan(E, V) for _ in range(U)]
+    plan = k1.CSRPlan.stack(units, E, E).to(dev)
+    assert plan.split_rows.tolist() == [u * V for u in range(U)]
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(U * E, 128, generator=g, device=dev)
+    w = torch.ones(U * E, device=dev)
+    out = _twice(lambda: k1.segment_spmm_csr(x, w, plan))
+    own = torch.cat([k1.segment_spmm_csr(x[u * E:(u + 1) * E], w[:E], p.to(dev))
+                     for u, p in enumerate(units)])
+    assert torch.equal(out, own)
+    _close(out, k1.segment_spmm_csr_plain(x, w, plan), torch.float32)
+
+
+def _hub_rows(seed, n=4000, hubs=(3000, 1500, 700, 200, 90), k=9):
+    """Sorted rows like the kNN graph's sender-sorted plan: k entries a row,
+    some empty rows and hub rows of the given lengths."""
+    rng = np.random.RandomState(seed)
+    lens = np.full(n, k)
+    lens[rng.choice(n, 50, replace=False)] = 0
+    lens[rng.choice(n, len(hubs), replace=False)] = hubs
+    return np.repeat(np.arange(n), lens), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_device_hub_plan(dev, dtype):
+    """A plan built on the card (no host sync) at F 64: the same sums, bit
+    for bit, as the host-built plan of the same entries, within TOL of the
+    plain version, in both modes."""
+    rows, n = _hub_rows(23)
+    E = len(rows)
+    cols = np.random.RandomState(24).randint(0, n, E)
+    r, c = torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dplan = k1.CSRPlan.on_device(r, c, torch.arange(E, device=dev), n, n - 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    hplan = k1.CSRPlan.build(rows, cols, np.arange(E), n).to(dev)
+    assert int((dplan.split_rows >= 0).sum()) == hplan.split_rows.numel() == 3
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = torch.randn(n, 64, generator=g, device=dev).to(dtype)
+    w = torch.rand(E, generator=g, device=dev)
+    out = _twice(lambda: k1.segment_spmm_csr(x, w, dplan))
+    assert torch.equal(out, k1.segment_spmm_csr(x, w, hplan))
+    _close(out, k1.segment_spmm_csr_plain(x, w, dplan), dtype)
+    base = torch.randn(n, 64, generator=g, device=dev)
+    acc = _twice(lambda: k1.segment_spmm_csr(x, w, dplan, out=base.clone()))
+    _close(acc, k1.segment_spmm_csr_plain(x, w, dplan, out=base.clone()), dtype)
+    empty = dplan.rowptr[1:] == dplan.rowptr[:-1]
+    assert torch.equal(acc[empty], base[empty]) and float(out[empty].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 20, 64, 128, 256])
+def test_k1_narrow_and_split_rows(dev, dtype, F):
+    """Warp rows, long rows and split rows (of 513 .. 5,000 entries) at
+    narrow widths (lane groups under 512 bytes a row) and the widths of
+    one and two vectors a lane: overwrite mode (empty rows zero) and
+    accumulate mode (rows without entries left equal to the base), each
+    within TOL of the plain version and equal bit for bit over two calls."""
+    n = 3000
+    rng = np.random.RandomState(F)
+    rows = np.concatenate([rng.randint(0, n - 100, 20_000),
+                           np.repeat([5, 17, 29, 41, 53], [5000, 1300, 513, 300, 65])])
+    plan = k1.CSRPlan.build(rows, rng.randint(0, n, len(rows)), np.arange(len(rows)), n)
+    assert plan.split_rows.tolist() == [5, 17, 29] and plan.long_rows.numel() >= 2
+    plan = plan.to(dev)
+    g = torch.Generator(device=dev).manual_seed(F)
+    x = torch.randn(n, F, generator=g, device=dev).to(dtype)
+    w = torch.randn(len(rows), generator=g, device=dev)
+    out = _twice(lambda: k1.segment_spmm_csr(x, w, plan))
+    _close(out, k1.segment_spmm_csr_plain(x, w, plan), dtype)
+    assert float(out[-100:].abs().max()) == 0.0
+    base = torch.randn(n, F, generator=g, device=dev)
+    acc = _twice(lambda: k1.segment_spmm_csr(x, w, plan, out=base.clone()))
+    _close(acc, k1.segment_spmm_csr_plain(x, w, plan, out=base.clone()), dtype)
+    assert torch.equal(acc[-100:], base[-100:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

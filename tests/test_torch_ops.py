@@ -20,8 +20,10 @@ from torch_threads import few_threads  # noqa: F401  (autouse)
 def _graph(seed=0, n=300, e=2500):
     rng = np.random.RandomState(seed)
     src = rng.randint(0, n, e)
-    # a hub row, so the plan has long rows (more than LONG_ROW entries)
-    dst = np.where(rng.rand(e) < 0.1, 7, rng.randint(0, n, e))
+    # hub rows, so the plan has a long row (more than LONG_ROW entries) and
+    # a split row (more than SPLIT_ROW)
+    u = rng.rand(e)
+    dst = np.where(u < 0.1, 7, np.where(u < 0.35, 11, rng.randint(0, n, e)))
     return rng, src, dst, n
 
 
@@ -30,12 +32,12 @@ def op_cases():
     rng, src, dst, n = _graph()
     E = len(src)
     plan = k1.CSRPlan.build(dst, src, np.arange(E), n)
-    assert plan.long_rows.numel() > 0
+    assert plan.long_rows.numel() > 0 and plan.split_rows.numel() > 0
     w = torch.as_tensor(rng.rand(E).astype(np.float32))
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.as_tensor(rng.randn(n, 24).astype(np.float32)).to(dtype)
-        args = (plan.rowptr, plan.col, plan.eid, plan.row, plan.items, plan.long_rows)
+        args = plan.op_args
         cases.append((f"k1_{dtype}", k1.segment_spmm_csr_op, (x, w) + args,
                       k1.segment_spmm_csr_plain(x, w, plan)))
         base = torch.as_tensor(rng.randn(n, 24).astype(np.float32))

@@ -146,27 +146,255 @@ def test_csr_plan_and_plain_accumulate():
     np.testing.assert_allclose(acc.numpy(), ref + base.numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _check_classes(plan, accumulate=False):
+    """The plan's three row classes cover each row once: items (rows with
+    1..LONG_ROW entries first, n_busy of them, then the empty rows),
+    long_rows (LONG_ROW + 1 .. SPLIT_ROW entries) and split_rows (more),
+    each split row's chunks listed in chunk_row at chunk_ptr[s] ..
+    chunk_ptr[s + 1], ceil(len / SPLIT_ROW) of them, each of at most
+    SPLIT_ROW consecutive entries; -1 entries (a device-built plan's
+    padding, which no chunk names) skipped.  Returns the entry ranges visited, in launch order."""
+    lens = np.diff(plan.rowptr.numpy())
+    rp = plan.rowptr.numpy()
+    items = plan.items.numpy()
+    busy, empty = items[: plan.n_busy], items[plan.n_busy:]
+    busy, empty = busy[busy >= 0], empty[empty >= 0]
+    longs = plan.long_rows.numpy()
+    longs = longs[longs >= 0]
+    split = plan.split_rows.numpy()
+    cp, cr = plan.chunk_ptr.numpy(), plan.chunk_row.numpy()
+    assert len(cp) == len(split) + 1 and cp[0] == 0 and np.all(np.diff(cp) >= 0)
+    assert np.all((lens[busy] <= k1.LONG_ROW) | (lens[busy] == 0))
+    assert np.all(lens[empty] == 0)
+    assert np.all((lens[longs] > k1.LONG_ROW) & (lens[longs] <= k1.SPLIT_ROW))
+    ranges = []
+    for s, r in enumerate(split):
+        n = cp[s + 1] - cp[s]
+        if r < 0:  # padding: no chunk names it
+            assert not np.any(cr == s)
+            continue
+        L = lens[r]
+        assert L > k1.SPLIT_ROW and n == -(-L // k1.SPLIT_ROW)
+        np.testing.assert_array_equal(cr[cp[s]:cp[s + 1]], s)
+        bounds = rp[r] + L * np.arange(n + 1) // n
+        assert np.all(np.diff(bounds) <= k1.SPLIT_ROW) and bounds[-1] == rp[r + 1]
+        ranges += list(zip(bounds[:-1], bounds[1:]))
+    assert (cr >= 0).sum() == len(ranges)
+    rows = np.concatenate([busy, empty, longs, split[split >= 0]])
+    np.testing.assert_array_equal(np.sort(rows), np.arange(plan.n_rows))
+    ranges += [(rp[r], rp[r + 1]) for r in np.concatenate([busy, longs])]
+    # every entry once, each range in CSR order within its row
+    covered = np.zeros(plan.nnz, int)
+    for b, e in ranges:
+        covered[b:e] += 1
+    assert np.all(covered == 1)
+    return busy, longs, split[split >= 0]
+
+
 @pytest.mark.parametrize("long_rows", [0, 3])
 def test_csr_row_lists_cover_rows(long_rows):
     """items lists the rows with 1..LONG_ROW entries first (n_busy of them),
-    then the empty rows; long_rows the longer ones; each row once."""
+    then the empty rows; long_rows the longer ones up to SPLIT_ROW,
+    split_rows (cut into chunks) the rest; each row once, each entry in
+    one warp item, block or chunk."""
     rng = np.random.RandomState(4 + long_rows)
     n_rows = 200
     rows = rng.randint(0, n_rows - 30, 900)  # the last 30 rows stay empty
     hubs = np.repeat(rng.choice(n_rows - 30, long_rows, replace=False),
                      k1.LONG_ROW + 1 + rng.randint(0, 500, long_rows))
-    rows = np.concatenate([rows, hubs])
+    splits = np.repeat(rng.choice(n_rows - 30, long_rows, replace=False),
+                       k1.SPLIT_ROW + 1 + rng.randint(0, 2000, long_rows))
+    rows = np.concatenate([rows, hubs, splits])
     plan = CSRPlan.build(rows, rng.randint(0, 50, len(rows)), np.arange(len(rows)), n_rows)
     lens = np.diff(plan.rowptr.numpy())
-    items, longs = plan.items.numpy(), plan.long_rows.numpy()
-    busy = items[: plan.n_busy]
-    np.testing.assert_array_equal(np.sort(np.concatenate([items, longs])), np.arange(n_rows))
-    assert np.all((lens[busy] > 0) & (lens[busy] <= k1.LONG_ROW))
-    assert np.all(lens[items[plan.n_busy:]] == 0) and np.all(lens[longs] > k1.LONG_ROW)
-    assert len(longs) == long_rows
+    busy, longs, split = _check_classes(plan)
+    assert len(busy) == plan.n_busy
+    assert len(longs) + len(split) == len(np.unique(np.concatenate([hubs, splits])))
+    assert np.all(lens[split] > k1.SPLIT_ROW) and len(split) >= min(long_rows, 1)
     # the non-empty rows (what accumulate mode visits) hold every edge once
-    visited = np.concatenate([busy, longs])
+    visited = np.concatenate([busy, longs, split])
     assert lens[visited].sum() == plan.nnz and len(np.unique(visited)) == len(visited)
+
+
+def _hub_entries(seed, n_rows=400, hubs=(700, 1500, 90, 300), k=9):
+    """Sorted rows like the kNN graph's sender-sorted gather plan: k entries
+    for most rows, a few empty rows, and hub rows of the given lengths."""
+    rng = np.random.RandomState(seed)
+    lens = np.full(n_rows, k)
+    lens[rng.choice(n_rows, 20, replace=False)] = 0
+    lens[rng.choice(n_rows, 40, replace=False)] = rng.randint(1, 60, 40)
+    lens[rng.choice(n_rows, len(hubs), replace=False)] = hubs
+    return np.repeat(np.arange(n_rows), lens), n_rows
+
+
+def _lookup_entries(seed, n_rows=60, hub=4700):
+    """Sorted rows like DeeperGCN's edge-id lookup: one row of ``hub``
+    entries, the rest short or empty."""
+    rng = np.random.RandomState(seed)
+    ids = np.concatenate([np.zeros(hub, np.int64), rng.randint(1, n_rows - 10, 300)])
+    return np.sort(ids), n_rows
+
+
+@pytest.mark.parametrize("entries", [_hub_entries, _lookup_entries], ids=["hubs", "lookup"])
+def test_on_device_plan_lists_match_build(entries):
+    """CSRPlan.on_device on CPU tensors lists the classes and chunks of
+    CSRPlan.build over the same sorted entries, padded with -1 (its items
+    in row order, build's the busy rows first)."""
+    rows, n_rows = entries(3)
+    E = len(rows)
+    cols = np.random.RandomState(4).randint(0, 80, E)
+    host = CSRPlan.build(rows, cols, np.arange(E), n_rows)
+    dev = CSRPlan.on_device(torch.from_numpy(rows), torch.from_numpy(cols),
+                            torch.arange(E), n_rows, 79)
+    assert len(host.split_rows) > 0
+    for attr in ("rowptr", "col", "eid", "row"):
+        assert torch.equal(getattr(dev, attr), getattr(host, attr)), attr
+    items = dev.items[dev.items >= 0]
+    assert torch.equal(items, torch.sort(host.items).values)
+    for attr in ("long_rows", "split_rows", "chunk_row"):
+        got = getattr(dev, attr)
+        assert torch.equal(got[got >= 0], getattr(host, attr)), attr
+        assert torch.all(got[(got >= 0).sum():] == -1), attr
+    S = len(host.split_rows)
+    assert torch.equal(dev.chunk_ptr[:S + 1], host.chunk_ptr)
+    assert torch.all(dev.chunk_ptr[S:] == host.chunk_ptr[-1])
+    assert dev.split_rows[-1] == -1  # the last split slot is always padding
+    _check_classes(dev)
+    _check_classes(host)
+
+
+# ---- K1's summation order on the card, emulated on the host
+
+def _lanes(F, dtype):
+    """Lanes of a warp that read one entry (segment_spmm_csr.cu's launch):
+    a row of the vector path under 512 bytes takes the power of two at or
+    above its 16-byte vectors, any other row the whole warp."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    if F % 8 or F * size >= 512:
+        return 32
+    G = 1
+    while G * 16 < F * size:
+        G *= 2
+    return G
+
+
+def _seq(vals, F):
+    """f32 sum of vals in their order, from 0."""
+    t = np.zeros(F, np.float32)
+    for v in vals:
+        t = t + v
+    return t
+
+
+def _warp_sum(p, groups):
+    """One warp over the products p (CSR order): group g sums the entries
+    g, g + groups, ... in order, then a butterfly adds the groups."""
+    sums = [_seq(p[g::groups], p.shape[1]) for g in range(groups)]
+    while len(sums) > 1:
+        sums = [sums[i] + sums[i + 1] for i in range(0, len(sums), 2)]
+    return sums[0]
+
+
+def _block_sum(p, groups):
+    """A block over p: warp w sums entries len * w // 8 .. len * (w + 1) //
+    8, then the eight sums in warp order."""
+    n = len(p)
+    return _seq([_warp_sum(p[n * w // 8:n * (w + 1) // 8], groups) for w in range(8)],
+                p.shape[1])
+
+
+def _kernel_order(x, w, plan, out=None):
+    """segment_spmm_csr with K1's order of additions on the card, in f32 on
+    the host (each product rounded before its addition, where the card
+    fuses it): warp items, long-row blocks, and each split row's chunks
+    summed as blocks, then their partial rows added by eight runs of
+    chunks in chunk order and the runs in order."""
+    F = x.shape[1]
+    xf = x.float().numpy()
+    we = w.index_select(0, plan.eid.long())
+    if x.dtype == torch.bfloat16:
+        we = we.to(torch.bfloat16)
+    we = we.float().numpy()
+    col, rp = plan.col.numpy(), plan.rowptr.numpy()
+    groups = 32 // _lanes(F, x.dtype)
+
+    def prod(b, e):
+        return xf[col[b:e]] * we[b:e, None]
+
+    res = np.zeros((plan.n_rows, F), np.float32)
+    items = plan.items.numpy()[: plan.n_busy] if out is not None else plan.items.numpy()
+    for r in items[items >= 0]:
+        res[r] = _warp_sum(prod(rp[r], rp[r + 1]), groups)
+    for r in plan.long_rows.numpy():
+        if r >= 0:
+            res[r] = _block_sum(prod(rp[r], rp[r + 1]), groups)
+    cp = plan.chunk_ptr.numpy()
+    for s, r in enumerate(plan.split_rows.numpy()):
+        if r < 0:
+            continue
+        n, L = cp[s + 1] - cp[s], rp[r + 1] - rp[r]
+        parts = [_block_sum(prod(rp[r] + L * k // n, rp[r] + L * (k + 1) // n), groups)
+                 for k in range(n)]
+        res[r] = _seq([_seq(parts[n * w // 8:n * (w + 1) // 8], F) for w in range(8)], F)
+    return torch.from_numpy(res) if out is None else out + torch.from_numpy(res)
+
+
+def _jax_flat(x, w, plan):
+    """JAX's flat_segment_sum (interpret mode) over the plan's entries: the
+    gathered rows, weighted in the kernel (bf16) or before it (f32)."""
+    from multilevel_gnn_tpu.ops.pallas.segment_sum import (
+        SortedSegments, flat_segment_sum, flatten_rows)
+
+    rows = plan.row.numpy()
+    seg = SortedSegments.build(rows, plan.n_rows, te=256)
+    msg = jnp.asarray(x.float().numpy()[plan.col.numpy()]).astype(
+        jnp.bfloat16 if x.dtype == torch.bfloat16 else jnp.float32)
+    we = w.index_select(0, plan.eid.long()).numpy()
+    wf = jnp.take(jnp.concatenate([jnp.asarray(we), jnp.zeros(1)]), seg.perm_pad)
+    return np.asarray(flat_segment_sum(flatten_rows(msg, seg), seg, interpret=True, w=wf))
+
+
+def _order_case(entries, seed, F, dtype):
+    rows, n_rows = entries(seed)
+    E = len(rows)
+    rng = np.random.RandomState(seed + 1)
+    cols = rng.randint(0, 90, E)
+    plan = CSRPlan.on_device(torch.from_numpy(rows), torch.from_numpy(cols),
+                             torch.arange(E), n_rows, 89)
+    x = torch.from_numpy(rng.randn(90, F).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.rand(E) + 0.5).astype(np.float32))
+    return plan, x, w
+
+
+def _rel_close(out, ref, tol):
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    assert np.abs(out - ref).max() <= tol * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("F", [64, 128, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("entries", [_hub_entries, _lookup_entries], ids=["hubs", "lookup"])
+def test_k1_kernel_order_matches_plain(entries, dtype, F):
+    """The card's order of additions (chunks, blocks, lane groups) gives the
+    plain version's sums within 1e-5 relative, on a plan with one row of
+    more than SPLIT_ROW entries and one with hub rows like the kNN plan's,
+    built on the device; overwrite and accumulate mode."""
+    plan, x, w = _order_case(entries, 5, F, dtype)
+    assert plan.split_rows[0] >= 0
+    _rel_close(_kernel_order(x, w, plan), segment_spmm_csr_plain(x, w, plan), 1e-5)
+    base = torch.from_numpy(np.random.RandomState(6).randn(plan.n_rows, F).astype(np.float32))
+    _rel_close(_kernel_order(x, w, plan, base.clone()),
+               segment_spmm_csr_plain(x, w, plan, base.clone()), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("entries", [_hub_entries, _lookup_entries], ids=["hubs", "lookup"])
+def test_k1_kernel_order_matches_jax_flat(entries, dtype):
+    """The same emulated order against JAX's flat_segment_sum in interpret
+    mode (bf16: both round each weight to bf16 and sum exact products), at
+    F 64, the kNN plan's width."""
+    plan, x, w = _order_case(entries, 7, 64, dtype)
+    _rel_close(_kernel_order(x, w, plan), _jax_flat(x, w, plan), 1e-5)
 
 
 def test_k1_plain_rounds_bf16_weights():

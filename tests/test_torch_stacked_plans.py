@@ -112,6 +112,46 @@ def test_stacked_k2_plain_equals_per_unit(dtype, transpose):
         assert torch.equal(fn(x, w, plan, transpose), want), fn.__name__
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stack_shifts_chunk_lists(dtype):
+    """CSRPlan.stack shifts split_rows by the unit's rows, chunk_row by the
+    earlier units' split slots and chunk_ptr by their chunk slots, as it
+    shifts long_rows, over host-built plans and a device-built one (padded
+    with -1); the card's order of additions over the stacked plan equals
+    each unit's own, bit for bit."""
+    from test_torch_segment_sum import _check_classes, _hub_entries, _kernel_order
+
+    plans = []
+    for u in range(U):
+        rows, n = _hub_entries(60 + u, n_rows=N, hubs=(700 + 300 * u, 90, 600))
+        E = len(rows)
+        cols = np.random.RandomState(u).randint(0, N, E)
+        build = CSRPlan.on_device if u == 1 else (
+            lambda r, c, e, n_rows, _: CSRPlan.build(r.numpy(), c.numpy(), e.numpy(), n_rows))
+        plans.append(build(torch.from_numpy(rows), torch.from_numpy(cols), torch.arange(E),
+                           N, N - 1))
+    Emax = max(p.nnz for p in plans)
+    sp = CSRPlan.stack(plans, N, Emax)
+    _check_classes(sp)
+    for attr, stride in (("long_rows", N), ("split_rows", N)):
+        want = torch.cat([torch.where(getattr(p, attr) >= 0, getattr(p, attr) + u * stride, -1)
+                          for u, p in enumerate(plans)]).int()
+        assert torch.equal(getattr(sp, attr), want), attr
+    c_off = np.cumsum([0] + [p.chunk_row.shape[0] for p in plans])
+    s_off = np.cumsum([0] + [p.split_rows.shape[0] for p in plans])
+    for u, p in enumerate(plans):
+        S = p.split_rows.shape[0]
+        assert torch.equal(sp.chunk_ptr[s_off[u]:s_off[u] + S], p.chunk_ptr[:-1] + int(c_off[u]))
+        cr = sp.chunk_row[c_off[u]:c_off[u + 1]]
+        assert torch.equal(cr, torch.where(p.chunk_row >= 0, p.chunk_row + int(s_off[u]), -1))
+    assert sp.chunk_ptr[-1] == plans[-1].chunk_ptr[-1] + int(c_off[-2])
+    x = _rows(U * N, 8, dtype)
+    w = torch.from_numpy(np.random.RandomState(9).rand(U * Emax).astype(np.float32))
+    want = torch.cat([_kernel_order(x[u * N:(u + 1) * N], w[u * Emax:(u + 1) * Emax], p)
+                      for u, p in enumerate(plans)])
+    assert torch.equal(_kernel_order(x, w, sp), want)
+
+
 def test_stack_graphs_refuses_mixed_paths():
     graphs = _units(False)
     graphs[2] = _graph(12, 1200, True)
