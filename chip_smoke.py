@@ -74,7 +74,7 @@ a step):
            f32 trunks; probabilities and the pathway image)
   train_grad_<conv>  one train step's gradients, kernels against plain
            versions, per parameter max|diff| / max|grad|
-  train_<conv>  run_fold for 2 epochs (gbm.yaml's optimizer and dropouts),
+  train_<conv>  run_fold for 1 epoch (gbm.yaml's optimizer and dropouts),
            launches counted over it; ms per step
   profile_train_<conv>  as profile_train, on one batch: launches per step
            from the counters
@@ -109,12 +109,49 @@ Then the sorted segment-sum and the protocol from files:
            fold 0 derived; seconds by stage, the MI estimator's seconds at
            k = 7 and 15, node slots, edges, mask share, whether the
            windowed plan engaged
-  experiment  the train CLI's main on those files, 1 run x 5 folds x 2
-           epochs at gbm.yaml's widths, bf16, launch counts zeroed just
+  experiment  the train CLI's main on those files, 1 run x 5 folds x 1
+           epoch at gbm.yaml's widths, bf16, launch counts zeroed just
            before and read just after (K1 > 0; K2 as the folds' plans say);
            per-fold derivation s, ms per step, host s per epoch, pooled AUC
            and ACC; then a small protocol (f32, dropout off, 2 epochs) on
            the card and on the CPU, fold test scores within 1e-4
+
+Between k4 and cohort, on the same fold, the shipped configs of the other
+two cohorts, kirc.yaml and lgg.yaml (B = 64, pca_dim 3, head_dim 512, the
+pathway reorder; kirc pools 1 x 1 without age, lgg pools 4 x 2 with it; the
+first SAGE layer's SpMMs at F = B*32 = 2,048, the second's at B*64 = 4,096),
+each config's model built by Config.from_yaml with only node_num and
+pathway_num set to the fold's, bf16 trunk with spmm_bf16, a seeded
+non-identity reorder of the 146 pathways in the fold's context:
+
+  shipped_k2 / shipped_k1  K2 forward and transpose, K1 over the residual,
+           tres and res_csc (accumulating) and over csr and csc at F =
+           4,096, and K1 as the gather_rows backward at F = 2,048, bf16 and
+           f32, against their plain versions and equal over two calls bit
+           for bit, with ms, bound, plain and library ms
+  serve_<name>  predict_patients over the 123 patients (two batches of
+           64), counted: K1 2 / K2 2 a batch
+  slice_<name> / per_call_eval_<name>  the forward with kernels against
+           plain versions (bf16 and f32 trunks), and every K1 / K2 call of
+           the bf16 forward against its plain version on its own inputs
+  profile_<name>  device ms by kernel of one full eval batch, gap share
+  train_grad_<name> / per_call_step_<name> / train_grad_repeat_<name>  one
+           step's gradients, kernels against plain versions (TOL_GRAD), the
+           same parameters without a gradient on both sides; every kernel
+           call of the step against its plain version; three calls'
+           gradients equal bit for bit
+  profile_train_<name>  launches per step from the counters (K1 7 / K2 4),
+           kernel ms, gap share, peak memory
+
+and after experiment, on the same files (root/<name> linked to root/gbm):
+
+  experiment_<name>  the train CLI under configs/<name>.yaml, 1 run x 5
+           folds x 1 epoch, counted as experiment is; each fold's pathway
+           reorder traced (kirc: derived in each fold under
+           selected_similarity; lgg: the cohort's initial one)
+  experiment_<name>_small_vs_cpu  the small protocol under that config
+           (f32, dropout off, 2 epochs) on the card and on the CPU, fold
+           test scores within 1e-4
 
 After the sage training phases, on the same fold:
 
@@ -160,7 +197,7 @@ seeds 0-4, windowed, bf16, B = 32) and the same files:
            units' own eval_steps within TOL_FP_PROB (bf16 and f32 trunks),
            K1 2 / K2 2, ms, gap and peak memory against five eval_steps
   fold_parallel_protocol  the train CLI with --fold-parallel on the files
-           (1 run x 5 folds x 2 epochs, counted), then the sequential CLI:
+           (1 run x 5 folds x 1 epoch, counted), then the sequential CLI:
            wall s, derivation and stacking s, host s per epoch, the stacked
            step's ms; fold_parallel_protocol_small: a small protocol (f32,
            dropout off, 2 epochs) fold-parallel on the card and on the CPU
@@ -427,7 +464,7 @@ TOL_GRAD_MAX = {"bf16": 1.4e-2, "f32": 4e-6}
 # version adds with index_add_'s atomics, in a varying order); limits
 # about twice the largest
 TOL_GRAD_ZOO = {"bf16": 7e-2, "f32": 2e-3}
-CONV_EPOCHS = 2
+CONV_EPOCHS = 1
 GBM_FINAL_HEAD = 4  # gbm.yaml's final_head: GAT's last layer's heads
 
 
@@ -651,8 +688,11 @@ def time_k2(name, plan, x, w, transpose):
     def plain():
         return k2.windowed_tile_spmm_plain(x, w, plan, transpose)
 
-    out, ref = kern(), plain()
+    out, again, ref = kern(), kern(), plain()
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"k2 {name} {dt}: two calls differ by "
+                             f"{float((out - again).abs().max())}")
     e, m = err_of(out, ref)
     tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
     limit = check(f"k2 {name} {dt}", e, m, tol)
@@ -666,9 +706,12 @@ def time_k2(name, plan, x, w, transpose):
     lib = library_spmm(side.ent_dst_orig.long(), side.ent_src_orig.long(),
                        vals, plan.num_nodes, plan.num_nodes, x)
     ms, src = kernel_ms(kern, bms)
+    slices, vector = k2.launch_shape(x, out)
     return dict(
         case=name, dtype=str(dt).split(".")[-1], F=x.shape[1],
-        blocks=side.n_blocks, entries=side.n_entries, max_abs_err=e,
+        blocks=side.n_blocks, entries=side.n_entries,
+        feature_slices=slices, vector=vector,
+        bitwise_repeat=True, max_abs_err=e,
         ref_max=m, limit=limit, ms=ms, ms_source=src, event_ms=cuda_ms(kern),
         plain_ms=device_ms(plain), library_ms=device_ms(lib) if lib is not None else None,
         bound_ms=bms, bound_by=by, bytes=b, flops=fl,
@@ -1138,11 +1181,13 @@ def profile_train(model, ctx, batch, cw, want_per_step, n_timed=10, n_prof=3,
     def step():
         train_step(model, opt, batch, ctx, cw, gen)
 
+    torch.cuda.reset_peak_memory_stats()
     ms, per_step = timed_steps(step, n_timed)
+    peak = torch.cuda.max_memory_allocated()
     busy, n_kernels, rows = profiled(step, n_prof)
     step_ms = float(np.median(ms))
     ok = per_step == want_per_step
-    emit({"phase": phase, "kernel_ms_per_step": busy,
+    emit({"phase": phase, "kernel_ms_per_step": busy, "peak_gb": peak / 1e9,
           "kernels_per_step": n_kernels,
           "step_ms": ms, "step_ms_median": step_ms,
           "gap_share": 1 - busy / step_ms,
@@ -1625,22 +1670,20 @@ def _spy_folds():
     return out, lambda: setattr(driver, "run_fold", real)
 
 
-EXPERIMENT_EPOCHS = 2  # the experiment phase's epochs on the files
+EXPERIMENT_EPOCHS = 1  # the experiment phase's epochs on the files
 
 
-def experiment_phase(root, device="cuda"):
+def experiment_phase(root, device="cuda", yaml=GBM_YAML, phase="experiment", extra=None):
     """The train CLI's main on the reference-scale directory: 1 run x 5
-    folds x EXPERIMENT_EPOCHS epochs at gbm.yaml's widths, bf16 trunk, on the card, counted;
-    then a small protocol (f32, dropout off, 2 epochs) on the card and on the
-    CPU, fold test scores compared."""
-    from multilevel_gnn_tpu_torch.core.config import Config
-    from multilevel_gnn_tpu_torch.data.synthetic import make_synthetic_cohort
-    from multilevel_gnn_tpu_torch.train import cli, driver
+    folds x EXPERIMENT_EPOCHS epochs under the config at yaml (its widths,
+    bf16 trunk) on the card, counted.  extra: a callable returning (more of the
+    phase's line, ok), read after the run."""
+    from multilevel_gnn_tpu_torch.train import cli
 
     sync(device)
     zero_launches()
     t0 = time.perf_counter()
-    res = cli.main(["--config", GBM_YAML, "--data-dir", root, "--device", device,
+    res = cli.main(["--config", yaml, "--data-dir", root, "--device", device,
                     "--set", "num_run=1", f"epochs={EXPERIMENT_EPOCHS}"])
     sync(device)
     wall = time.perf_counter() - t0
@@ -1649,22 +1692,34 @@ def experiment_phase(root, device="cuda"):
     want_k2 = any(f["windowed"] for f in folds)
     e = res["check_epochs"][-1]
     auc, acc = res["auc"][e], res["acc"][e]
+    more, more_ok = extra() if extra is not None else ({}, True)
     ok = bool(len(folds) == 5 and launches[k1.KERNEL.name] > 0
           and (launches[k2.KERNEL.name] > 0) == want_k2
           and launches[k3.KERNEL.name] == 0 and launches[k4.name] == 0
-          and 0.0 <= auc <= 1.0 and 0.0 <= acc <= 1.0)
-    emit({"phase": "experiment", "wall_s": wall, "cli_wall_time_s": res["wall_time_s"],
+          and 0.0 <= auc <= 1.0 and 0.0 <= acc <= 1.0 and more_ok)
+    emit({"phase": phase, "config": Path(yaml).name, "wall_s": wall,
+          "cli_wall_time_s": res["wall_time_s"],
           "fold_setup_s": [f["setup_s"] for f in folds],
           "fold_stage_s": [f["setup_stage_s"] for f in folds],
           "edges": [f["edges"] for f in folds], "windowed": [f["windowed"] for f in folds],
           "ms_per_step_median": [f["step_ms_median"] for f in folds],
           "host_s_per_epoch": [f["epoch_s"] for f in folds],
           "launches": launches, "epochs": e, "pooled_auc": auc, "pooled_acc": acc,
-          "ok": ok})
+          **more, "ok": ok})
     if not ok:
-        raise AssertionError("experiment phase failed")
+        raise AssertionError(f"{phase} phase failed")
+    return launches
 
-    cfg = Config.from_yaml(GBM_YAML).replace(
+
+def small_protocol_vs_cpu(yaml, phase, device="cuda"):
+    """A small protocol (SMALL_COHORT, the config at yaml in f32 with
+    dropout off, 2 epochs) on the card and on the CPU: every fold's test
+    scores within TOL_PROTOCOL.  Returns {device: (fold results, result)}."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multilevel_gnn_tpu_torch.train import driver
+
+    cfg = Config.from_yaml(yaml).replace(
         num_run=1, epochs=2, compute_dtype=None, spmm_bf16=False, feature_drop=False,
         head_drop_rate=0.0, gnn_dropout=0.0)
     scores = {}
@@ -1680,13 +1735,12 @@ def experiment_phase(root, device="cuda"):
                 float(np.abs(a.epoch_pred_by_epoch[2] - b.epoch_pred_by_epoch[2]).max()))
             for a, b in zip(scores[device][0], scores["cpu"][0])]
     ok = len(errs) == 5 and max(errs) <= TOL_PROTOCOL
-    SMALL_SCORES.update(scores)  # mesh_protocol's single-device references
-    emit({"phase": "experiment_small_vs_cpu", "fold_max_abs_err": errs, "tol": TOL_PROTOCOL,
-          "pooled_auc_cuda": scores[device][1]["auc"][2],
+    emit({"phase": phase, "config": Path(yaml).name, "fold_max_abs_err": errs,
+          "tol": TOL_PROTOCOL, "pooled_auc_cuda": scores[device][1]["auc"][2],
           "pooled_auc_cpu": scores["cpu"][1]["auc"][2], "ok": ok})
     if not ok:
-        raise AssertionError("small protocol: card vs CPU mismatch")
-    return launches
+        raise AssertionError(f"{phase}: card vs CPU mismatch")
+    return scores
 
 
 # ---- the bf16 repairs, checkpoints, predict, explain, optimizers
@@ -1979,9 +2033,6 @@ t0 = time.perf_counter()
 import numpy as np, torch
 torch.cuda.init()
 import_s = time.perf_counter() - t0
-# the precision flags main() sets for the live call
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from multilevel_gnn_tpu_torch.artifact import load_exported
@@ -2582,34 +2633,44 @@ TOL_CARD_CPU = 1e-4  # times max(1, max|ref|): dense f32 products, card against 
 
 
 class PerCall:
-    """Inside this block every K1 and K3 call that ops.spmm makes with its
-    kernel is held against the plain version on the same inputs: K3 equal,
-    K1 within TOL_F32 (TOL_BF16 for bf16 rows) times max(1, max|ref|).
+    """Inside this block every K1, K2 and K3 call that ops.spmm makes with
+    its kernel is held against the plain version on the same inputs: K3
+    equal, K1 and K2 within TOL_F32 (TOL_BF16 for bf16 rows) times max(1,
+    max|ref|).  A windowed SpMM's K2 call and each of its residual K1
+    calls are held on their own: the kernel entry points that
+    windowed_spmm calls are wrapped, so its own composition runs.
     ``worst`` is the largest reading of each, ``tiny`` the K1 output
     entries above 0 and below 1e-30 (sums of exp at the edge of
     underflow)."""
 
     def __enter__(self):
-        self.real = (spmm._k1, spmm._k3)
-        self.worst = {k1.KERNEL.name: 0.0, k3.KERNEL.name: 0.0}
+        self.real = (spmm._k1, spmm._k2, spmm._k3)
+        self.real_windowed = (k2.windowed_tile_spmm, k2.segment_spmm_csr)
+        self.worst = {k1.KERNEL.name: 0.0, k2.KERNEL.name: 0.0, k3.KERNEL.name: 0.0}
         self.calls = Counter()
         self.tiny = 0
-        real_k1, real_k3 = self.real
+        real_k1, _, real_k3 = self.real
+
+        def k1_call(x, w, plan, out=None):
+            base = out.clone() if out is not None else None
+            got = k1.segment_spmm_csr(x, w, plan, out)
+            ref = k1.segment_spmm_csr_plain(x, w, plan, base)
+            tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
+            self._record(k1.KERNEL.name, got, ref, tol)
+            self.tiny += int(((ref.abs() > 0) & (ref.abs() < 1e-30)).sum())
+            return got
 
         def k1_both(plain):
-            fn = real_k1(plain)
-            if plain:
-                return fn
+            return real_k1(plain) if plain else k1_call
 
-            def both(x, w, plan, out=None):
-                base = out.clone() if out is not None else None
-                got = fn(x, w, plan, out)
-                ref = k1.segment_spmm_csr_plain(x, w, plan, base)
-                tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
-                self._record(k1.KERNEL.name, got, ref, tol)
-                self.tiny += int(((ref.abs() > 0) & (ref.abs() < 1e-30)).sum())
-                return got
-            return both
+        real_tile, _ = self.real_windowed
+
+        def k2_call(x, w, plan, transpose=False):
+            got = real_tile(x, w, plan, transpose)
+            ref = k2.windowed_tile_spmm_plain(x, w, plan, transpose)
+            tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
+            self._record(k2.KERNEL.name, got, ref, tol)
+            return got
 
         def k3_both(plain):
             fn = real_k3(plain)
@@ -2623,6 +2684,7 @@ class PerCall:
             return both
 
         spmm._k1, spmm._k3 = k1_both, k3_both
+        k2.windowed_tile_spmm, k2.segment_spmm_csr = k2_call, k1_call
         return self
 
     def _record(self, name, got, ref, tol):
@@ -2634,7 +2696,8 @@ class PerCall:
             raise AssertionError(f"{name} call {self.calls[name]}: {rel} against plain > {tol}")
 
     def __exit__(self, *exc):
-        spmm._k1, spmm._k3 = self.real
+        spmm._k1, spmm._k2, spmm._k3 = self.real
+        k2.windowed_tile_spmm, k2.segment_spmm_csr = self.real_windowed
         return False
 
     def summary(self):
@@ -3441,7 +3504,7 @@ def slice10_phases(cfg, ctx, batch):
 # stacked step, K1 / K2 / K3 launched once per SpMM or segment op for all of
 # them over block-diagonal plans (core/graph.py:stack_graphs)
 FP_UNITS = 5
-FP_PROTOCOL_EPOCHS = 2  # fold_parallel_protocol's epochs on the files
+FP_PROTOCOL_EPOCHS = 1  # fold_parallel_protocol's epochs on the files
 # calls a profiled window of the stacked forms' plain versions and library
 # calls, which take 30-70 ms each at U = 5 (10 for the other forms)
 FP_SLOW_REPS = 3
@@ -4191,11 +4254,6 @@ TOL_BF16_ULP = 2.0 ** -7
 TOL_MESH_GRAD = {"bf16": 0.25, "f32": TOL_GRAD["f32"]}
 
 
-def _rank_setup():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def _rel(got, ref):
     e, m = err_of(got.float(), ref.float())
     return e / max(1.0, m)
@@ -4264,7 +4322,6 @@ def mesh_ws1_rank(rank):
     from multilevel_gnn_tpu_torch.parallel import mesh as PM
     from multilevel_gnn_tpu_torch.parallel import scaling
 
-    _rank_setup()
     out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
     t = torch.arange(4.0, device="cuda")
     dist.all_reduce(t)
@@ -4527,7 +4584,6 @@ def _mesh_protocol(rank):
 def mesh_group_rank(rank):
     """A rank of the two-rank gloo group on cuda:0: mesh_halo, mesh_step
     and mesh_protocol's parts, with their seconds."""
-    _rank_setup()
     out = {}
     for name, fn in (("halo", _mesh_halo), ("step", _mesh_step),
                      ("protocol", _mesh_protocol)):
@@ -4668,11 +4724,243 @@ def bench_scaling_phase(line, process_s):
         raise AssertionError("bench_scaling failed")
 
 
+# ---- kirc.yaml and lgg.yaml, the shipped configs of the other two cohorts,
+# on the GBM fold: B = 64, pca_dim 3, head_dim 512, the pathway reorder
+# (kirc: pools 1 x 1, no age; lgg: pools 4 x 2, the age concat).  Their
+# first SAGE layer aggregates at F = B * node_embedding_dim = 2,048 (the
+# Config's default 32, which neither file sets), the GBM fold's width; the
+# second at F = B * hidden = 4,096.
+SHIPPED = ("kirc", "lgg")
+SHIPPED_REORDER_SEED = 16  # the fold's pathway reorder, a seeded permutation
+
+
+def shipped_yaml(name):
+    return str(REPO / "configs" / f"{name}.yaml")
+
+
+def shipped_kernels(graph, ctx, gen):
+    """K2 and K1 at the second SAGE layer's width under kirc.yaml and
+    lgg.yaml (F = B * hidden, 4,096), bf16 and f32, each against its plain version
+    and bit-equal over two calls, with ms, bound, plain and library ms:
+    K2's forward and transpose; K1 over the residual, tres and res_csc
+    (accumulating, the windowed route) and over all edges, csr and csc
+    (the composed route); and K1 as the gather_rows backward at F = B *
+    final (2,048)."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+
+    # both files give the trunk the same widths
+    (B, hidden, final), = {(c.batch_size, c.hidden_channels, c.final_channels)
+                           for c in map(Config.from_yaml, map(shipped_yaml, SHIPPED))}
+    plan = graph.winplan
+    w = spmm.edge_weights(graph, "mean", graph.edge_attr)
+    F, F_gather = B * hidden, B * final
+    ones = torch.ones(ctx.num_pca_rows, device="cuda")
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        d = str(dt).split(".")[-1]
+        x = torch.randn(graph.n_nodes, F, generator=gen, device="cuda").to(dt)
+        for case, transpose in (("forward", False), ("transpose", True)):
+            out[(case, d)] = time_k2(f"{case} F={F}", plan, x, w, transpose)
+            emit({"phase": "shipped_k2", **out[(case, d)]})
+        for case, p, acc in (("residual", plan.res, True), ("tres", plan.tres, True),
+                             ("res_csc", plan.res_csc, True), ("csr", graph.csr, False),
+                             ("csc", graph.csc, False)):
+            out[(case, d)] = time_k1(f"{case} F={F}", p, x, w, acc, gen)
+            emit({"phase": "shipped_k1", **out[(case, d)]})
+        del x
+        g = torch.randn(ctx.num_pca_rows, F_gather, generator=gen, device="cuda").to(dt)
+        dst = torch.zeros(graph.n_nodes, F_gather, device="cuda", dtype=dt)
+        out[("gather_rows_bwd", d)] = time_k1(
+            f"gather_rows_bwd F={F_gather}", ctx.pca_gather, g, ones, False, gen,
+            library=lambda: dst.zero_().index_add_(0, ctx.pca_rows, g))
+        emit({"phase": "shipped_k1", **out[("gather_rows_bwd", d)]})
+        del g, dst
+    return out
+
+
+def shipped_fold(name, graph, ctx):
+    """(cfg, model, ctx): configs/<name>.yaml with only node_num and
+    pathway_num set to the fold's, its bf16 trunk with spmm_bf16 and B =
+    64 as shipped, seeded random weights; the fold's ctx with a seeded
+    non-identity reorder of its pathways."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+
+    n_pathways = int(ctx.reorder_idxs.numel())
+    cfg = Config.from_yaml(shipped_yaml(name)).replace(
+        node_num=graph.n_nodes // 3, pathway_num=n_pathways)
+    perm = np.random.RandomState(SHIPPED_REORDER_SEED).permutation(n_pathways)
+    ctx = dataclasses.replace(ctx, reorder_idxs=torch.as_tensor(perm, device="cuda"))
+    model = MultilevelGNN(cfg, graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0)
+    return cfg, model, ctx
+
+
+def per_call(phase, fn, want):
+    """fn() with every K1 / K2 call held against its plain version on its
+    own inputs (PerCall); the calls as the code predicts."""
+    with PerCall() as pc:
+        out = fn()
+    torch.cuda.synchronize()
+    s = pc.summary()
+    ok = s["calls"] == want
+    emit({"phase": phase, **s, "calls_expected": want, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase}: kernel calls {s['calls']}, want {want}")
+    return out
+
+
+def shipped_phases(name, graph, ctx):
+    """configs/<name>.yaml's serving and training on the GBM fold:
+
+    - serve_<name>: predict_patients over the 123 patients (two batches of
+      64, the last one padded), counted: K1 2 / K2 2 a batch;
+    - slice_<name>: the eval forward with kernels against plain versions
+      (bf16 and f32 trunks; probabilities and the pathway image), and
+      every kernel call of the bf16 forward against its plain version
+      (per_call_eval_<name>);
+    - profile_<name>: device ms by kernel of one full eval batch, gap share;
+    - train_grad_<name>: one train step's gradients, kernels against plain
+      versions (TOL_GRAD), the same parameters without a gradient on both
+      sides; two calls' gradients equal bit for bit, and every kernel call
+      of the step against its plain version (per_call_step_<name>);
+    - profile_train_<name>: K1 7 / K2 4 a step from the counters over the
+      timed steps, kernel ms, gap share and peak memory.
+
+    Returns (launches a serving batch, launches a train step)."""
+    cfg, model, ctx = shipped_fold(name, graph, ctx)
+    B = cfg.batch_size
+    per_batch, per_step = conv_launches("sage", graph.winplan)
+    emit({"phase": f"{name}_setup", "config": Path(shipped_yaml(name)).name, "batch": B,
+          "pca_dim": cfg.pca_dim, "head_dim": cfg.head_dim,
+          "pools": [cfg.pathway_pool_dim, cfg.pca_pool_dim], "use_age": cfg.use_age,
+          "reorder_pathway": cfg.reorder_pathway,
+          "selected_similarity": cfg.selected_similarity, "lr": cfg.lr, "step": cfg.step,
+          "spmm_F": [B * cfg.node_embedding_dim, B * cfg.hidden_channels],
+          "compute_dtype": cfg.compute_dtype, "spmm_bf16": cfg.spmm_bf16,
+          "params": sum(p.numel() for p in model.parameters())})
+    if not cfg.reorder_pathway or bool((ctx.reorder_idxs == torch.arange(
+            len(ctx.reorder_idxs), device="cuda")).all()):
+        raise AssertionError(f"{name}: no pathway reorder on the fold")
+
+    X, Y, ages = patients(graph.n_nodes)
+    idx = np.arange(N_PATIENTS)
+    predict_patients(model, ctx, X, Y, ages, idx)  # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = predict_patients(model, ctx, X, Y, ages, idx)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    n_batches = -(-N_PATIENTS // B)
+    prob = np.asarray(res["prob"])
+    want = {k: v * n_batches for k, v in per_batch.items()}
+    ok = (len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
+          and bool(((prob >= 0) & (prob <= 1)).all()) and np.isfinite(res["loss"])
+          and launches == want)
+    emit({"phase": f"serve_{name}", "batches": n_batches, "patients": N_PATIENTS,
+          "ms_per_batch": dt * 1e3 / n_batches, "launches": launches,
+          "launches_expected": want, "auc": res["auc"], "acc": res["acc"],
+          "loss": res["loss"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"serve_{name} failed")
+
+    batch = next(iter_batches(X, Y, ages, idx, B, "cuda"))
+    f32 = cfg.replace(compute_dtype=None, spmm_bf16=False)
+    forward_vs_plain(f"slice_{name}", (
+        ("bf16", TOL_IMAGE_BF16, lambda: model),
+        ("f32", TOL_IMAGE_F32, lambda: MultilevelGNN(
+            f32, graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0)),
+    ), ctx, batch)
+    model.eval()
+    with torch.no_grad():
+        per_call(f"per_call_eval_{name}", lambda: model(batch, ctx),
+                 {k1.KERNEL.name: per_batch[k1.KERNEL.name],
+                  k2.KERNEL.name: per_batch[k2.KERNEL.name]})
+    profile_eval(model, ctx, batch, f"profile_{name}")
+
+    tcfg, tctx = train_setup(cfg, ctx)
+    Xt, Yt, at = patients(graph.n_nodes, n=N_TRAIN_PATIENTS, seed=2)
+    tr = np.arange(192)
+    cw = torch.as_tensor(class_weight(Yt, tr, tcfg.weight_power), dtype=torch.float32,
+                         device="cuda")
+    tbatch = next(iter_batches(Xt, Yt, at, tr, B, "cuda"))
+    train_grad_checks((("bf16", model),), tctx, tbatch, cw, phase=f"train_grad_{name}")
+    _, g1, _ = grads_of(model, tbatch, tctx, cw, seed=5)
+    _, g2, _ = per_call(f"per_call_step_{name}",
+                        lambda: grads_of(model, tbatch, tctx, cw, seed=5),
+                        {k1.KERNEL.name: per_step[k1.KERNEL.name],
+                         k2.KERNEL.name: per_step[k2.KERNEL.name]})
+    _, g3, _ = grads_of(model, tbatch, tctx, cw, seed=5)
+    differ = sorted(n for n in g1 if not (torch.equal(g1[n], g2[n])
+                                           and torch.equal(g1[n], g3[n])))
+    emit({"phase": f"train_grad_repeat_{name}", "params": len(g1), "differ": differ,
+          "ok": not differ})
+    if differ:
+        raise AssertionError(f"{name}: gradients of two calls differ in {differ}")
+    del g1, g2, g3
+    model.zero_grad(set_to_none=True)
+    got, _ = profile_train(model, tctx, tbatch, cw, per_step,
+                           phase=f"profile_train_{name}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, got
+
+
+def shipped_experiment_phase(name, root):
+    """The train CLI under configs/<name>.yaml on the reference-scale files
+    (experiment_phase), root/<name> linked to cohort_phase's root/gbm
+    (write_reference_format(root, cancer_type=name, **REF_COHORT) would
+    write the same bytes: the cancer type only names the directory), with
+    each fold's pathway reorder traced: under selected_similarity (kirc)
+    each fold derives its own from the fold's pathway matrix; otherwise
+    (lgg) every fold keeps the cohort's initial one.  Then the small
+    protocol (f32, dropout off) on the card and on the CPU under the same
+    config."""
+    from multilevel_gnn_tpu_torch.core.config import Config
+    from multilevel_gnn_tpu_torch.data.cohort import Cohort
+
+    real_fold, real_matrix = Cohort.fold, Cohort._reorder_from_matrix
+    derived, folds = [], []
+
+    def from_matrix(self, pathway_matrix):
+        derived.append(real_matrix(self, pathway_matrix))
+        return derived[-1]
+
+    def fold(self, *a, **k):
+        before = len(derived)
+        fd = real_fold(self, *a, **k)
+        own = derived[before:]
+        folds.append(dict(
+            derived=len(own),
+            equals_derived=bool(own) and np.array_equal(fd.reorder_idxs, own[-1]),
+            equals_initial=self.initial_reorder_idxs is not None
+            and np.array_equal(fd.reorder_idxs, self.initial_reorder_idxs),
+            identity=bool(np.array_equal(fd.reorder_idxs,
+                                         np.arange(len(fd.reorder_idxs))))))
+        return fd
+
+    def traced():
+        selected = Config.from_yaml(shipped_yaml(name)).selected_similarity
+        ok = len(folds) == 5 and all(
+            (f["derived"] == 1 and f["equals_derived"]) if selected
+            else (f["derived"] == 0 and f["equals_initial"]) for f in folds)
+        return {"fold_reorder": folds, "reorder_from_selected_similarity": selected}, ok
+
+    os.symlink(os.path.join(root, "gbm"), os.path.join(root, name))
+    Cohort.fold, Cohort._reorder_from_matrix = fold, from_matrix
+    try:
+        launches = experiment_phase(root, yaml=shipped_yaml(name), phase=f"experiment_{name}",
+                                    extra=traced)
+    finally:
+        Cohort.fold, Cohort._reorder_from_matrix = real_fold, real_matrix
+    small_protocol_vs_cpu(shipped_yaml(name), f"experiment_{name}_small_vs_cpu")
+    return launches
+
+
 def card_setup() -> str:
-    """TF32 off for matmuls and cuDNN; the card's nvidia-smi name and power
-    limit."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """The card's nvidia-smi name and power limit.  TF32 stays as torch
+    leaves it (cuBLAS off, cuDNN on): the port's f32 convolutions turn it
+    off themselves, and every phase holds that default path."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -4727,7 +5015,8 @@ def main() -> int:
     count = torch.cuda.device_count()
     emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "matmul_tf32": False, "cudnn_tf32": False})
+          "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_tf32": torch.backends.cudnn.allow_tf32})
 
     build_phase()
 
@@ -4826,13 +5115,23 @@ def main() -> int:
 
     # ---- K4 (sorted segment-sum): no path of the package reaches it
     r4 = kernel_k4(graph, cfg.batch_size, cfg.node_embedding_dim, F, gen)
-    del model, ctx, batch
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # ---- kirc.yaml and lgg.yaml on the same fold (B = 64)
+    r_shipped = shipped_kernels(graph, ctx, gen)
+    for name in SHIPPED:
+        paths[f"serve_{name}"], per_step[name] = shipped_phases(name, graph, ctx)
+    del ctx
     torch.cuda.empty_cache()
 
     # ---- the protocol from reference-format files
     with tempfile.TemporaryDirectory() as root:
         cohort = cohort_phase(root)
         paths["experiment"] = experiment_phase(root)
+        SMALL_SCORES.update(small_protocol_vs_cpu(GBM_YAML, "experiment_small_vs_cpu"))
+        for name in SHIPPED:
+            paths[f"experiment_{name}"] = shipped_experiment_phase(name, root)
         small = small_files(root)
         profile_phase(small)
         ckpt_dir = ckpt_phase(root, cohort)
@@ -4906,6 +5205,10 @@ def main() -> int:
     # built on the card (F = 64)
     forms[k3.KERNEL.name] += list(dg["s11"]["r3"].values())
     forms[k1.KERNEL.name] += list(dg["s11"]["r1"].values())
+    # kirc.yaml and lgg.yaml's forms at F = 4,096 (B = 64; gather_rows'
+    # backward at F = 2,048)
+    for (case, _), r in r_shipped.items():
+        forms[(k2 if case in ("forward", "transpose") else k1).KERNEL.name].append(r)
     # the forms of gat, gcn and gin on the GBM fold (kernel_zoo)
     forms[k1.KERNEL.name] += [r for key, r in rz.items() if key[0].startswith(("gat", "gcn_res"))]
     forms[k2.KERNEL.name] += [r for key, r in rz.items() if key[0] in ("gcn_k2", "gcn_k2_t",

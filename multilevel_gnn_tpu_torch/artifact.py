@@ -54,7 +54,11 @@ def load_exported(out_dir: str):
     def infer(x, age):
         x = torch.as_tensor(x, dtype=torch.float32).to(device)
         age = torch.as_tensor(age, dtype=torch.float32).to(device)
-        with torch.no_grad():
+        # the head's f32 convolutions without TF32, as the model runs them:
+        # the program keeps its ops, not the cuDNN flags they ran under
+        cudnn = torch.backends.cudnn
+        with torch.no_grad(), cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                                          deterministic=cudnn.deterministic, allow_tf32=False):
             return program(x, age)
 
     infer.meta = meta

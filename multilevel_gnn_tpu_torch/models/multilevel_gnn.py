@@ -46,19 +46,37 @@ def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.compute_dtype in ("bfloat16", "bf16") else None
 
 
+def _cudnn_f32(backward: bool):
+    """cuDNN's flags for one of the head's convolutions: TF32 off; the
+    backward also without autotuning and on deterministic algorithms, the
+    forward with those two as set."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled,
+                       benchmark=False if backward else cudnn.benchmark,
+                       deterministic=True if backward else cudnn.deterministic,
+                       allow_tf32=False)
+
+
 class _Conv2d(torch.autograd.Function):
-    """F.conv2d (stride 1, dilation 1) whose backward runs on cuDNN's
-    deterministic algorithms.  The algorithms cuDNN picks by default may
-    add the weight gradient with atomics, so two trainings from one state
-    drifted apart after a few steps on an H100 and a resumed protocol did
-    not repeat the uninterrupted one (PERF.md); the forward's algorithms
-    are deterministic already.  groups is 1 but under torch.vmap (the
-    fold-parallel step), whose rule makes one grouped convolution of the
-    U units' convolutions: (B, U*C, H, W) input, (U*O, C, k, k) weight."""
+    """F.conv2d (stride 1, dilation 1) in float32 on cuDNN, whose backward
+    runs on cuDNN's deterministic algorithms.  The algorithms cuDNN picks by
+    default may add the weight gradient with atomics, so two trainings from
+    one state drifted apart after a few steps on an H100 and a resumed
+    protocol did not repeat the uninterrupted one (PERF.md); the forward's
+    algorithms are deterministic already.  Both directions run with TF32
+    off, whatever torch.backends.cudnn.allow_tf32 says (torch's default is
+    on): with it on, cuDNN rounds the f32 inputs of some of its algorithms
+    to TF32 and not of others, so the fold-parallel step's grouped
+    convolution and a unit's own parted by up to 9.3e-2 of a gradient's
+    largest on an H100 (probes/stacked_step_diag.py).  groups is 1 but
+    under torch.vmap (the fold-parallel step), whose rule makes one grouped
+    convolution of the U units' convolutions: (B, U*C, H, W) input,
+    (U*O, C, k, k) weight."""
 
     @staticmethod
     def forward(x, w, b, padding: int, groups: int = 1):
-        return F.conv2d(x, w, b, padding=padding, groups=groups)
+        with _cudnn_f32(backward=False):
+            return F.conv2d(x, w, b, padding=padding, groups=groups)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -70,9 +88,7 @@ class _Conv2d(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         p = ctx.padding
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
-                         allow_tf32=cudnn.allow_tf32):
+        with _cudnn_f32(backward=True):
             dx, dw, db = torch.ops.aten.convolution_backward(
                 g, x, w, [w.shape[0]], [1, 1], [p, p], [1, 1], False, [0, 0], ctx.groups,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], True])

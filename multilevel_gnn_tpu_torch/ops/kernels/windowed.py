@@ -572,6 +572,18 @@ def _(x, w, tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
     return _k2_plain(x, w, edge_eid, edge_ent, ent_src_orig, ent_dst_orig)
 
 
+# the feature columns of one block's slice (Slice<T>::FT in the .cu)
+SLICE_COLS = {torch.bfloat16: 128, torch.float32: 64}
+
+
+def launch_shape(x: torch.Tensor, out: torch.Tensor) -> Tuple[int, bool]:
+    """(feature slices in the grid, whether the 16-byte vector path runs)
+    of a K2 launch on x (N, F) into out."""
+    F = x.shape[1]
+    return (-(-F // SLICE_COLS[x.dtype]),
+            F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+
+
 @torch.library.impl("mgtpu::windowed_tile_spmm", "cuda")
 def _(x, w, tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
       ent_edge_ptr, edge_eid, row_of, edge_ent, ent_src_orig, ent_dst_orig):
@@ -585,7 +597,7 @@ def _(x, w, tile_blk_ptr, blk_src, blk_ent_ptr, blk_row_ptr, ent_pos,
     n_perm = row_of.shape[0] if row_of is not None else N
     n_ent = ent_pos.shape[0]
     ent_pv = torch.empty((n_ent, 2), dtype=torch.int32, device=x.device)
-    vector = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    _, vector = launch_shape(x, out)
     fn = KERNEL.fn()
     err = fn(
         tile_blk_ptr.data_ptr(), blk_src.data_ptr(), blk_ent_ptr.data_ptr(),

@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from multilevel_gnn_tpu_torch.core.device import resolve_device
 from multilevel_gnn_tpu_torch.core.graph import Graph, _host
 from multilevel_gnn_tpu_torch.ops import spmm
 from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
@@ -78,13 +79,15 @@ class HaloPartition:
     n_edges: int
     windowed: bool = False
 
-    def for_rank(self, p: int, group=None, device="cpu",
+    def for_rank(self, p: int, group=None, device=None,
                  graph: Optional[Graph] = None) -> "RankHalo":
-        """Rank p's plans on device (the interior, boundary and send-gather
-        K1 plans; the interior K2 plan when windowed).  graph: the graph
+        """Rank p's plans on device, CUDA unless the caller asks for the
+        CPU (the interior, boundary and send-gather K1 plans; the interior
+        K2 plan when windowed).  graph: the graph
         partitioned (or its shard-padded copy, whose real edges sit at the
         same places): its edge weights (edge_attr, gcn_coef) are selected
         for the rank's edges here, once, for gather_scatter_halo."""
+        device = resolve_device(device)
         Nl, H, k = self.n_local, self.halo, self.k
         n = int(self.edge_mask[p].sum())
         s_ext = self.senders_ext[p, :n].astype(np.int64)

@@ -42,10 +42,11 @@ and edge counts, stacked block-diagonally): K1 over csr, csc, src_gather
 and dst_gather and K3 at F 64 and 2,048, K2 and the windowed SpMM on both
 sides at F 20 and 2,048 (permuted and identity window plans), each equal
 to the units' own launches bit for bit and within TOL of the plain
-version; a stacked train step of three small windowed folds (bf16, f32)
-launching K1 7 / K2 4, each unit's gradients within 35 x TOL of the
-largest of its own step's (batched GEMMs and a grouped convolution in
-place of the unit's own).
+version; a stacked train step of three small windowed folds (bf16, f32;
+1,200 node slots over two windows, so each fold has residual and tres
+edges) launching K1 7 / K2 4, as often as one unit's own train step,
+each unit's gradients within 35 x TOL of the largest of its own step's
+(batched GEMMs and a grouped convolution in place of the unit's own).
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -854,7 +855,16 @@ def test_stacked_step_matches_unit_steps(dev, dtype):
     """A stacked train step of three small windowed folds: each unit's
     gradients against its own step's (the same dropout masks) within
     TOL's limits of the largest, K1 / K2 launched as often as in one
-    unit's step."""
+    unit's own train step: K2 a layer forward and backward (4), K1 a
+    layer over the residual (2) and over tres and res_csc (4), and once
+    for the PCA gather's backward.  The folds have 1,200 node slots
+    (node_num 400), two 1,024-row windows, so their plans have residual
+    and tres edges; at 900 slots (one window) they had none, and K1 ran
+    once.  TF32 is as torch leaves it (cuDNN's on): the head's
+    convolutions turn it off themselves.  While they did not, the stacked
+    step's grouped head convolution and a unit's own, both on cuDNN,
+    parted by 5.8e-2 and 9.3e-2 of a gradient's largest in the f32 trunk
+    (probes/stacked_step_diag.py on an H100), 3.9e-6 with TF32 off."""
     import copy
 
     from multilevel_gnn_tpu_torch.core.batch import Batch, stack_contexts
@@ -863,10 +873,14 @@ def test_stacked_step_matches_unit_steps(dev, dtype):
     from multilevel_gnn_tpu_torch.ops.kernels import build
     from multilevel_gnn_tpu_torch.train import step as S
 
-    sets = [make_gbm_scale_setup(node_num=300, n_pathways=12, batch=8, gene_rows=900,
+    assert torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    sets = [make_gbm_scale_setup(node_num=400, n_pathways=12, batch=8, gene_rows=900,
                                  topology="cohort", windowed=True, device=dev,
                                  compute_dtype=dtype, spmm_bf16=dtype is not None,
                                  seed=u, topo_seed=u) for u in range(3)]
+    for s in sets:
+        plan = s[2].winplan
+        assert plan.n_tres > 0 and plan.res.nnz > 0, (plan.n_tres, plan.res.nnz)
     cfg = sets[0][0].replace(gnn_dropout=0.25)
     models = [s[1] for s in sets]
     sctx = stack_contexts([s[3] for s in sets])
@@ -877,11 +891,20 @@ def test_stacked_step_matches_unit_steps(dev, dtype):
     batch = Batch(*(torch.stack([getattr(s[4], f) for s in sets])
                     for f in ("x", "y", "age", "sample_mask")))
     cw = torch.tensor([[1.0, 1.5]] * 3, device=dev)
-    for k in build.REGISTRY.values():
-        k.launches = 0
-    S.stacked_train_step(copy.deepcopy(models[0]), params, opt, batch, sctx, cw, gens)
-    counts = {k.name: k.launches for k in build.REGISTRY.values()}
+    def counted(step):
+        for k in build.REGISTRY.values():
+            k.launches = 0
+        step()
+        return {k.name: k.launches for k in build.REGISTRY.values()}
+
+    unit = copy.deepcopy(models[0])
+    own = counted(lambda: S.train_step(
+        unit, S.make_optimizer(unit, cfg, 4), sets[0][4], sets[0][3], cw[0],
+        torch.Generator(device=dev).manual_seed(7)))
+    counts = counted(lambda: S.stacked_train_step(
+        copy.deepcopy(models[0]), params, opt, batch, sctx, cw, gens))
     assert counts[k1.KERNEL.name] == 7 and counts[k2.KERNEL.name] == 4, counts
+    assert counts == own, (counts, own)
     tol = TOL[torch.bfloat16 if dtype else torch.float32] * 35
     for u, m in enumerate(models):
         m.train()

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from multilevel_gnn_tpu.core.config import Config as JConfig
 from multilevel_gnn_tpu.data.synthetic import make_synthetic_cohort as j_make_cohort
@@ -137,6 +138,36 @@ def test_exported_graph_and_live_eval(tmp_path):
         x=torch.as_tensor(x), y=torch.zeros(B, 2), age=torch.as_tensor(age),
         sample_mask=torch.ones(B, dtype=torch.bool)), st["ctx"])
     assert torch.equal(infer(x, age), live)
+
+
+class _ConvFlags(TorchDispatchMode):
+    """cuDNN's allow_tf32 at each convolution dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.convolution.default:
+            self.seen.append(torch.backends.cudnn.allow_tf32)
+        return func(*args, **(kwargs or {}))
+
+
+def test_artifact_convolutions_run_without_tf32(tmp_path):
+    """The loaded program's head convolutions run with TF32 off, as the
+    live model's do, under torch's default cudnn.allow_tf32 (True)."""
+    cfg = Config.from_yaml(GBM, **KW)
+    cohort = make_synthetic_cohort(cfg, seed=3, n_patients=50, n_pathways=5)
+    ex = export.export_fold(cfg, cohort, None, device="cpu")
+    export.save_exported(str(tmp_path / "e"), ex)
+    infer = export.load_exported(str(tmp_path / "e"))
+    B = cfg.batch_size
+    assert torch.backends.cudnn.allow_tf32
+    with _ConvFlags() as mode:
+        p = infer(ex["state"]["X"][:B], cohort.ages[:B])
+    assert p.shape == (B, 2)
+    assert mode.seen == [False] * len(cfg.conv_channel_list), mode.seen
+    assert torch.backends.cudnn.allow_tf32
 
 
 def test_export_cli(tmp_path, capsys):

@@ -81,13 +81,13 @@ def test_rank_plans_cover_the_edges(windowed):
     hp = PH.build_halo_partition(g, 4, windowed=windowed)
     total = 0
     for p in range(4):
-        rh = hp.for_rank(p, graph=g)
+        rh = hp.for_rank(p, device="cpu", graph=g)
         assert rh.n_edges == int(hp.edge_mask[p].sum())
         # the rank's edge weights, selected once from the whole graph's
         whole = np.asarray(g.edge_attr).reshape(g.num_padded_edges, -1)[:, 0]
         np.testing.assert_array_equal(rh.edge_attr.numpy(),
                                       whole[hp.edge_sel[p, :rh.n_edges]])
-        assert rh.gcn_coef is None and hp.for_rank(p).edge_attr is None
+        assert rh.gcn_coef is None and hp.for_rank(p, device="cpu").edge_attr is None
         assert rh.int_csr.nnz == rh.int_csc.nnz == rh.n_interior
         assert rh.bnd_csr.nnz == rh.bnd_csc.nnz == rh.n_boundary
         assert rh.send_plan.nnz == hp.k * hp.halo == rh.send_idx.shape[0]
@@ -96,6 +96,20 @@ def test_rank_plans_cover_the_edges(windowed):
             assert rh.win.num_nodes == hp.n_local and rh.win.n_edges == rh.n_edges
         total += rh.n_edges
     assert total == hp.n_edges
+
+
+def test_rank_plans_default_to_cuda(monkeypatch):
+    """A rank's plans go to the card unless the caller asks for the CPU:
+    without CUDA, for_rank with no device raises."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    edges, attr, n = TP.graph_arrays("community")
+    g = Graph.from_edges(edges, attr, n)
+    hp = PH.build_halo_partition(g, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        hp.for_rank(0, graph=g)
+    assert hp.for_rank(0, device="cpu", graph=g).deg.device.type == "cpu"
 
 
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
@@ -109,7 +123,7 @@ def test_one_rank_halo_route(reduce):
     from multilevel_gnn_tpu_torch.parallel import mesh as PM
 
     g = TP.port_graph("ragged")
-    rh = PH.build_halo_partition(g, 1).for_rank(0, graph=g)
+    rh = PH.build_halo_partition(g, 1).for_rank(0, device="cpu", graph=g)
     sg = dataclasses.replace(PM.edge_block(g, 1, 0), halo=rh)
     x = torch.tensor(TP.features("ragged", g.n_nodes)[0])
     np.testing.assert_allclose(spmm.gather_scatter(x, sg, reduce, sg.edge_attr).numpy(),
