@@ -9,7 +9,8 @@ Exits non-zero, printing no result, without a card.  Phases, one JSON line
 each:
 
   device   card name, count, nvidia-smi name/power limit, precision flags
-  build    nvcc of every kernel source, in parallel (seconds)
+  build    nvcc of every kernel source, in parallel, and g++ of the data
+           libraries beside them (seconds)
   setup    GBM-scale fold: N = 15,405 node slots, E ~ 154k edges incl. self
            loops, cohort topology with the windowed plan, B = 32, bf16 trunk
   k1 / k2  each kernel at the main path's shapes, bf16 and f32, against its
@@ -58,6 +59,16 @@ each:
            (max abs error must be 0), with its ms, plain ms, bound and the
            scatter_reduce amax library call; k1_bwd also times K1 as the
            backward of the two edge gathers (src_gather, dst_gather)
+  dma_gather  P1, tools/bench_dma_gather.py's row-gather probe, at the
+           tool's shapes (x3 (15,408, 16, 128), 165,888 gathered rows,
+           chunks of 256; inputs from RandomState(0) as the tool makes
+           them), f32 then bf16: its path, one call per dtype, counted (P1
+           1, no other kernel); the kernel against its plain version
+           (1e-4 x max(1, max|ref|)) and a second call (equal bit for bit);
+           ms, event ms, plain ms, bound, the time of every gathered row
+           read from HBM, rows/s, gathered GB/s, embedding_bag's sum of the
+           same rows (ms; its first 128 columns within 1e-4 / 2e-3) and
+           K1's csr ms at F 2,048 beside it
 
 Then, for each of gnn_name mr (MRConv), edge (EdgeConv), gat (GATConv, the
 Config's default, f32 with gbm.yaml's final_head 4), gcn (GCNConv) and gin
@@ -81,7 +92,8 @@ a step):
 
 and then, on the same fold:
 
-  export_gat  the export phase for a GAT fold (K1 4 a call, K2 0)
+  export_gat  the export phase for a GAT fold (K1 4 a call, K2 0); its
+           artifact loaded after export's in the same process
   k1_zoo / k2_zoo  the K1 and K2 forms of gat, gcn and gin at gbm.yaml's
            widths against their plain versions, with ms, bound, plain and
            library ms: GAT's edge_segment_sum of its messages (F = B*64 and
@@ -105,7 +117,9 @@ Then the sorted segment-sum and the protocol from files:
            masked out, each against its plain version (1e-5 x max(1,
            max|ref|)), with its ms, plain ms, bound and torch.segment_reduce
   cohort   a reference-scale synthetic cohort (400 patients, 146 pathways)
-           written in the reference's file layout, loaded with gbm.yaml and
+           written in the reference's file layout (by a child process
+           started after build, beside the card's phases), loaded with
+           gbm.yaml and
            fold 0 derived; seconds by stage, the MI estimator's seconds at
            k = 7 and 15, node slots, edges, mask share, whether the
            windowed plan engaged
@@ -309,8 +323,8 @@ sources and warm, each failing the run when its check fails:
            dispatch) of every mgtpu custom op on CUDA tensors over the GBM
            fold's plans (F = 64), right after profile_serve
   export   the GBM sage fold's eval forward (bf16, windowed, B = 32)
-           exported with torch.export, saved, and loaded in a fresh
-           process: probabilities against the live eval_step on the same
+           exported with torch.export and saved; after export_gat both
+           artifacts are loaded in one fresh process: probabilities against the live eval_step on the same
            batch within 1e-6 x max(1, max|ref|), K1 2 / K2 2 launches per
            call as in the live call; the artifact's bytes, load and
            first-call seconds, CUDA-event and device ms of an exported call
@@ -403,6 +417,7 @@ from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 from multilevel_gnn_tpu_torch.ops import spmm
 from multilevel_gnn_tpu_torch.ops.kernels import build
+from multilevel_gnn_tpu_torch.ops.kernels import dma_gather as p1
 from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
@@ -804,6 +819,96 @@ def kernel_k3(graph, F_wide, F_narrow, gen):
     return res
 
 
+# P1, tools/bench_dma_gather.py's probe at the tool's shapes: N rows of
+# (16, 128), E gathered rows, chunks of te edges; the kernel and its plain
+# version are held at TOL_F32 in both dtypes (the inputs are exact in f32),
+# embedding_bag's sum (its output in x3's dtype) at TOL_F32 / TOL_BF16
+P1_N, P1_E, P1_TE = 15_408, 165_888, 256
+TOL_P1_LIBRARY = {"float32": TOL_F32, "bfloat16": TOL_BF16}
+
+
+def p1_inputs():
+    """{dtype name: (x3, src)} on the card, made as the tool makes them: one
+    RandomState(0), x3 then src for f32, then for bf16; src's range checked
+    here, once."""
+    rng = np.random.RandomState(0)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x3 = torch.from_numpy(rng.randn(P1_N, 16, 128)).to(dt).to("cuda")
+        src = torch.from_numpy(rng.randint(0, P1_N, P1_E).astype(np.int32)).to("cuda")
+        p1.check_src(src, P1_N)
+        out[str(dt).split(".")[-1]] = (x3, src)
+    return out
+
+
+def time_p1(x3, src, out):
+    """P1 against its plain version (TOL_F32) and its output ``out`` against
+    a second call (equal bit for bit), with its ms, plain ms, bound, the time
+    of every gathered row read from HBM, and embedding_bag's sum of the same
+    rows (checked on the first 128 columns) and ms (over 3 calls a window:
+    one bag of E rows takes tens of ms)."""
+    import torch.nn.functional as F
+
+    dt = str(x3.dtype).split(".")[-1]
+    N, E = x3.shape[0], src.shape[0]
+    row_bytes = x3[0].numel() * x3.element_size()
+    again = p1.dma_row_gather(x3, src, P1_TE)
+    ref = p1.dma_row_gather_plain(x3, src)
+    torch.cuda.synchronize()
+    e, m = err_of(out, ref)
+    limit = check(f"dma_gather {dt}", e, m, TOL_F32)
+    if not (torch.equal(out, again) and bool((out == out[:1]).all())):
+        raise AssertionError(f"dma_gather {dt}: two calls differ, or the 8 rows do")
+    table, bag = x3.view(N, -1), src.long()[None]
+
+    def library():
+        return F.embedding_bag(bag, table, mode="sum")
+
+    lib_err, _ = err_of(library()[0, :ref.shape[1]].float(), ref[0])
+    lib_limit = check(f"dma_gather embedding_bag {dt}", lib_err, m, TOL_P1_LIBRARY[dt])
+    b = int(torch.unique(src).numel()) * row_bytes + E * 4 + out.numel() * 4
+    bms, by = bound(b, float(E) * ref.shape[1], "f32")
+    ms, ms_src = kernel_ms(lambda: p1.dma_row_gather(x3, src, P1_TE), bms)
+    gathered = E * row_bytes
+    return dict(
+        case=f"row gather te={P1_TE}", dtype=dt, shape=list(x3.shape), E=E, te=P1_TE,
+        chunks=-(-E // P1_TE), row_bytes=row_bytes, max_abs_err=e, ref_max=m, limit=limit,
+        bitwise_repeat=True, ms=ms, ms_source=ms_src,
+        event_ms=cuda_ms(lambda: p1.dma_row_gather(x3, src, P1_TE)),
+        plain_ms=device_ms(lambda: p1.dma_row_gather_plain(x3, src)),
+        library_ms=device_ms(library, iters=3), library_max_abs_err=lib_err,
+        library_limit=lib_limit, bound_ms=bms, bound_by=by, bytes=b,
+        hbm_every_row_ms=gathered / HBM_BYTES_PER_S * 1e3,
+        rows_per_s=E / (ms / 1e3), gathered_gb_per_s=gathered / (ms / 1e3) / 1e9,
+    )
+
+
+def dma_gather_phase(k1_csr_ms=None, build_s=None):
+    """P1's path, the row-gather probe at the tool's shapes, f32 then bf16:
+    per dtype one call of the kernel, counted (launch counts zeroed just
+    before, read just after: P1 once, no other kernel), then time_p1 on
+    its output.  One line per dtype, with the kernel's build seconds and
+    K1's csr ms at F 2,048 (the composed SpMM's, whose gather the probe
+    floors) beside it.  Returns ({kernel: launches over the path},
+    {dtype name: time_p1's row})."""
+    path, rows = Counter(), {}
+    for dt, (x3, src) in p1_inputs().items():
+        torch.cuda.synchronize()
+        zero_launches()
+        out = p1.dma_row_gather(x3, src, P1_TE)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        expect_launches(f"dma_gather {dt}", launches, want_launches({p1.KERNEL.name: 1}))
+        path.update(launches)
+        if not (out.shape == (p1.OUT_ROWS, 128) and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"dma_gather {dt}: output {tuple(out.shape)} not finite")
+        rows[dt] = time_p1(x3, src, out)
+        emit({"phase": "dma_gather", **rows[dt], "launches": launches,
+              "build_s": build_s, "k1_csr_ms_f2048": k1_csr_ms, "ok": True})
+        del x3, src
+    return {k: path[k] for k in build.REGISTRY}, rows
+
+
 def kernel_bwd(graph, ctx, w, F, F_gather, gen):
     """The backward forms at the training path's shapes: K1 over csc (the
     composed backward, all edges), over tres and res_csc (accumulating into
@@ -904,6 +1009,16 @@ def launch_counts():
     return {k.name: k.launches for k in build.REGISTRY.values()}
 
 
+def want_launches(nonzero=None):
+    """{kernel name: launches} over every registered kernel: the counts
+    named in nonzero, and 0 for every other kernel."""
+    nonzero = nonzero or {}
+    unknown = set(nonzero) - set(build.REGISTRY)
+    if unknown:
+        raise KeyError(f"not a registered kernel: {sorted(unknown)}")
+    return {name: nonzero.get(name, 0) for name in build.REGISTRY}
+
+
 def zero_launches():
     for k in build.REGISTRY.values():
         k.launches = 0
@@ -966,10 +1081,9 @@ def profile_serve(model, ctx, batch):
     emit({"phase": "serve_paths", "ms_per_batch_median": med, "turns": 10,
           "launches": launches, "gap_share": 1 - busy / med["windowed"]})
     n = len(t["composed"])
-    k3_none = {k3.KERNEL.name: 0, k4.name: 0}
-    if (launches["composed"] != {k1.KERNEL.name: 2 * n, k2.KERNEL.name: 0, **k3_none}
-            or launches["windowed"] != {k1.KERNEL.name: 2 * n,
-                                        k2.KERNEL.name: 2 * n, **k3_none}):
+    if (launches["composed"] != want_launches({k1.KERNEL.name: 2 * n})
+            or launches["windowed"] != want_launches({k1.KERNEL.name: 2 * n,
+                                                      k2.KERNEL.name: 2 * n})):
         raise AssertionError(f"serve_paths launch counts {launches}")
 
 
@@ -1154,10 +1268,12 @@ def timed_steps(step, n):
 
 def profiled(step, n=3):
     """(device ms of kernels per call, kernels per call, kernel_rows) of n
-    calls of step() under the profiler."""
+    calls of step() under the profiler, which records the card's activity
+    only (the host's op events cost ~0.2 ms each to record and sum, and a
+    step of the foreach decoders has some 30,000)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
@@ -1234,14 +1350,15 @@ def conv_launches(conv, plan):
     gather's.  sage / gcn / gin: K2 a layer with the K1 residual, and in
     the backward K2's transpose with K1 over tres and res_csc, and the PCA
     gather's K1."""
-    zero = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: 0, k4.name: 0}
     if conv in ("mr", "edge"):
-        return {**zero, k3.KERNEL.name: 2}, {**zero, k3.KERNEL.name: 2, k1.KERNEL.name: 5}
+        return (want_launches({k3.KERNEL.name: 2}),
+                want_launches({k3.KERNEL.name: 2, k1.KERNEL.name: 5}))
     if conv == "gat":
-        return {**zero, k1.KERNEL.name: 4}, {**zero, k1.KERNEL.name: 13}
+        return want_launches({k1.KERNEL.name: 4}), want_launches({k1.KERNEL.name: 13})
     res, tres = int(plan.n_res > 0), int(plan.n_tres > 0)
-    return ({**zero, k1.KERNEL.name: 2 * res, k2.KERNEL.name: 2},
-            {**zero, k1.KERNEL.name: 2 * res + 2 * (tres + res) + 1, k2.KERNEL.name: 4})
+    return (want_launches({k1.KERNEL.name: 2 * res, k2.KERNEL.name: 2}),
+            want_launches({k1.KERNEL.name: 2 * res + 2 * (tres + res) + 1,
+                           k2.KERNEL.name: 4}))
 
 
 def serve_conv(conv, model, ctx, n_batches):
@@ -1597,18 +1714,42 @@ def kernel_k4(graph, B, C, F, gen):
     return res
 
 
-def cohort_phase(root, device="cuda"):
-    """Reference-format files at reference scale, loaded with gbm.yaml, and
-    fold 0's derivation, timed by stage."""
+# the child process that writes cohort_phase's files (argv: root, the
+# REF_COHORT keywords as JSON) and prints its write seconds
+WRITER_CHILD = r"""
+import json, sys, time
+from multilevel_gnn_tpu_torch.data.synthetic import write_reference_format
+t0 = time.perf_counter()
+write_reference_format(sys.argv[1], cancer_type="gbm", **json.loads(sys.argv[2]))
+print(json.dumps({"write_s": time.perf_counter() - t0}))
+"""
+
+
+def start_cohort_files(root):
+    """cohort_phase's reference-format files written under root by a child
+    process, so the writing (host only) runs beside the card's phases."""
+    return subprocess.Popen([sys.executable, "-c", WRITER_CHILD, root, json.dumps(REF_COHORT)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=_child_env())
+
+
+def cohort_phase(root, device="cuda", writer=None):
+    """Reference-format files at reference scale, written by
+    start_cohort_files' child (``writer``, started here when None) and
+    waited for here, loaded with gbm.yaml, and fold 0's derivation, timed
+    by stage."""
     from multilevel_gnn_tpu_torch.core.config import Config
     from multilevel_gnn_tpu_torch.data import native
     from multilevel_gnn_tpu_torch.data.loaders import load_cohort_from_files
-    from multilevel_gnn_tpu_torch.data.synthetic import write_reference_format
     from multilevel_gnn_tpu_torch.train.driver import stratified_kfold
 
     t0 = time.perf_counter()
-    write_reference_format(root, cancer_type="gbm", **REF_COHORT)
-    t_write = time.perf_counter() - t0
+    writer = writer or start_cohort_files(root)
+    out, err = writer.communicate(timeout=600)
+    if writer.returncode != 0:
+        raise AssertionError(f"cohort: the files' writer failed:\n{err[-4000:]}")
+    t_write = _last_json(out)["write_s"]
+    t_wait = time.perf_counter() - t0
     cfg = Config.from_yaml(GBM_YAML)
     t0 = time.perf_counter()
     cohort = load_cohort_from_files(
@@ -1637,7 +1778,7 @@ def cohort_phase(root, device="cuda"):
     ok = bool(cohort.num_nodes > 15000 and cohort.n_pathways == 146
               and 0 < fold.info_mask.mean() < 1 and fold.edge_count > cohort.num_nodes
               and np.isfinite(fold.pca_seed).all() and np.abs(fold.pca_seed).max() > 0)
-    emit({"phase": "cohort", "write_s": t_write, "load_s": t_load, "fold_s": t_fold,
+    emit({"phase": "cohort", "write_s": t_write, "write_wait_s": t_wait, "load_s": t_load, "fold_s": t_fold,
           "fold_stage_s": fold.seconds, "mi_s_by_k": mi_s,
           "mi_features": x.shape[1], "patients": len(cohort.patients),
           "pca_patients": len(cohort.pca_patients), "train_patients": len(tr),
@@ -1825,7 +1966,7 @@ def explain_phase(model, ctx, batch):
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() - base
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         integrated_gradients(model, batch, ctx, steps=IG_STEPS)
         torch.cuda.synchronize()
     rows = kernel_rows(prof, 1)
@@ -2023,10 +2164,13 @@ TOL_EXPORT = 1e-6  # times max(1, max|ref|): the exported call against the live 
 REPO = Path(__file__).resolve().parent
 PPI_EDGES = 45_000  # make_cohort_topology's e_ppi
 PPI_EPOCHS = 1
-# the child process that loads the artifact: load seconds (from its start,
-# torch's import and CUDA's start-up included, and a second load), first-
-# call seconds, probabilities, launches per call (counts zeroed just
-# before one call), CUDA-event ms per call and its kernels' device ms
+# the child process that loads the artifacts, in the order given: each
+# artifact's load seconds (the first one's from the process's start, torch's
+# import and CUDA's start-up included; its first load also pays the loader's
+# one-time imports), a second load, first-call seconds, probabilities,
+# launches per call (counts zeroed just before one call), CUDA-event ms per
+# call and its kernels' device ms.  Arguments: artifact dir, inputs .npz,
+# and so on.
 EXPORT_CHILD = r"""
 import json, sys, time
 t0 = time.perf_counter()
@@ -2037,46 +2181,52 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from multilevel_gnn_tpu_torch.artifact import load_exported
 from multilevel_gnn_tpu_torch.ops.kernels import build
-t1 = time.perf_counter()
-infer = load_exported(sys.argv[1])
-torch.cuda.synchronize()
-load_s = time.perf_counter() - t0
-load_exported_s = time.perf_counter() - t1
-t1 = time.perf_counter()
-load_exported(sys.argv[1])
-torch.cuda.synchronize()
-load_again_s = time.perf_counter() - t1
-z = np.load(sys.argv[2])
-x = torch.as_tensor(z["x"], device="cuda")
-age = torch.as_tensor(z["age"], device="cuda")
-t0 = time.perf_counter()
-infer(x, age)
-torch.cuda.synchronize()
-first_s = time.perf_counter() - t0
-for k in build.REGISTRY.values():
-    k.launches = 0
-p = infer(x, age)
-torch.cuda.synchronize()
-launches = {k.name: k.launches for k in build.REGISTRY.values()}
-ms = []
-for _ in range(20):
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record(); infer(x, age); b.record(); b.synchronize()
-    ms.append(a.elapsed_time(b))
-windows = []
-for _ in range(3):
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            infer(x, age)
-        torch.cuda.synchronize()
-    windows.append(sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
-                       if ev.device_type == DeviceType.CUDA
-                       and not getattr(ev, "is_user_annotation", False)) / 1e3 / 10)
-print(json.dumps({"load_s": load_s, "import_torch_s": import_s,
-                  "load_exported_s": load_exported_s, "load_again_s": load_again_s,
-                  "first_call_s": first_s, "probs": p.cpu().tolist(),
-                  "launches": launches, "event_ms_median": float(np.median(ms)),
-                  "device_ms": float(np.median(windows))}))
+out = []
+args = sys.argv[1:]
+for i in range(0, len(args), 2):
+    t1 = time.perf_counter()
+    infer = load_exported(args[i])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0 if i == 0 else None
+    load_exported_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    load_exported(args[i])
+    torch.cuda.synchronize()
+    load_again_s = time.perf_counter() - t1
+    z = np.load(args[i + 1])
+    x = torch.as_tensor(z["x"], device="cuda")
+    age = torch.as_tensor(z["age"], device="cuda")
+    t1 = time.perf_counter()
+    infer(x, age)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    for k in build.REGISTRY.values():
+        k.launches = 0
+    p = infer(x, age)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in build.REGISTRY.values()}
+    ms = []
+    for _ in range(20):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record(); infer(x, age); b.record(); b.synchronize()
+        ms.append(a.elapsed_time(b))
+    windows = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                infer(x, age)
+            torch.cuda.synchronize()
+        windows.append(sum(getattr(ev, "self_device_time_total", 0.0)
+                           for ev in prof.key_averages()
+                           if ev.device_type == DeviceType.CUDA
+                           and not getattr(ev, "is_user_annotation", False)) / 1e3 / 10)
+    out.append({"load_s": load_s, "import_torch_s": import_s, "load_order": i // 2,
+                "load_exported_s": load_exported_s, "load_again_s": load_again_s,
+                "first_call_s": first_s, "probs": p.cpu().tolist(),
+                "launches": launches, "event_ms_median": float(np.median(ms)),
+                "device_ms": float(np.median(windows))})
+    del infer
+print(json.dumps(out))
 """
 
 
@@ -2115,6 +2265,9 @@ def ops_phase(graph, gen):
          (rand(2, E, 16), splan.rowptr, None, splan.seg)),
         ("sorted_segment_sum_perm", k1.sorted_segment_sum_op,
          (rand(2, E, 16), splan.rowptr, splan.perm, splan.seg)),
+        ("dma_row_gather", p1.dma_row_gather_op,
+         (rand(64, 16, 128), torch.randint(0, 64, (1000,), generator=gen, device="cuda",
+                                           dtype=torch.int32), p1.TE)),
     ]
     seconds = {}
     for name, op, args in cases:
@@ -2125,13 +2278,12 @@ def ops_phase(graph, gen):
     emit({"phase": "ops", "checked": list(seconds), "seconds": seconds, "ok": True})
 
 
-def export_phase(model, ctx, batch, phase="export", want=None):
-    """A GBM fold's eval forward exported (torch.export), saved, and loaded
-    in a fresh process: its probabilities against the live eval_step on
-    the same batch, its launches per call against the live call's (want:
-    K1 2 / K2 2, sage's, when None), the artifact's bytes, load and
-    first-call seconds, and the device ms of an exported call against a
-    live one."""
+def export_save(model, ctx, batch, root, phase="export", want=None):
+    """A GBM fold's eval forward exported (torch.export) and saved under
+    root/<phase>, with the live eval_step's probabilities and launches on
+    the same batch (want: K1 2 / K2 2, sage's, when None), the live call's
+    CUDA-event and device ms, and the program's mgtpu ops: a pending
+    export_check record."""
     from multilevel_gnn_tpu_torch.train.export import export_program, save_exported
 
     B, n_nodes = batch.x.shape
@@ -2150,41 +2302,60 @@ def export_phase(model, ctx, batch, phase="export", want=None):
     live_launches = launch_counts()
     live_event_ms = cuda_ms(lambda: eval_step(model, batch, ctx))
     live_device_ms = device_ms(lambda: eval_step(model, batch, ctx))
-    with tempfile.TemporaryDirectory() as root:
-        out = f"{root}/export"
-        save_exported(out, {"program": program, "meta": meta})
-        del program
-        artifact_bytes = _dir_bytes(out)
-        np.savez(f"{root}/inputs.npz", x=batch.x.cpu().numpy(), age=batch.age.cpu().numpy())
-        r = subprocess.run([sys.executable, "-c", EXPORT_CHILD, out, f"{root}/inputs.npz"],
-                           capture_output=True, text=True, env=_child_env(), timeout=600)
+    out = f"{root}/{phase}"
+    save_exported(out, {"program": program, "meta": meta})
+    del program
+    np.savez(f"{out}.npz", x=batch.x.cpu().numpy(), age=batch.age.cpu().numpy())
+    return {"phase": phase, "dir": out, "inputs": f"{out}.npz", "live": live.cpu().numpy(),
+            "live_launches": live_launches,
+            "want": want or want_launches({k1.KERNEL.name: 2, k2.KERNEL.name: 2}),
+            "line": {"phase": phase, "gnn_name": model.cfg.gnn_name, "n_nodes": n_nodes,
+                     "n_edges": ctx.graph.n_edges, "batch": B, "export_s": export_s,
+                     "artifact_bytes": _dir_bytes(out), "n_tensors": meta["n_tensors"],
+                     "live_event_ms": live_event_ms, "live_device_ms": live_device_ms,
+                     "mgtpu_ops_in_graph": {k: v for k, v in targets.items() if "mgtpu" in k},
+                     "auto_functionalized_nodes": sum(
+                         v for k, v in targets.items() if "auto_functionalized" in k)}}
+
+
+def export_check(pending):
+    """export_save's artifacts loaded in one fresh process, in order: each
+    one's probabilities against its live eval_step within TOL_EXPORT x
+    max(1, max|ref|), its launches per call equal to the live call's and
+    to its want, its load and first-call seconds, and the device ms of an
+    exported call against a live one; one line each.  Returns [launches
+    per exported call]."""
+    args = [a for rec in pending for a in (rec["dir"], rec["inputs"])]
+    r = subprocess.run([sys.executable, "-c", EXPORT_CHILD, *args],
+                       capture_output=True, text=True, env=_child_env(), timeout=600)
     if r.returncode != 0:
-        raise AssertionError(f"export: the artifact's process failed:\n{r.stderr[-4000:]}")
-    child = _last_json(r.stdout)
-    ref = live.cpu().numpy()
-    got = np.asarray(child["probs"])
-    err = float(np.abs(got - ref).max())
-    lim = TOL_EXPORT * max(1.0, float(np.abs(ref).max()))
-    want = want or {k1.KERNEL.name: 2, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
-    ok = (got.shape == ref.shape and err <= lim and child["launches"] == live_launches
-          and live_launches == want)
-    emit({"phase": phase, "gnn_name": model.cfg.gnn_name, "n_nodes": n_nodes, "n_edges": ctx.graph.n_edges, "batch": B,
-          "export_s": export_s, "artifact_bytes": artifact_bytes,
-          "n_tensors": meta["n_tensors"],
-          "load_s": child["load_s"], "import_torch_s": child["import_torch_s"],
-          "load_exported_s": child["load_exported_s"],
-          "load_again_s": child["load_again_s"], "first_call_s": child["first_call_s"],
-          "max_abs_err": err, "tol": lim, "equal_bits": bool(np.array_equal(got, ref)),
-          "launches_per_call": child["launches"], "live_launches_per_call": live_launches,
-          "event_ms": child["event_ms_median"], "live_event_ms": live_event_ms,
-          "device_ms": child["device_ms"], "live_device_ms": live_device_ms,
-          "mgtpu_ops_in_graph": {k: v for k, v in targets.items() if "mgtpu" in k},
-          "auto_functionalized_nodes": sum(v for k, v in targets.items()
-                                           if "auto_functionalized" in k),
-          "ok": ok})
-    if not ok:
-        raise AssertionError(f"{phase}: the exported call differs from the live one")
-    return child["launches"]
+        raise AssertionError(f"export: the artifacts' process failed:\n{r.stderr[-4000:]}")
+    children = _last_json(r.stdout)
+    order = [rec["phase"] for rec in pending]
+    for rec, child in zip(pending, children):
+        ref, got = rec["live"], np.asarray(child["probs"])
+        err = float(np.abs(got - ref).max())
+        lim = TOL_EXPORT * max(1.0, float(np.abs(ref).max()))
+        ok = (got.shape == ref.shape and err <= lim and child["launches"] == rec["live_launches"]
+              and rec["live_launches"] == rec["want"])
+        emit({**rec["line"], "child_loads": order,
+              **{k: child[k] for k in ("load_order", "load_s", "import_torch_s",
+                                       "load_exported_s", "load_again_s", "first_call_s")},
+              "max_abs_err": err, "tol": lim, "equal_bits": bool(np.array_equal(got, ref)),
+              "launches_per_call": child["launches"],
+              "live_launches_per_call": rec["live_launches"],
+              "event_ms": child["event_ms_median"], "device_ms": child["device_ms"],
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"{rec['phase']}: the exported call differs from the live one")
+    return [child["launches"] for child in children]
+
+
+def export_phase(model, ctx, batch, phase="export", want=None):
+    """export_save and export_check of one fold: the launches per exported
+    call."""
+    with tempfile.TemporaryDirectory() as root:
+        return export_check([export_save(model, ctx, batch, root, phase, want)])[0]
 
 
 def warm_phase():
@@ -2257,7 +2428,7 @@ def expected_step_launches(ctx, n_layers):
     layer and graph, K2 forward and transpose plus K1 over each non-empty
     residual plan on a windowed graph, K1 over csr and csc on a composed
     one; and the PCA gather's backward (K1)."""
-    want = {k1.KERNEL.name: 1, k2.KERNEL.name: 0, k3.KERNEL.name: 0, k4.name: 0}
+    want = want_launches({k1.KERNEL.name: 1})
     for g in (ctx.graph, ctx.graph2):
         if g is None:
             continue
@@ -2495,8 +2666,7 @@ def dgcn_serve_phase(model, ctx, X, raw, cohort, n_batches):
     dt = time.perf_counter() - t0
     launches = launch_counts()
     L = model.cfg.num_layers
-    want = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: L * n_batches,
-            k4.name: 0}
+    want = want_launches({k3.KERNEL.name: L * n_batches})
     prob = np.asarray(res["prob"])
     ok = (len(prob) == N_PATIENTS and bool(np.isfinite(prob).all())
           and bool(((prob >= 0) & (prob <= 1)).all()) and launches == want)
@@ -2594,7 +2764,7 @@ def deepergcn_phases(root, cohort, gen):
     # a step: K3 once a layer (forward); K1 as each layer's gather_src
     # backward and once as the edge-id lookup's backward
     L = fcfg.num_layers
-    want_step = {k1.KERNEL.name: L + 1, k2.KERNEL.name: 0, k3.KERNEL.name: L, k4.name: 0}
+    want_step = want_launches({k1.KERNEL.name: L + 1, k3.KERNEL.name: L})
     torch.cuda.reset_peak_memory_stats()
     per_step, step_kernel_ms = profile_train(model, ctx, batch, cw, want_step,
                                              phase="profile_train_deepergcn")
@@ -2723,8 +2893,8 @@ def mo_launches(cfg, n_batches=1, step=False):
     n_k1 = 2 * convs if soft else 0
     if step:
         n_k1 += convs + (convs if soft and cfg.learn_t and cfg.gcn_aggr != "softmax_sg" else 0)
-    return {k1.KERNEL.name: n_k1 * n_batches, k2.KERNEL.name: 0,
-            k3.KERNEL.name: (convs if cfg.gcn_aggr == "max" else 0) * n_batches, k4.name: 0}
+    return want_launches({k1.KERNEL.name: n_k1 * n_batches,
+                          k3.KERNEL.name: (convs if cfg.gcn_aggr == "max" else 0) * n_batches})
 
 
 def mo_batches(X, attrs, cohort, idx, B):
@@ -2937,8 +3107,7 @@ def dgcn_explain_phase(model, ctx, batch):
     e, m = err_of(ig, ref)
     trunk = "bf16" if model.cfg.compute_dtype else "f32"
     L = model.cfg.num_layers
-    want = {k1.KERNEL.name: L * IG_STEPS, k2.KERNEL.name: 0, k3.KERNEL.name: L * IG_STEPS,
-            k4.name: 0}
+    want = want_launches({k1.KERNEL.name: L * IG_STEPS, k3.KERNEL.name: L * IG_STEPS})
     try:
         pathway_attributions(ig, ctx, model.cfg.pathway_num)
         raised = None
@@ -2981,7 +3150,7 @@ def dyn_phase(gen):
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
     counts = {}
-    want = {k1.KERNEL.name: 2, k2.KERNEL.name: 0, k3.KERNEL.name: 1, k4.name: 0}
+    want = want_launches({k1.KERNEL.name: 2, k3.KERNEL.name: 1})
     for name, blk in (("DynConv", DynConv(DYN_C, DYN_C, DYN_K)),
                       ("ResDynBlock", ResDynBlock(DYN_C, DYN_K))):
         blk = blk.to("cuda")
@@ -3657,7 +3826,7 @@ def fp_step_phase(units, want=None, phase="fold_parallel_step", rounds=2,
             d = float((st["params"][n].grad[i] - ref).abs().max())
             rel[n] = max(rel.get(n, 0.0), d / max(float(ref.abs().max()), 1e-30))
     worst = max(rel.values())
-    want = want or {k1.KERNEL.name: 7, k2.KERNEL.name: 4, k3.KERNEL.name: 0, k4.name: 0}
+    want = want or want_launches({k1.KERNEL.name: 7, k2.KERNEL.name: 4})
 
     def stacked():
         stacked_train_step(st["template"], st["params"], st["opt"], st["batch"],
@@ -3729,7 +3898,7 @@ def fp_serve_phase(units):
              u[2], u[3], u[4]) for s, u in enumerate(units)]
         st, errs[trunk], errs[trunk + "_loss"] = fp_eval_errs(us)
     # the loop ends on the bf16 trunk, whose stacked state is timed below
-    want = {k1.KERNEL.name: 2, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
+    want = want_launches({k1.KERNEL.name: 2, k2.KERNEL.name: 2})
     out = fp_compare(
         lambda: stacked_eval_step(st["template"], st["params"], st["batch"], st["sctx"]),
         lambda: [eval_step(u[1], u[4], u[3]) for u in units], want, len(units))
@@ -4016,11 +4185,9 @@ def fpd_step_phases(folds, cohort):
     units = fpd_units(folds, cohort, U)
     # a step: K3 once a layer; K1 as each layer's gather_src backward and once
     # as the edge-id lookup's backward; a batch: K3 once a layer
-    step = fp_step_phase(units, {k1.KERNEL.name: L + 1, k2.KERNEL.name: 0,
-                                 k3.KERNEL.name: L, k4.name: 0},
+    step = fp_step_phase(units, want_launches({k1.KERNEL.name: L + 1, k3.KERNEL.name: L}),
                          "fold_parallel_deepergcn_step", rounds=1)
-    serve = fp_serve_units(units, {k1.KERNEL.name: 0, k2.KERNEL.name: 0,
-                                   k3.KERNEL.name: L, k4.name: 0},
+    serve = fp_serve_units(units, want_launches({k3.KERNEL.name: L}),
                            "fold_parallel_deepergcn_serve", rounds=1)
     del units
     torch.cuda.empty_cache()
@@ -4100,8 +4267,8 @@ def fpf_gbm_phases(units):
     """The stacked vae_finetune (DiffPool step and serving; ConvHead
     serving) and PathCNN (a step) on the GBM units; returns ({path:
     launches a stacked batch}, {path: launches a stacked step})."""
-    sage_batch = {k1.KERNEL.name: 2, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
-    sage_step = {k1.KERNEL.name: 7, k2.KERNEL.name: 4, k3.KERNEL.name: 0, k4.name: 0}
+    sage_batch = want_launches({k1.KERNEL.name: 2, k2.KERNEL.name: 2})
+    sage_step = want_launches({k1.KERNEL.name: 7, k2.KERNEL.name: 4})
     serve, per_step = {}, {}
     vae = fpf_vae_units(units, "diff_pooling")
     per_step["fold_parallel_vae_finetune_diff_pooling"] = fp_step_phase(
@@ -4112,9 +4279,8 @@ def fpf_gbm_phases(units):
     serve["fold_parallel_serve_vae_finetune_conv_head"] = fp_serve_units(
         vae, sage_batch, "fold_parallel_vae_finetune_conv_head_serve", rounds=1)
     del vae
-    none = {k1.KERNEL.name: 0, k2.KERNEL.name: 0, k3.KERNEL.name: 0, k4.name: 0}
     per_step["fold_parallel_pathcnn"] = fp_step_phase(
-        fpf_pathcnn_units(units), none, "fold_parallel_pathcnn_step", rounds=1,
+        fpf_pathcnn_units(units), want_launches(), "fold_parallel_pathcnn_step", rounds=1,
         tol=TOL_GRAD_FP_F32)
     torch.cuda.empty_cache()
     return serve, per_step
@@ -4385,7 +4551,7 @@ def _halo_predicted(rh):
     w = rh.win
     fwd1 = (1 if w.res.nnz else 0) + 1
     bwd1 = (1 if w.tres.nnz else 0) + (1 if w.res_csc.nnz else 0) + 2
-    return {k1.KERNEL.name: fwd1 + bwd1, k2.KERNEL.name: 2, k3.KERNEL.name: 0, k4.name: 0}
+    return want_launches({k1.KERNEL.name: fwd1 + bwd1, k2.KERNEL.name: 2})
 
 
 def _mesh_halo(rank):
@@ -4967,17 +5133,26 @@ def card_setup() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def build_phase() -> None:
-    """Every kernel built from the checkout's sources, in parallel."""
+def build_phase() -> dict:
+    """Every kernel built from the checkout's sources, in parallel, and the
+    data libraries (g++) beside them; returns {kernel: build seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multilevel_gnn_tpu_torch.data import native
+
     t0 = time.perf_counter()
-    times = build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        libraries = pool.submit(native.build_libraries)
+        times = build.build_all()
+        library_s = libraries.result()
     regs = {
         k.name: [ln.strip() for ln in k.ptxas_log.splitlines()
                  if "registers" in ln or "spill" in ln]
         for k in build.REGISTRY.values()
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": times, "ptxas": regs})
+          "per_kernel_s": times, "data_libraries_s": library_s, "ptxas": regs})
+    return times
 
 
 def gbm_fold():
@@ -5010,6 +5185,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    with contextlib.ExitStack() as stack:
+        return run(stack)
+
+
+def run(stack) -> int:
+    """The phases in order; stack ends the run's child process and removes
+    its files when the run ends."""
     smi = card_setup()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -5018,7 +5200,11 @@ def main() -> int:
           "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_tf32": torch.backends.cudnn.allow_tf32})
 
-    build_phase()
+    build_s = build_phase()
+    # the protocol's files, written beside the card's phases
+    root = stack.enter_context(tempfile.TemporaryDirectory())
+    writer = start_cohort_files(root)
+    stack.callback(writer.kill)  # a no-op once cohort_phase has waited for it
 
     t0 = time.perf_counter()
     cfg, model, graph, ctx, batch = gbm_fold()
@@ -5035,6 +5221,9 @@ def main() -> int:
     r1 = kernel_k1(graph, w, F, gen)
     r2 = kernel_k2(graph, w, F, gen)
     r3 = kernel_k3(graph, F, cfg.batch_size * cfg.final_channels, gen)
+    # ---- P1, the row-gather probe (tools/bench_dma_gather.py): its own path
+    p1_path, r_p1 = dma_gather_phase(r1[("all_edges", "bfloat16")]["ms"],
+                                     build_s[p1.KERNEL.name])
 
     X, Y, ages = patients(graph.n_nodes)
     idx = np.arange(N_PATIENTS)
@@ -5065,7 +5254,9 @@ def main() -> int:
     slice_checks(model, graph, ctx, batch)
     profile_serve(model, ctx, batch)
     ops_phase(graph, gen)
-    export_launches = export_phase(model, ctx, batch)
+    # the sage and GAT artifacts, loaded in one fresh process after both are saved
+    export_root = tempfile.TemporaryDirectory()
+    exports = [export_save(model, ctx, batch, export_root.name)]
 
     # ---- the training path
     b1, b2 = kernel_bwd(graph, ctx, w, F, cfg.batch_size * cfg.final_channels, gen)
@@ -5082,12 +5273,11 @@ def main() -> int:
                                                     tr["cw"], tr["per_step"])
     # the composed path: K1 over csr (2 layers), csc (2) and the PCA gather
     profile_train(tr["model"], composed_ctx(ctx), tr["batch"], tr["cw"],
-                  {k1.KERNEL.name: 5, k2.KERNEL.name: 0, k3.KERNEL.name: 0,
-                   k4.name: 0}, phase="profile_train_composed")
+                  want_launches({k1.KERNEL.name: 5}), phase="profile_train_composed")
     del tr
     torch.cuda.empty_cache()
     repairs_phase(model, ctx, train_kernel_ms)
-    paths = {"serve_sage": launches, "export": export_launches,
+    paths = {"dma_gather": p1_path, "serve_sage": launches,
              "explain": explain_phase(model, ctx, batch)}
     optim_phase()
     torch.cuda.empty_cache()
@@ -5100,9 +5290,12 @@ def main() -> int:
             conv, tcfg, ctx, batch, n_batches)
     gat = MultilevelGNN(tcfg.replace(gnn_name="gat", final_head=GBM_FINAL_HEAD),
                         graph.n_nodes, ctx.num_pca_rows, device="cuda", seed=0)
-    paths["export_gat"] = export_phase(gat, ctx, batch, "export_gat",
-                                       conv_launches("gat", graph.winplan)[0])
+    exports.append(export_save(gat, ctx, batch, export_root.name, "export_gat",
+                               conv_launches("gat", graph.winplan)[0]))
     del gat
+    paths["export"], paths["export_gat"] = export_check(exports)
+    export_root.cleanup()
+    del exports
     torch.cuda.empty_cache()
     rz = kernel_zoo(graph, cfg.batch_size, cfg.hidden_channels, cfg.final_channels,
                     GBM_FINAL_HEAD, gen)
@@ -5126,43 +5319,42 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- the protocol from reference-format files
-    with tempfile.TemporaryDirectory() as root:
-        cohort = cohort_phase(root)
-        paths["experiment"] = experiment_phase(root)
-        SMALL_SCORES.update(small_protocol_vs_cpu(GBM_YAML, "experiment_small_vs_cpu"))
-        for name in SHIPPED:
-            paths[f"experiment_{name}"] = shipped_experiment_phase(name, root)
-        small = small_files(root)
-        profile_phase(small)
-        ckpt_dir = ckpt_phase(root, cohort)
-        paths["predict"] = predict_phase(root, cohort, ckpt_dir)
-        paths["explain_cli"] = explain_cli_phase(root, ckpt_dir)
-        # ---- fold-parallel CV: the units in one stacked step
-        r_fp, fp_paths, fp_step = fold_parallel_phases(root, cohort, small, gen)
-        paths.update(fp_paths)
-        per_step.update(fp_step)
-        # ---- DeeperGCN on the same files' gene-level fold graph
-        dg = deepergcn_phases(root, cohort, gen)
-        paths["serve_deepergcn"] = dg["serve"]
-        paths["experiment_deepergcn"] = dg["experiment"]
-        paths["explain_deepergcn"] = dg["explain"]
-        per_step["deepergcn"] = dg["per_step"]
-        paths.update(dg["s11"]["serve"])
-        per_step.update(dg["s11"]["per_step"])
-        del cohort
-        # ---- STRING PPI tables beside the GRN list: edge_type ppi and merge
-        from multilevel_gnn_tpu_torch.data.loaders import read_kegg_csv
-        from multilevel_gnn_tpu_torch.data.synthetic import write_string_ppi
+    cohort = cohort_phase(root, writer=writer)
+    paths["experiment"] = experiment_phase(root)
+    SMALL_SCORES.update(small_protocol_vs_cpu(GBM_YAML, "experiment_small_vs_cpu"))
+    for name in SHIPPED:
+        paths[f"experiment_{name}"] = shipped_experiment_phase(name, root)
+    small = small_files(root)
+    profile_phase(small)
+    ckpt_dir = ckpt_phase(root, cohort)
+    paths["predict"] = predict_phase(root, cohort, ckpt_dir)
+    paths["explain_cli"] = explain_cli_phase(root, ckpt_dir)
+    # ---- fold-parallel CV: the units in one stacked step
+    r_fp, fp_paths, fp_step = fold_parallel_phases(root, cohort, small, gen)
+    paths.update(fp_paths)
+    per_step.update(fp_step)
+    # ---- DeeperGCN on the same files' gene-level fold graph
+    dg = deepergcn_phases(root, cohort, gen)
+    paths["serve_deepergcn"] = dg["serve"]
+    paths["experiment_deepergcn"] = dg["experiment"]
+    paths["explain_deepergcn"] = dg["explain"]
+    per_step["deepergcn"] = dg["per_step"]
+    paths.update(dg["s11"]["serve"])
+    per_step.update(dg["s11"]["per_step"])
+    del cohort
+    # ---- STRING PPI tables beside the GRN list: edge_type ppi and merge
+    from multilevel_gnn_tpu_torch.data.loaders import read_kegg_csv
+    from multilevel_gnn_tpu_torch.data.synthetic import write_string_ppi
 
-        write_string_ppi(root, read_kegg_csv(f"{root}/kegg.csv"), seed=3, e_ppi=PPI_EDGES,
-                         cancer_type="gbm")
-        write_string_ppi(small, read_kegg_csv(f"{small}/kegg.csv"), seed=3, e_ppi=800,
-                         cancer_type="gbm")
-        for edge_type in ("ppi", "merge"):
-            paths[edge_type] = graph_source_phase(edge_type, root, small)
-            torch.cuda.empty_cache()
-        paths["gat_protocol"] = gat_protocol_phase(small)
-        paths["pretrain_protocol"], paths["pathcnn_protocol"] = pretrain_protocol_phase(small)
+    write_string_ppi(root, read_kegg_csv(f"{root}/kegg.csv"), seed=3, e_ppi=PPI_EDGES,
+                     cancer_type="gbm")
+    write_string_ppi(small, read_kegg_csv(f"{small}/kegg.csv"), seed=3, e_ppi=800,
+                     cancer_type="gbm")
+    for edge_type in ("ppi", "merge"):
+        paths[edge_type] = graph_source_phase(edge_type, root, small)
+        torch.cuda.empty_cache()
+    paths["gat_protocol"] = gat_protocol_phase(small)
+    paths["pretrain_protocol"], paths["pathcnn_protocol"] = pretrain_protocol_phase(small)
     bench_scaling_phase(*warm_phase())
     # ---- the mesh (parallel/): NCCL at world size 1, then two gloo ranks
     # on cuda:0
@@ -5175,6 +5367,7 @@ def main() -> int:
     main_k2 = r2["bfloat16"]
     main_k3 = r3[(F, "bfloat16")]
     main_k4 = r4[("K4a", "bfloat16")]
+    main_p1 = r_p1["float32"]  # the tool's first dtype; bf16 among the forms
     backward = {
         k1.KERNEL.name: [b1[(c, "bfloat16")] for c in
                          ("csc", "tres", "res_csc", "gather_rows_bwd",
@@ -5182,6 +5375,7 @@ def main() -> int:
         k2.KERNEL.name: [b2["bfloat16"]],
         k3.KERNEL.name: [],  # its backward is torch's compare and where
         k4.name: [],
+        p1.KERNEL.name: [],
     }
     # other forms: K1 over all edges (the composed forward) and the f32
     # forms; K2's f32 sides; K4b, f32, and segment_sum_by through perm
@@ -5193,7 +5387,8 @@ def main() -> int:
         k2.KERNEL.name: [r2["float32"], b2["float32"]],
         k4.name: [r4[key] for key in (("K4b", "bfloat16"), ("K4a", "float32"),
                                       ("K4b", "float32"),
-                                      ("segment_sum_by", "bfloat16"))]}
+                                      ("segment_sum_by", "bfloat16"))],
+        p1.KERNEL.name: [r_p1["bfloat16"]]}
     # DeeperGCN's forms on the gene-level fold: K3 at F = B*H and 2*B*H, K1
     # as edge_segment_sum's forward and gather_src's backward at F = B*H
     forms[k3.KERNEL.name] = [r3[(F, "float32")], r3[(cfg.batch_size * cfg.final_channels,
@@ -5226,17 +5421,20 @@ def main() -> int:
     for form_of, r in r_mesh.values():
         forms[{"k1": k1, "k2": k2, "k3": k3}[form_of].KERNEL.name].append(r)
     # launches: the count on the kernel's first serving path (sage for K1
-    # and K2, mr for K3); every path's count is in launches_by_path
+    # and K2, mr for K3; P1's own path, the probe); every path's count is
+    # in launches_by_path
     first = {k1.KERNEL.name: "serve_sage", k2.KERNEL.name: "serve_sage",
-             k3.KERNEL.name: "serve_mr", k4.name: "serve_sage"}
+             k3.KERNEL.name: "serve_mr", k4.name: "serve_sage",
+             p1.KERNEL.name: "dma_gather"}
     # the torch.library ops each kernel backs
     ops = {k1.KERNEL.name: ["mgtpu::segment_spmm_csr", "mgtpu::segment_spmm_csr_acc"],
            k2.KERNEL.name: ["mgtpu::windowed_tile_spmm"],
            k3.KERNEL.name: ["mgtpu::segment_max_csr"],
-           k4.name: ["mgtpu::sorted_segment_sum"]}
+           k4.name: ["mgtpu::sorted_segment_sum"],
+           p1.KERNEL.name: ["mgtpu::dma_row_gather"]}
     kernels = []
     for k, r in ((k1.KERNEL, main_k1), (k2.KERNEL, main_k2), (k3.KERNEL, main_k3),
-                 (k4, main_k4)):
+                 (k4, main_k4), (p1.KERNEL, main_p1)):
         kernels.append({
             "name": k.name, "route": k.route, "source": k.source_rel, "ops": ops[k.name],
             "replaces": k.replaces, "launches": paths[first[k.name]][k.name],
@@ -5245,7 +5443,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "train_launches_per_step": per_step[
-                "sage" if first[k.name] == "serve_sage" else "mr"][k.name],
+                "mr" if first[k.name] == "serve_mr" else "sage"][k.name],
             "launches_by_path": {p: c[k.name] for p, c in paths.items()},
             "train_launches_per_step_by_path": {
                 p: c[k.name] for p, c in per_step.items()},

@@ -43,8 +43,9 @@ def load_exported(out_dir: str):
     on the artifact's device; x (B, n_nodes) and age (B,) may be numpy
     arrays or tensors.  ``infer.meta`` is the artifact's meta.json."""
     # the op registrations the program's kernel calls resolve to
-    import multilevel_gnn_tpu_torch.ops.kernels.segment_max  # noqa: F401
-    import multilevel_gnn_tpu_torch.ops.kernels.windowed  # noqa: F401
+    from multilevel_gnn_tpu_torch.ops.kernels import import_all
+
+    import_all()
 
     with open(os.path.join(out_dir, META)) as f:
         meta = json.load(f)

@@ -25,6 +25,7 @@ import argparse
 import json
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import numpy as np
@@ -32,21 +33,21 @@ import numpy as np
 
 def warm_builds(device) -> Dict[str, float]:
     """Build (if needed) and load the kernels (on a CUDA device) and the
-    data libraries; {name: seconds its build took, 0.0 when found built}."""
+    data libraries; {name: seconds its build took, 0.0 when found built}.
+    The g++ builds run beside the nvcc ones."""
     import torch
 
     from multilevel_gnn_tpu_torch.data import native
 
-    builds = {}
-    if torch.device(device).type == "cuda":
-        from multilevel_gnn_tpu_torch.ops.kernels import build
+    if torch.device(device).type != "cuda":
+        return native.build_libraries()
+    from multilevel_gnn_tpu_torch.ops.kernels import build, import_all
 
-        # the kernels' modules register them
-        import multilevel_gnn_tpu_torch.ops.kernels.segment_max  # noqa: F401
-        import multilevel_gnn_tpu_torch.ops.kernels.windowed  # noqa: F401
-
-        builds.update(build.build_all())
-    builds.update(native.build_libraries())
+    import_all()  # the kernels' modules register them
+    with ThreadPoolExecutor(1) as pool:
+        libraries = pool.submit(native.build_libraries)
+        builds = build.build_all()
+        builds.update(libraries.result())
     return builds
 
 

@@ -46,7 +46,12 @@ version; a stacked train step of three small windowed folds (bf16, f32;
 1,200 node slots over two windows, so each fold has residual and tres
 edges) launching K1 7 / K2 4, as often as one unit's own train step,
 each unit's gradients within 35 x TOL of the largest of its own step's
-(batched GEMMs and a grouped convolution in place of the unit's own).
+(batched GEMMs and a grouped convolution in place of the unit's own).  P1
+(the per-row gather probe): at tools/bench_dma_gather.py's shapes (N
+15,408, E 165,888, te 256), with a short last chunk, with te 1,024 and
+with chunks of 3 rows, bf16 and f32, against the plain version within 1e-4
+x max(1, max|plain|) in both dtypes (the inputs are exact in f32), two
+calls equal bit for bit; an empty src gives zeros.
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -59,6 +64,7 @@ import numpy as np
 import pytest
 import torch
 
+from multilevel_gnn_tpu_torch.ops.kernels import dma_gather as p1
 from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
@@ -917,3 +923,30 @@ def test_stacked_step_matches_unit_steps(dev, dtype):
                 continue
             err = float((params[name].grad[u] - p.grad).abs().max())
             assert err <= tol * float(p.grad.abs().max()) + 1e-30, (u, name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,te", [(165_888, 256), (4_097, 1024), (1_000, 256), (7, 3)])
+def test_p1_matches_plain(dev, dtype, E, te):
+    """P1 at the tool's shapes and with ragged, long and short chunks: the
+    kernel against its plain version, two calls equal bit for bit, the 8
+    rows equal, one launch a call."""
+    N = 15_408
+    rng = np.random.RandomState(0)
+    x3 = torch.from_numpy(rng.randn(N, 16, 128).astype(np.float32)).to(dtype).to(dev)
+    src = torch.from_numpy(rng.randint(0, N, E).astype(np.int32)).to(dev)
+    p1.check_src(src, N)
+    before = p1.KERNEL.launches
+    out = p1.dma_row_gather(x3, src, te)
+    again = p1.dma_row_gather(x3, src, te)
+    torch.cuda.synchronize()
+    assert p1.KERNEL.launches == before + 2
+    _close(out, p1.dma_row_gather_plain(x3, src), torch.float32)
+    assert torch.equal(out, again) and bool((out == out[:1]).all())
+
+
+def test_p1_empty_src(dev):
+    x3 = torch.randn(16, 16, 128, device=dev)
+    out = p1.dma_row_gather(x3, torch.empty(0, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros(8, 128, device=dev))

@@ -1,4 +1,4 @@
-"""K1-K4 as torch.library custom ops (namespace mgtpu) on the CPU.
+"""K1-K4 and P1 as torch.library custom ops (namespace mgtpu) on the CPU.
 
 ``torch.library.opcheck`` runs each op's schema, fake (meta) function and
 dispatch tests on CPU tensors at small shapes, and each op's CPU result
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from multilevel_gnn_tpu_torch.ops.kernels import dma_gather as p1
 from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
@@ -64,6 +65,10 @@ def op_cases():
         cases.append((f"k4_by_{dtype}", k1.sorted_segment_sum_op,
                       (data, splan.rowptr, splan.perm, splan.seg),
                       k1.sorted_segment_sum_plain(data, splan, permuted=True)))
+        x3 = torch.as_tensor(rng.randn(64, 16, 128).astype(np.float32)).to(dtype)
+        rows = torch.as_tensor(rng.randint(0, 64, 500).astype(np.int32))
+        cases.append((f"p1_{dtype}", p1.dma_row_gather_op, (x3, rows, 8),
+                      p1.dma_row_gather_plain(x3, rows)))
     return cases
 
 
@@ -93,7 +98,7 @@ def test_op_equals_plain_cpu(name):
 
 def test_ops_registered_in_namespace():
     for name in ("segment_spmm_csr", "segment_spmm_csr_acc", "windowed_tile_spmm",
-                 "segment_max_csr", "sorted_segment_sum"):
+                 "segment_max_csr", "sorted_segment_sum", "dma_row_gather"):
         op = getattr(torch.ops.mgtpu, name).default
         schema = op._schema
         # tensors and ints only
