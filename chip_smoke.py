@@ -68,7 +68,14 @@ each:
            ms, event ms, plain ms, bound, the time of every gathered row
            read from HBM, rows/s, gathered GB/s, embedding_bag's sum of the
            same rows (ms; its first 128 columns within 1e-4 / 2e-3) and
-           K1's csr ms at F 2,048 beside it
+           K1's csr ms at F 2,048 beside it; every output also equal bit
+           for bit to dma_row_gather_ordered (the kernel's order of
+           additions).  Then one line a reading: "tool, cold" (the L2
+           flushed before each call), "l2_resident" (src drawn from the
+           rows of x3 that fill half the L2: the card's rate of whole rows
+           copied from L2 into shared memory) and "k1_stream" (src = the
+           fold's csr source rows, x3 an (N, 2,048) input viewed as (N, 16,
+           128)), with K1's csr ms of the same dtype beside it
 
 Then, for each of gnn_name mr (MRConv), edge (EdgeConv), gat (GATConv, the
 Config's default, f32 with gbm.yaml's final_head 4), gcn (GCNConv) and gin
@@ -442,6 +449,7 @@ SYMBOLS = {
     "windowed_tile_spmm": ("win_kernel", "entry_values"),
     "segment_max_csr": ("segment_max_csr_kernel",),
     "sorted_segment_sum": ("sorted_segment_sum_kernel",),
+    "dma_row_gather": ("gather_chunks_kernel", "add_partials_kernel"),
 }
 
 N_PATIENTS = 123  # 4 batches of 32, the last one padded
@@ -497,9 +505,11 @@ def emit(obj) -> None:
 WINDOWS = {"kept": 0, "dropped": 0}  # device_ms's profiled windows, over the run
 
 
-def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3,
+              symbols=None) -> float:
     """Device time of one fn() call in ms: the time of the kernels it
-    launches, from the profiler's device rows, per call over iters calls;
+    launches (only those whose names hold one of ``symbols``, where
+    given), from the profiler's device rows, per call over iters calls;
     the median of `windows` profiled windows, since a window's record can
     come back short.  Unlike events around a call, it leaves out the
     host's launch time, which sets the events' reading where the kernels
@@ -520,7 +530,8 @@ def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = kernel_rows(prof, iters)
+        rows = [r for r in kernel_rows(prof, iters)
+                if symbols is None or any(k in r[0] for k in symbols)]
         seen.append((sum(r[1] for r in rows), sum(r[2] for r in rows)))
         # a window whose record came back short has fewer kernel records
         # than the fullest one; only the fullest windows are kept
@@ -822,6 +833,7 @@ def kernel_k3(graph, F_wide, F_narrow, gen):
 # P1, tools/bench_dma_gather.py's probe at the tool's shapes: N rows of
 # (16, 128), E gathered rows, chunks of te edges; the kernel and its plain
 # version are held at TOL_F32 in both dtypes (the inputs are exact in f32),
+# to dma_row_gather_ordered (its own order of additions) bit for bit, and
 # embedding_bag's sum (its output in x3's dtype) at TOL_F32 / TOL_BF16
 P1_N, P1_E, P1_TE = 15_408, 165_888, 256
 TOL_P1_LIBRARY = {"float32": TOL_F32, "bfloat16": TOL_BF16}
@@ -841,57 +853,162 @@ def p1_inputs():
     return out
 
 
-def time_p1(x3, src, out):
-    """P1 against its plain version (TOL_F32) and its output ``out`` against
-    a second call (equal bit for bit), with its ms, plain ms, bound, the time
-    of every gathered row read from HBM, and embedding_bag's sum of the same
-    rows (checked on the first 128 columns) and ms (over 3 calls a window:
-    one bag of E rows takes tens of ms)."""
+def p1_checks(name, x3, src, out, ordered):
+    """P1's output ``out`` against its plain version (TOL_F32), a second
+    call (equal bit for bit, the 8 rows equal) and, where ``ordered`` is
+    given, dma_row_gather_ordered (equal bit for bit).  Returns (max abs
+    error, max |plain|, limit, the f32 words' sha256 prefix)."""
+    import hashlib
+
+    again = p1.dma_row_gather(x3, src, P1_TE)
+    ref = p1.dma_row_gather_plain(x3, src)
+    torch.cuda.synchronize()
+    e, m = err_of(out, ref)
+    limit = check(name, e, m, TOL_F32)
+    words = out.view(torch.int32)
+    if not (torch.equal(words, again.view(torch.int32)) and bool((out == out[:1]).all())):
+        raise AssertionError(f"{name}: two calls differ, or the 8 rows do")
+    if ordered is not None and not torch.equal(
+            words, ordered(x3, src, P1_TE).view(torch.int32)):
+        raise AssertionError(f"{name}: not equal bit for bit to dma_row_gather_ordered")
+    sha = hashlib.sha256(words.cpu().numpy().tobytes()).hexdigest()[:16]
+    return e, m, limit, sha
+
+
+def p1_bound(x3, src):
+    """(bound ms, bound_by, bytes) of one P1 call: each row of x3 that src
+    names read once, src read once, the (8, 128) f32 output written once;
+    E x 128 f32 adds."""
+    row_bytes = x3[0].numel() * x3.element_size()
+    b = int(torch.unique(src).numel()) * row_bytes + src.shape[0] * 4 + p1.OUT_ROWS * 128 * 4
+    return (*bound(b, float(src.shape[0]) * 128, "f32"), b)
+
+
+def p1_cold(x3, src):
+    """P1 with the L2 flushed before each call (a buffer of twice the L2
+    written between calls): (device ms of P1's kernels from the profiler,
+    CUDA events around the call alone, median of 20)."""
+    l2 = torch.cuda.get_device_properties(x3.device).L2_cache_size
+    flush = torch.empty(2 * l2, dtype=torch.uint8, device=x3.device)
+
+    def fn():
+        flush.fill_(1)
+        p1.dma_row_gather(x3, src, P1_TE)
+
+    ms = device_ms(fn, symbols=SYMBOLS[p1.KERNEL.name])
+    times = []
+    for _ in range(20):
+        flush.fill_(1)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        p1.dma_row_gather(x3, src, P1_TE)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return ms, float(np.median(times))
+
+
+def p1_reading(reading, x3, src, ordered, out=None, **extra):
+    """One P1 reading at te = P1_TE: the checks of p1_checks on ``out``
+    (a new call's output unless given), the warm ms (kernel_ms) and event
+    ms, bound and gathered TB/s."""
+    dt = str(x3.dtype).split(".")[-1]
+    if out is None:
+        out = p1.dma_row_gather(x3, src, P1_TE)
+    e, m, limit, sha = p1_checks(f"dma_gather {reading} {dt}", x3, src, out, ordered)
+    bms, by, b = p1_bound(x3, src)
+    ms, ms_src = kernel_ms(lambda: p1.dma_row_gather(x3, src, P1_TE), bms)
+    gathered = src.shape[0] * x3[0].numel() * x3.element_size()
+    return dict(reading=reading, dtype=dt, shape=list(x3.shape), E=src.shape[0], te=P1_TE,
+                rows_read=int(torch.unique(src).numel()), max_abs_err=e, ref_max=m,
+                limit=limit, bitwise_repeat=True,
+                ordered_equal=True if ordered is not None else None, out_sha=sha, ms=ms,
+                ms_source=ms_src,
+                event_ms=cuda_ms(lambda: p1.dma_row_gather(x3, src, P1_TE)),
+                bound_ms=bms, bound_by=by, bytes=b,
+                gathered_tb_per_s=gathered / (ms / 1e3) / 1e12, **extra)
+
+
+def p1_readings(x3, src, ordered, graph, k1_csr_ms):
+    """The readings P1 is read by, beside the tool's warm one: cold (the L2
+    flushed before each call), L2-resident (the same E, src drawn from the
+    first rows of x3 that fill half the L2: the card's rate of whole rows
+    copied from L2 into shared memory) and K1's stream on the fold's graph
+    (src = the csr's source rows, x3 = an (N, 2,048) input of the fold
+    viewed as (N, 16, 128)), beside K1's csr ms at F 2,048 ({dtype name:
+    ms}).  One phase line each; returns {reading: line}."""
+    dt = str(x3.dtype).split(".")[-1]
+    E, row_bytes = src.shape[0], x3[0].numel() * x3.element_size()
+    res = {}
+    cold_ms, cold_event_ms = p1_cold(x3, src)
+    bms, by, _ = p1_bound(x3, src)
+    res["tool, cold"] = dict(reading="tool, cold", dtype=dt, E=E, te=P1_TE, ms=cold_ms,
+                             ms_source="profiler, P1's kernels", event_ms=cold_event_ms,
+                             bound_ms=bms, bound_by=by,
+                             hbm_every_row_ms=E * row_bytes / HBM_BYTES_PER_S * 1e3,
+                             gathered_tb_per_s=E * row_bytes / (cold_ms / 1e3) / 1e12)
+    l2 = torch.cuda.get_device_properties(x3.device).L2_cache_size
+    n_l2 = l2 // 2 // row_bytes
+    rng = np.random.RandomState(1)
+    src_l2 = torch.from_numpy(rng.randint(0, n_l2, E).astype(np.int32)).to(x3.device)
+    res["l2_resident"] = p1_reading("l2_resident", x3, src_l2, ordered, l2_rows=n_l2,
+                                    l2_bytes=l2)
+    N = graph.n_nodes
+    gen = torch.Generator(device=x3.device).manual_seed(5)
+    x = torch.randn(N, 16 * 128, generator=gen, device=x3.device).to(x3.dtype)
+    p1.check_src(graph.csr.col, N)
+    res["k1_stream"] = p1_reading("k1_stream", x.view(N, 16, 128), graph.csr.col, ordered,
+                                  k1_csr_ms_f2048=k1_csr_ms[dt])
+    for reading, r in res.items():
+        r["case"] = f"row gather te={P1_TE}, {reading}"
+        emit({"phase": "dma_gather", **r, "ok": True})
+    return res
+
+
+def time_p1(x3, src, out, ordered):
+    """P1's reading at the tool's shapes, warm (p1_reading on the path's
+    output ``out``), with the plain version's ms, the time of every
+    gathered row read from HBM, and embedding_bag's sum of the same rows
+    (checked on the first 128 columns) and ms (over 3 calls a window: one
+    bag of E rows takes tens of ms)."""
     import torch.nn.functional as F
 
     dt = str(x3.dtype).split(".")[-1]
     N, E = x3.shape[0], src.shape[0]
     row_bytes = x3[0].numel() * x3.element_size()
-    again = p1.dma_row_gather(x3, src, P1_TE)
+    r = p1_reading("tool, warm", x3, src, ordered, out)
     ref = p1.dma_row_gather_plain(x3, src)
-    torch.cuda.synchronize()
-    e, m = err_of(out, ref)
-    limit = check(f"dma_gather {dt}", e, m, TOL_F32)
-    if not (torch.equal(out, again) and bool((out == out[:1]).all())):
-        raise AssertionError(f"dma_gather {dt}: two calls differ, or the 8 rows do")
     table, bag = x3.view(N, -1), src.long()[None]
 
     def library():
         return F.embedding_bag(bag, table, mode="sum")
 
     lib_err, _ = err_of(library()[0, :ref.shape[1]].float(), ref[0])
-    lib_limit = check(f"dma_gather embedding_bag {dt}", lib_err, m, TOL_P1_LIBRARY[dt])
-    b = int(torch.unique(src).numel()) * row_bytes + E * 4 + out.numel() * 4
-    bms, by = bound(b, float(E) * ref.shape[1], "f32")
-    ms, ms_src = kernel_ms(lambda: p1.dma_row_gather(x3, src, P1_TE), bms)
-    gathered = E * row_bytes
+    lib_limit = check(f"dma_gather embedding_bag {dt}", lib_err, r["ref_max"],
+                      TOL_P1_LIBRARY[dt])
+    gathered, ms = E * row_bytes, r["ms"]
     return dict(
-        case=f"row gather te={P1_TE}", dtype=dt, shape=list(x3.shape), E=E, te=P1_TE,
-        chunks=-(-E // P1_TE), row_bytes=row_bytes, max_abs_err=e, ref_max=m, limit=limit,
-        bitwise_repeat=True, ms=ms, ms_source=ms_src,
-        event_ms=cuda_ms(lambda: p1.dma_row_gather(x3, src, P1_TE)),
+        case=f"row gather te={P1_TE}", **r, chunks=-(-E // P1_TE), row_bytes=row_bytes,
         plain_ms=device_ms(lambda: p1.dma_row_gather_plain(x3, src)),
         library_ms=device_ms(library, iters=3), library_max_abs_err=lib_err,
-        library_limit=lib_limit, bound_ms=bms, bound_by=by, bytes=b,
-        hbm_every_row_ms=gathered / HBM_BYTES_PER_S * 1e3,
+        library_limit=lib_limit, hbm_every_row_ms=gathered / HBM_BYTES_PER_S * 1e3,
         rows_per_s=E / (ms / 1e3), gathered_gb_per_s=gathered / (ms / 1e3) / 1e9,
     )
 
 
-def dma_gather_phase(k1_csr_ms=None, build_s=None):
+def dma_gather_phase(k1_csr_ms, build_s, graph, ordered):
     """P1's path, the row-gather probe at the tool's shapes, f32 then bf16:
     per dtype one call of the kernel, counted (launch counts zeroed just
     before, read just after: P1 once, no other kernel), then time_p1 on
-    its output.  One line per dtype, with the kernel's build seconds and
-    K1's csr ms at F 2,048 (the composed SpMM's, whose gather the probe
-    floors) beside it.  Returns ({kernel: launches over the path},
-    {dtype name: time_p1's row})."""
-    path, rows = Counter(), {}
+    its output and p1_readings (cold, L2-resident and K1's stream on the
+    fold's graph).  One line per dtype and reading, with the
+    kernel's build seconds and K1's csr ms at F 2,048 ({dtype name: ms},
+    the composed SpMM's, whose gather the probe floors) beside it.
+    ``ordered`` is dma_row_gather_ordered, the kernel's order of additions
+    (None, for a probe of a tree without it: no bit-for-bit check against
+    it).  Returns ({kernel: launches over the path}, {dtype name:
+    time_p1's row}, [p1_readings' lines])."""
+    path, rows, readings = Counter(), {}, []
     for dt, (x3, src) in p1_inputs().items():
         torch.cuda.synchronize()
         zero_launches()
@@ -902,11 +1019,12 @@ def dma_gather_phase(k1_csr_ms=None, build_s=None):
         path.update(launches)
         if not (out.shape == (p1.OUT_ROWS, 128) and bool(torch.isfinite(out).all())):
             raise AssertionError(f"dma_gather {dt}: output {tuple(out.shape)} not finite")
-        rows[dt] = time_p1(x3, src, out)
+        rows[dt] = time_p1(x3, src, out, ordered)
         emit({"phase": "dma_gather", **rows[dt], "launches": launches,
-              "build_s": build_s, "k1_csr_ms_f2048": k1_csr_ms, "ok": True})
+              "build_s": build_s, "k1_csr_ms_f2048": k1_csr_ms[dt], "ok": True})
+        readings += p1_readings(x3, src, ordered, graph, k1_csr_ms).values()
         del x3, src
-    return {k: path[k] for k in build.REGISTRY}, rows
+    return {k: path[k] for k in build.REGISTRY}, rows, readings
 
 
 def kernel_bwd(graph, ctx, w, F, F_gather, gen):
@@ -5222,8 +5340,9 @@ def run(stack) -> int:
     r2 = kernel_k2(graph, w, F, gen)
     r3 = kernel_k3(graph, F, cfg.batch_size * cfg.final_channels, gen)
     # ---- P1, the row-gather probe (tools/bench_dma_gather.py): its own path
-    p1_path, r_p1 = dma_gather_phase(r1[("all_edges", "bfloat16")]["ms"],
-                                     build_s[p1.KERNEL.name])
+    p1_path, r_p1, r_p1_readings = dma_gather_phase(
+        {d: r1[("all_edges", d)]["ms"] for d in ("bfloat16", "float32")},
+        build_s[p1.KERNEL.name], graph, p1.dma_row_gather_ordered)
 
     X, Y, ages = patients(graph.n_nodes)
     idx = np.arange(N_PATIENTS)
@@ -5388,7 +5507,7 @@ def run(stack) -> int:
         k4.name: [r4[key] for key in (("K4b", "bfloat16"), ("K4a", "float32"),
                                       ("K4b", "float32"),
                                       ("segment_sum_by", "bfloat16"))],
-        p1.KERNEL.name: [r_p1["bfloat16"]]}
+        p1.KERNEL.name: [r_p1["bfloat16"], *r_p1_readings]}
     # DeeperGCN's forms on the gene-level fold: K3 at F = B*H and 2*B*H, K1
     # as edge_segment_sum's forward and gather_src's backward at F = B*H
     forms[k3.KERNEL.name] = [r3[(F, "float32")], r3[(cfg.batch_size * cfg.final_channels,

@@ -9,10 +9,13 @@ lanes of the rows it gathers, chunk by chunk of ``te`` edges, into an
 (8, 128) f32 output whose 8 rows are equal.
 
 On Hopper each gathered row is one TMA bulk copy into a ring in shared
-memory (``csrc/dma_row_gather.cu``), a block per chunk; the chunks' sums
-are added in chunk order, so two calls are equal bit for bit.  The kernel
-is the ``torch.library`` op ``mgtpu::dma_row_gather``.  Its entry point on
-the card is ``probes/bench_dma_gather.py``.
+memory (``csrc/dma_row_gather.cu``), a persistent block on each SM: one
+producer warp keeps the ring's slots full across chunk boundaries, four
+consumer warps sum each chunk and release the slots through mbarriers.
+The chunks' sums are added in chunk order, so the result equals
+``dma_row_gather_ordered`` bit for bit and two calls are equal.  The
+kernel is the ``torch.library`` op ``mgtpu::dma_row_gather``.  Its entry
+point on the card is ``probes/bench_dma_gather.py``.
 """
 from __future__ import annotations
 
@@ -47,6 +50,27 @@ def dma_row_gather_plain(x3: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return s.expand(OUT_ROWS, ROW_SHAPE[1]).contiguous()
 
 
+def dma_row_gather_ordered(x3: torch.Tensor, src: torch.Tensor, te: int) -> torch.Tensor:
+    """The plain version in the kernel's order of additions, equal to the
+    kernel bit for bit: each chunk of te rows summed in edge order from
+    0.0, one f32 vector add a row over all chunks at once, then the
+    chunks' sums added in chunk order from 0.0.  The last chunk is padded
+    with +0.0 rows: a sum started from +0.0 is never -0.0, so adding +0.0
+    leaves it as it is."""
+    E, lanes = src.shape[0], ROW_SHAPE[1]
+    n_chunks = -(-E // te)
+    rows = x3.new_zeros((n_chunks * te, lanes), dtype=torch.float32)
+    rows[:E] = x3[src.long(), 0, :].float()
+    rows = rows.view(n_chunks, te, lanes)
+    part = rows.new_zeros((n_chunks, lanes))
+    for j in range(te):
+        part = part + rows[:, j]
+    total = rows.new_zeros(lanes)
+    for c in range(n_chunks):
+        total = total + part[c]
+    return total.expand(OUT_ROWS, lanes).contiguous()
+
+
 def check_src(src: torch.Tensor, n_rows: int) -> None:
     """src's rows in [0, n_rows), checked once where the inputs are made:
     the kernel does not check them (a host sync inside the call would)."""
@@ -61,6 +85,8 @@ def _check_inputs(x3, src, te):
         raise TypeError(f"x3 dtype {x3.dtype} not supported (bf16 or f32)")
     if src.dim() != 1 or src.dtype != torch.int32:
         raise TypeError("src must be a 1-D int32 tensor")
+    if not src.is_contiguous():
+        raise ValueError("src must be contiguous (the kernel reads it as one array)")
     if src.device != x3.device:
         raise ValueError("x3 and src must be on one device")
     if not 1 <= te <= TE_MAX:

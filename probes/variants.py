@@ -17,6 +17,14 @@ KERNEL is one of
           SPLIT_ROW given (default: the tree's) rebuilds every plan with
           that chunk length and times every variant on it
   k1_pr4  PR 4's K1 source (one block per row), on this tree's plans
+  p1      the per-row gather probe (dma_row_gather.cu): slot rows, ring
+          bytes (blocks an SM) and the consumers' reads, at the tool's
+          shapes (x3 (15,408, 16, 128), E 165,888, te 256, from
+          RandomState(0) as the tool makes them), L2-resident (src drawn
+          from the rows of x3 that fill half the L2) and on K1's stream
+          (the GBM fold's csr source rows, an (N, 2,048) input viewed as
+          (N, 16, 128)); held to dma_row_gather_ordered (0.0 for every
+          variant that keeps the reads)
 Every edit must match the source, or the script fails.  Each variant and
 form is timed as the device time of its kernels per call (torch.profiler,
 20 calls after 3 warm-up calls) and held against the plain version (the
@@ -122,6 +130,22 @@ K1 = {
     # entries of a narrow row's lane group in flight
     "narrow_u2": [("constexpr int NARROW_U = 4;", "constexpr int NARROW_U = 2;")],
     "narrow_u8": [("constexpr int NARROW_U = 4;", "constexpr int NARROW_U = 8;")],
+}
+
+P1_SLOTS = ("constexpr int SLOT_ROWS_BF16 = 4;", "constexpr int SLOT_ROWS_F32 = 2;")
+P1_RING = "constexpr int RING_BYTES = 224 * 1024;"
+P1 = {
+    "base": [],
+    # one row a slot (56 / 28 slots), or 32 KB slots (7 slots)
+    "slot_rows_1": [(P1_SLOTS[0], "constexpr int SLOT_ROWS_BF16 = 1;"),
+                    (P1_SLOTS[1], "constexpr int SLOT_ROWS_F32 = 1;")],
+    "slot_rows_8_4": [(P1_SLOTS[0], "constexpr int SLOT_ROWS_BF16 = 8;"),
+                      (P1_SLOTS[1], "constexpr int SLOT_ROWS_F32 = 4;")],
+    # a smaller ring: 2 (112 KB) or 3 (72 KB) blocks an SM
+    "ring_112k": [(P1_RING, "constexpr int RING_BYTES = 112 * 1024;")],
+    "ring_72k": [(P1_RING, "constexpr int RING_BYTES = 72 * 1024;")],
+    # the rows copied and waited for, not read by the consumers
+    "no_read": [("v[r] = r < rows ? to_f32(st[(size_t)r * ROW + l]) : 0.f;", "v[r] = 0.f;")],
 }
 
 
@@ -274,6 +298,32 @@ def k1_forms(graph, ctx, knn, w, gen, pr4=False):
         yield f"{name} {str(dt)[6:]}", args, (out, base if acc else None), ref
 
 
+def p1_forms(graph, gen):
+    from multilevel_gnn_tpu_torch.ops.kernels import dma_gather as p1
+
+    N, E, te = 15_408, 165_888, 256
+    rng = np.random.RandomState(0)  # x3 then src, f32 then bf16, as the tool
+    inputs = []
+    for dt in (torch.float32, torch.bfloat16):
+        x3 = torch.from_numpy(rng.randn(N, 16, 128)).to(dt).to("cuda")
+        inputs.append((x3, torch.from_numpy(rng.randint(0, N, E).astype(np.int32)).to("cuda")))
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    for x3, src in inputs:
+        dt = x3.dtype
+        n_l2 = l2 // 2 // (x3[0].numel() * x3.element_size())
+        src_l2 = torch.from_numpy(np.random.RandomState(1).randint(0, n_l2, E).astype(np.int32))
+        x = torch.randn(graph.n_nodes, 2048, generator=gen, device="cuda").to(dt)
+        for name, xx, ss in (("tool", x3, src), ("l2_resident", x3, src_l2.to("cuda")),
+                             ("k1_stream", x.view(-1, 16, 128), graph.csr.col)):
+            n = ss.shape[0]
+            partial = torch.empty(-(-n // te), 128, device="cuda")
+            out = torch.empty(p1.OUT_ROWS, 128, device="cuda")
+            args = [xx.data_ptr(), ss.data_ptr(), partial.data_ptr(), out.data_ptr(), n, te,
+                    int(dt == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+                    (partial,)]
+            yield f"{name} {str(dt)[6:]}", args, out, p1.dma_row_gather_ordered(xx, ss, te)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
@@ -302,6 +352,9 @@ def main() -> int:
             return k1_forms(graph, ctx, knn, w, gen)
 
         forms = ((split, f) for split in splits for f in forms_at(split))
+    elif kernel == "p1":
+        variants, symbol, argtypes = P1, "dma_row_gather", [P] * 4 + [I] * 3 + [P]
+        forms = ((None, f) for f in p1_forms(graph, gen))
     elif kernel == "k1_pr4":
         variants, symbol, argtypes = K1_PR4, "segment_spmm_csr", [P] * 6 + [I] * 5 + [P]
         forms = ((None, f) for f in k1_forms(graph, ctx, knn, w, gen, pr4=True))

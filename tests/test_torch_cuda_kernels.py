@@ -51,7 +51,10 @@ each unit's gradients within 35 x TOL of the largest of its own step's
 15,408, E 165,888, te 256), with a short last chunk, with te 1,024 and
 with chunks of 3 rows, bf16 and f32, against the plain version within 1e-4
 x max(1, max|plain|) in both dtypes (the inputs are exact in f32), two
-calls equal bit for bit; an empty src gives zeros.
+calls equal bit for bit; an empty src gives zeros.  P1 equal bit for bit
+to ``dma_row_gather_ordered`` (its order of additions) at the tool's
+shapes, E = 0, E < te, a short last chunk, fewer chunks than SMs, te = 1,
+te = 1,024 and te not a multiple of a ring slot's rows, bf16 and f32.
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -943,6 +946,33 @@ def test_p1_matches_plain(dev, dtype, E, te):
     assert p1.KERNEL.launches == before + 2
     _close(out, p1.dma_row_gather_plain(x3, src), torch.float32)
     assert torch.equal(out, again) and bool((out == out[:1]).all())
+
+
+# E, te: the tool's shapes; E = 0; E < te; a short last chunk; 40 chunks
+# (fewer than SMs); te = 1; te = 1,024; te 3 and 37 (not multiples of a
+# slot's 2 or 4 rows)
+P1_ORDER_CASES = [(165_888, 256), (0, 256), (100, 256), (1_000, 256), (10_240, 256),
+                  (5_000, 1), (4_097, 1024), (7, 3), (10_001, 37)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,te", P1_ORDER_CASES)
+def test_p1_equals_ordered(dev, dtype, E, te):
+    """P1 in its own order of additions: equal bit for bit (f32 words) to
+    dma_row_gather_ordered and to a second call, one launch a call."""
+    N = 15_408
+    rng = np.random.RandomState(0)
+    x3 = torch.from_numpy(rng.randn(N, 16, 128).astype(np.float32)).to(dtype).to(dev)
+    src = torch.from_numpy(rng.randint(0, N, E).astype(np.int32)).to(dev)
+    before = p1.KERNEL.launches
+    out = p1.dma_row_gather(x3, src, te)
+    again = p1.dma_row_gather(x3, src, te)
+    torch.cuda.synchronize()
+    assert p1.KERNEL.launches == before + 2
+    want = p1.dma_row_gather_ordered(x3, src, te)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32)), \
+        float((out - want).abs().max())
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
 
 
 def test_p1_empty_src(dev):

@@ -2,18 +2,25 @@
 port against tools/bench_dma_gather.py's Pallas kernel.
 
 - The plain version, the ``mgtpu::dma_row_gather`` op on CPU tensors (its
-  CPU kernel) and an emulation of the CUDA kernel's order of additions (a
-  chunk's rows in edge order, then the chunks' sums in chunk order)
-  against the tool's ``build(...)`` kernel run in interpret mode
+  CPU kernel), ``dma_row_gather_ordered`` (the CUDA kernel's order of
+  additions: a chunk's rows in edge order from 0.0, then the chunks' sums
+  in chunk order) and a numpy loop in that order against the tool's
+  ``build(...)`` kernel run in interpret mode
   (``pallas_call`` patched to ``interpret=True`` in this test only), at
   N 64 / te 8 / 12 chunks and N 100 / te 4 / 3 chunks, f32 and bf16 rows
   from RandomState(0).  Tolerance per lane: 1e-6 x max(1, sum_e
   |x3[src[e], 0, l]|), the f32 sums taken in another order (readings:
   up to 3.8e-6 at sums of |x| up to 104 in f32, 0.0 in bf16).
+- ``dma_row_gather_ordered`` equals the numpy loop bit for bit (the f32
+  words compared, so +0.0 and -0.0 differ) at the cases the kernel's
+  layout has to get right: whole chunks, a short last chunk, E < te, E =
+  0, te = 1, te = 1,024, te not a multiple of a slot's rows (2 or 4), and
+  rows of -0.0, in f32 and bf16.
 - The op's CPU result equals the plain version bit for bit, and
   ``torch.library.opcheck`` passes on a ragged last chunk.
 - The input checks raise on a wrong dtype, shape, layout, device or te,
-  and ``check_src`` on rows outside [0, N).
+  on an src that is not contiguous, and ``check_src`` on rows outside
+  [0, N).
 """
 import functools
 import importlib.util
@@ -68,16 +75,17 @@ def _limit(x3, src):
 
 
 def _kernel_order(x3, src, te):
-    """The CUDA kernel's additions on the CPU: each chunk's rows in edge
-    order into an f32 sum, then the chunks' sums in chunk order."""
-    rows = x3[src.long(), 0, :].float()
-    total = torch.zeros(rows.shape[1])
+    """The CUDA kernel's additions as a numpy loop: each chunk's rows in
+    edge order into an f32 sum from 0.0, then the chunks' sums in chunk
+    order from 0.0."""
+    rows = x3[src.long(), 0, :].float().numpy()
+    total = np.zeros(rows.shape[1], np.float32)
     for c in range(0, rows.shape[0], te):
-        part = torch.zeros(rows.shape[1])
+        part = np.zeros(rows.shape[1], np.float32)
         for r in rows[c:c + te]:
             part = part + r
         total = total + part
-    return total.expand(p1.OUT_ROWS, -1)
+    return torch.from_numpy(np.broadcast_to(total, (p1.OUT_ROWS, rows.shape[1])).copy())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -89,7 +97,8 @@ def test_matches_tool_kernel(monkeypatch, n, te, chunks, dtype):
     limit = _limit(x3, src)
     for name, got in (("plain", p1.dma_row_gather_plain(x3, src)),
                       ("op", p1.dma_row_gather(x3, src, te)),
-                      ("kernel order", _kernel_order(x3, src, te))):
+                      ("kernel order", _kernel_order(x3, src, te)),
+                      ("ordered", p1.dma_row_gather_ordered(x3, src, te))):
         assert got.shape == (8, 128) and got.dtype == torch.float32, name
         err = np.abs(got.numpy() - ref)
         assert (err <= limit).all(), (name, float(err.max()))
@@ -104,6 +113,26 @@ def test_op_equals_plain_and_opcheck(dtype):
     torch.library.opcheck(p1.dma_row_gather_op, args)
     err = (_kernel_order(x3, src, 16) - p1.dma_row_gather_plain(x3, src)).abs().numpy()
     assert (err <= _limit(x3, src)).all()
+
+
+# N, E, te: whole chunks; a short last chunk; E < te; E = 0; te = 1;
+# te = 1,024 with a short last chunk; te 7 and 3, not multiples of a
+# slot's rows
+ORDER_CASES = [(64, 96, 8), (50, 45, 16), (30, 5, 16), (30, 0, 4), (40, 33, 1),
+               (40, 2_100, 1_024), (40, 50, 7), (20, 11, 3)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,e,te", ORDER_CASES)
+def test_ordered_equals_numpy_loop(n, e, te, dtype):
+    rng = np.random.RandomState(1)
+    x3 = torch.from_numpy(rng.randn(n, 16, 128).astype(np.float32)).to(getattr(torch, dtype))
+    x3[::3] = -0.0  # rows of -0.0: a sum from +0.0 stays +0.0
+    src = torch.from_numpy(rng.randint(0, n, e).astype(np.int32))
+    got = p1.dma_row_gather_ordered(x3, src, te)
+    want = _kernel_order(x3, src, te)
+    assert got.shape == (8, 128) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_empty_src_gives_zeros():
@@ -124,6 +153,8 @@ def test_input_checks_raise():
         p1.dma_row_gather(x3.transpose(1, 2).contiguous().transpose(1, 2), src)
     with pytest.raises(ValueError):
         p1.dma_row_gather(x3, src.to("meta"))
+    with pytest.raises(ValueError):
+        p1.dma_row_gather(x3, src[::2])  # not contiguous
     for te in (0, p1.TE_MAX + 1):
         with pytest.raises(ValueError):
             p1.dma_row_gather(x3, src, te)
