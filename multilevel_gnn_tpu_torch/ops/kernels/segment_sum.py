@@ -33,6 +33,7 @@ import torch
 
 from multilevel_gnn_tpu_torch.ops.kernels.build import Kernel, register, stream_handle
 from multilevel_gnn_tpu_torch.ops.segment import segment_sum
+from multilevel_gnn_tpu_torch.utils.profiling import span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -437,9 +438,10 @@ def segment_spmm_csr(
     CPU tensor takes the plain version; a CUDA tensor launches the
     kernel."""
     _check_inputs(x, w, plan, out)
-    if out is None:
-        return segment_spmm_csr_op(x, w, *plan.op_args)
-    segment_spmm_csr_acc_op(out, x, w, *plan.op_args, plan.n_busy)
+    with span("kernel.K1"):
+        if out is None:
+            return segment_spmm_csr_op(x, w, *plan.op_args)
+        segment_spmm_csr_acc_op(out, x, w, *plan.op_args, plan.n_busy)
     return out
 
 

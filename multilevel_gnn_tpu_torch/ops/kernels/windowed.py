@@ -42,6 +42,7 @@ from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import (
     segment_spmm_csr_plain,
 )
 from multilevel_gnn_tpu_torch.ops.segment import segment_sum
+from multilevel_gnn_tpu_torch.utils.profiling import span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -645,7 +646,8 @@ def windowed_tile_spmm(
         raise ValueError("w must be a contiguous (E,) float32 tensor")
     if w.device != x.device or side.tile_blk_ptr.device != x.device:
         raise ValueError("x, w and the plan must be on one device")
-    return windowed_tile_spmm_op(x, w, *_side_args(plan, transpose))
+    with span("kernel.K2"):
+        return windowed_tile_spmm_op(x, w, *_side_args(plan, transpose))
 
 
 def _residual_plans(plan: WindowPlan, transpose: bool):

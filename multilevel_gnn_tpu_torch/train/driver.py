@@ -57,6 +57,7 @@ from multilevel_gnn_tpu_torch.parallel.mesh import maybe_make_mesh, replicate
 from multilevel_gnn_tpu_torch.train import checkpoint as C
 from multilevel_gnn_tpu_torch.train import metrics as M
 from multilevel_gnn_tpu_torch.train.step import eval_step, make_optimizer, train_step
+from multilevel_gnn_tpu_torch.utils.profiling import count, span
 
 
 def stratified_kfold(labels: np.ndarray, n_splits: int, shuffle: bool, seed):
@@ -159,11 +160,13 @@ def iter_batches(X, Y, ages, idxs, batch_size: int, device, raw=None) -> Iterato
         return torch.as_tensor(np.asarray(a[take], np.float32)).to(dev)
 
     for take, mask, _ in epoch_plan(X, idxs, batch_size):
-        yield Batch(
-            x=on(X, take), y=on(Y, take), age=on(ages, take),
-            sample_mask=torch.as_tensor(mask).to(dev),
-            raw_data=on(raw, take) if raw is not None else None,
-        )
+        with span("eval.batch_in"):
+            batch = Batch(
+                x=on(X, take), y=on(Y, take), age=on(ages, take),
+                sample_mask=torch.as_tensor(mask).to(dev),
+                raw_data=on(raw, take) if raw is not None else None,
+            )
+        yield batch
 
 
 def evaluate(model, ctx: FoldContext, X, Y, ages, idxs, batch_size: int, raw=None,
@@ -171,15 +174,18 @@ def evaluate(model, ctx: FoldContext, X, Y, ages, idxs, batch_size: int, raw=Non
     """Score idxs in order; returns (auc, acc, y_true, score0, mean loss)
     like the JAX driver's evaluate.  On a mesh, ctx is the rank's and the
     predictions are gathered over the data group (equal on every rank)."""
-    preds, losses = [], []
-    for batch in iter_batches(X, Y, ages, idxs, batch_size, ctx.device, raw):
-        pred, loss = eval_step(model, batch, ctx, mesh)
-        m = batch.sample_mask.cpu().numpy()
-        preds.append(pred.float().cpu().numpy()[m])
-        losses.append(float(loss))
-    pred = np.concatenate(preds)
-    auc, acc, y_true, score0 = M.eval_scores(np.asarray(Y)[idxs], pred)
-    return auc, acc, y_true, score0, float(np.mean(losses))
+    with span("fold.evaluate"):
+        preds, losses = [], []
+        for batch in iter_batches(X, Y, ages, idxs, batch_size, ctx.device, raw):
+            pred, loss = eval_step(model, batch, ctx, mesh)
+            with span("eval.readback"):
+                m = batch.sample_mask.cpu().numpy()
+                preds.append(pred.float().cpu().numpy()[m])
+                losses.append(float(loss))
+                count("host_syncs", 3)  # the three read-backs above
+        pred = np.concatenate(preds)
+        auc, acc, y_true, score0 = M.eval_scores(np.asarray(Y)[idxs], pred)
+        return auc, acc, y_true, score0, float(np.mean(losses))
 
 
 def class_weight(Y: np.ndarray, train_idx, weight_power: float = 1.0) -> np.ndarray:
@@ -356,61 +362,66 @@ def run_fold(
             results["epoch_by_epoch"][epoch] = test_score
 
     for epoch in range(start_epoch, cfg.epochs + 1):
-        t0 = time.perf_counter()
-        plan = list(epoch_plan(X, train_idx, cfg.batch_size, np_rng, shuffle,
-                               drop_last, sampler_weights, variation))
-        losses, events = [], []
-        if plan:
-            # one host-to-device copy of the epoch's plan; rows gathered there
-            takes = torch.as_tensor(np.stack([p[0] for p in plan])).to(dev)
-            masks = torch.as_tensor(np.stack([p[1] for p in plan])).to(dev)
-            mults = (
-                torch.as_tensor(np.stack([p[2] for p in plan])).to(dev)
-                if variation is not None else None
+        with span("fold.epoch"):
+            t0 = time.perf_counter()
+            with span("fold.plan"):
+                plan = list(epoch_plan(X, train_idx, cfg.batch_size, np_rng, shuffle,
+                                       drop_last, sampler_weights, variation))
+                if plan:
+                    # one host-to-device copy of the epoch's plan; rows gathered there
+                    takes = torch.as_tensor(np.stack([p[0] for p in plan])).to(dev)
+                    masks = torch.as_tensor(np.stack([p[1] for p in plan])).to(dev)
+                    mults = (
+                        torch.as_tensor(np.stack([p[2] for p in plan])).to(dev)
+                        if variation is not None else None
+                    )
+            losses, events = [], []
+            if plan:
+                for s in range(len(plan)):
+                    take = takes[s]
+                    x = data["x"].index_select(0, take)
+                    batch = Batch(
+                        x=x * mults[s] if mults is not None else x,
+                        y=data["y"].index_select(0, take),
+                        age=data["age"].index_select(0, take),
+                        sample_mask=masks[s],
+                        raw_data=data["raw"].index_select(0, take) if raw is not None else None,
+                    )
+                    if timed:
+                        ev = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                        ev[0].record()
+                    losses.append(train_step(model, optimizer, batch, ctx, cw, generator, mesh))
+                    if timed:
+                        ev[1].record()
+                        events.append(ev)
+                with span("fold.loss_readback"):
+                    out.step_losses += [float(v) for v in torch.stack(losses).cpu()]
+                    out.step_ms += [a.elapsed_time(b) for a, b in events]
+                    count("host_syncs")
+                step_i += len(plan)
+            valid_auc, valid_acc, _, _, valid_loss = evaluate(
+                model, ctx, X, Y, ages, valid_idx, cfg.batch_size, raw, mesh
             )
-            for s in range(len(plan)):
-                take = takes[s]
-                x = data["x"].index_select(0, take)
-                batch = Batch(
-                    x=x * mults[s] if mults is not None else x,
-                    y=data["y"].index_select(0, take),
-                    age=data["age"].index_select(0, take),
-                    sample_mask=masks[s],
-                    raw_data=data["raw"].index_select(0, take) if raw is not None else None,
-                )
-                if timed:
-                    ev = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                    ev[0].record()
-                losses.append(train_step(model, optimizer, batch, ctx, cw, generator, mesh))
-                if timed:
-                    ev[1].record()
-                    events.append(ev)
-            out.step_losses += [float(v) for v in torch.stack(losses).cpu()]
-            out.step_ms += [a.elapsed_time(b) for a, b in events]
-            step_i += len(plan)
-        valid_auc, valid_acc, _, _, valid_loss = evaluate(
-            model, ctx, X, Y, ages, valid_idx, cfg.batch_size, raw, mesh
-        )
-        _, _, out.y_true, test_score, _ = evaluate(
-            model, ctx, X, Y, ages, test_idx, cfg.batch_size, raw, mesh
-        )
-        record(epoch, valid_auc, valid_acc, valid_loss, test_score)
-        out.epoch_valid.append((valid_auc, valid_acc, valid_loss))
-        out.epoch_times.append(time.perf_counter() - t0)
-        interrupt = interrupt_after is not None and interrupt_after[0] == 1
-        if writer and tag_dir is not None and (
-            (cfg.ckpt_every > 0 and epoch % cfg.ckpt_every == 0)
-            or interrupt or (cfg.ckpt_every <= 0 and epoch == cfg.epochs)
-        ):
-            save(epoch)
-        if interrupt and mesh is not None and mesh.size > 1:
-            dist.barrier()  # rank 0's checkpoint is whole before any rank stops
-        if interrupt_after is not None:
-            interrupt_after[0] -= 1
-            if interrupt_after[0] <= 0:
-                raise KeyboardInterrupt(
-                    f"interrupted at run {run_i} fold {fold_i} epoch {epoch} (test hook)")
+            _, _, out.y_true, test_score, _ = evaluate(
+                model, ctx, X, Y, ages, test_idx, cfg.batch_size, raw, mesh
+            )
+            record(epoch, valid_auc, valid_acc, valid_loss, test_score)
+            out.epoch_valid.append((valid_auc, valid_acc, valid_loss))
+            out.epoch_times.append(time.perf_counter() - t0)
+            interrupt = interrupt_after is not None and interrupt_after[0] == 1
+            if writer and tag_dir is not None and (
+                (cfg.ckpt_every > 0 and epoch % cfg.ckpt_every == 0)
+                or interrupt or (cfg.ckpt_every <= 0 and epoch == cfg.epochs)
+            ):
+                save(epoch)
+            if interrupt and mesh is not None and mesh.size > 1:
+                dist.barrier()  # rank 0's checkpoint is whole before any rank stops
+            if interrupt_after is not None:
+                interrupt_after[0] -= 1
+                if interrupt_after[0] <= 0:
+                    raise KeyboardInterrupt(
+                        f"interrupted at run {run_i} fold {fold_i} epoch {epoch} (test hook)")
     out.epoch_pred = {e: results["epoch"][e] for e in check_epochs}
     out.epoch_pred_by_loss = {e: results["epoch_by_loss"][e] for e in check_epochs}
     out.epoch_pred_by_epoch = {e: results["epoch_by_epoch"][e] for e in check_epochs}

@@ -26,6 +26,7 @@ import numpy as np
 from multilevel_gnn_tpu_torch.core.batch import FoldContext
 from multilevel_gnn_tpu_torch.train import checkpoint as C
 from multilevel_gnn_tpu_torch.train import driver
+from multilevel_gnn_tpu_torch.utils.profiling import span
 
 
 def load_fold_state(
@@ -94,18 +95,19 @@ def predict_patients(
     X (P, NODES) or (P, N, omics), Y (P, 2), ages (P,) and raw (P, ...) or
     None (the batches' raw_data) are host arrays; the model and ctx sit on
     the device they run on.  "patients" lists the scored row indices."""
-    idx = np.asarray(idx)
-    auc, acc, y_true, score, loss = driver.evaluate(
-        model, ctx, X, Y, ages, idx, model.cfg.batch_size, raw
-    )
-    return {
-        "patients": [int(i) for i in idx],
-        "prob": [float(p) for p in score],
-        "y_true": [int(v) for v in y_true],
-        "auc": float(auc),
-        "acc": float(acc),
-        "loss": float(loss),
-    }
+    with span("serve.request"):
+        idx = np.asarray(idx)
+        auc, acc, y_true, score, loss = driver.evaluate(
+            model, ctx, X, Y, ages, idx, model.cfg.batch_size, raw
+        )
+        return {
+            "patients": [int(i) for i in idx],
+            "prob": [float(p) for p in score],
+            "y_true": [int(v) for v in y_true],
+            "auc": float(auc),
+            "acc": float(acc),
+            "loss": float(loss),
+        }
 
 
 def main(argv=None) -> Dict:

@@ -21,6 +21,7 @@ from multilevel_gnn_tpu_torch.core.batch import Batch, FoldContext, StackedConte
 from multilevel_gnn_tpu_torch.core.config import Config
 from multilevel_gnn_tpu_torch.models.multilevel_gnn import get_feature_loss
 from multilevel_gnn_tpu_torch.parallel.mesh import DataParallel, reduce_gradients
+from multilevel_gnn_tpu_torch.utils.profiling import span
 
 CLIP_NORM = 20.0
 
@@ -308,17 +309,18 @@ def train_step(
     rank's (shard_ctx); the forward runs on the data rank's rows
     (DataParallel), each rank's gradient share of loss / world is summed
     over the world, and the parameters stay equal on every rank."""
-    model.train()
-    optimizer.zero_grad()
-    forward = model if mesh is None else DataParallel(model, mesh)
-    loss, _ = make_loss_fn(model.cfg)(forward, batch, ctx, class_weight, generator)
-    if mesh is None:
-        loss.backward()
-    else:
-        (loss / mesh.size).backward()
-        reduce_gradients(model.parameters(), mesh)
-    optimizer.step()
-    return loss.detach()
+    with span("step.train"):
+        model.train()
+        optimizer.zero_grad()
+        forward = model if mesh is None else DataParallel(model, mesh)
+        loss, _ = make_loss_fn(model.cfg)(forward, batch, ctx, class_weight, generator)
+        if mesh is None:
+            loss.backward()
+        else:
+            (loss / mesh.size).backward()
+            reduce_gradients(model.parameters(), mesh)
+        optimizer.step()
+        return loss.detach()
 
 
 @torch.no_grad()
@@ -326,16 +328,17 @@ def eval_step(model, batch: Batch, ctx: FoldContext, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pred (B, 2), loss) in eval mode, class weighting off; on a mesh
     (train_step's) the whole batch's, equal on every rank."""
-    was_training = model.training
-    model.eval()
-    try:
-        pred = (model if mesh is None else DataParallel(model, mesh))(batch, ctx)[0]
-    finally:
-        model.train(was_training)
-    cfg = model.cfg.replace(
-        weight_balance=False, weighted_loss=False, batch_weighted_loss=False
-    )
-    return pred, classification_loss(pred, batch.y, None, batch.sample_mask, cfg)
+    with span("step.eval"):
+        was_training = model.training
+        model.eval()
+        try:
+            pred = (model if mesh is None else DataParallel(model, mesh))(batch, ctx)[0]
+        finally:
+            model.train(was_training)
+        cfg = model.cfg.replace(
+            weight_balance=False, weighted_loss=False, batch_weighted_loss=False
+        )
+        return pred, classification_loss(pred, batch.y, None, batch.sample_mask, cfg)
 
 
 # ---- the fold-parallel step (train/fold_parallel.py): U units of one model

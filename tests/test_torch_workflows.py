@@ -1,11 +1,12 @@
 """The port's warm, profiling and timing workflows on the CPU
 (train/warm.py, utils/profiling.py, the train CLI's --profile-dir).
 
-- StepTimer times its steps and counts edges/s; AverageMeter; MetricStream
-  appends one JSON line per call; enable_nan_debug turns on anomaly mode.
+- AverageMeter; MetricStream appends one JSON line per call;
+  enable_nan_debug turns on anomaly mode.
 - trace() writes a Chrome trace of the block; the train CLI with
   --profile-dir writes one for the whole experiment, naming the kernels'
-  plain versions' ops and the custom op mgtpu::segment_spmm_csr.
+  plain versions' ops, the custom op mgtpu::segment_spmm_csr and the
+  port's spans (utils/profiling.py; tests/test_torch_spans.py holds them).
 - warm_experiment builds the data libraries with g++ into a fresh build
   directory, then derives fold 0; the warm CLI in one process leaves the
   next train CLI process nothing to build (every build 0.0 s).
@@ -13,7 +14,6 @@
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -33,14 +33,6 @@ SMALL = ["num_run=1", "epochs=1", "node_embedding_dim=4", "hidden_channels=8",
 
 
 def test_step_timer_meter_stream(tmp_path):
-    timer = profiling.StepTimer(edges_per_step=1000, batch_per_step=4)
-    for _ in range(3):
-        with timer.step() as out:
-            time.sleep(0.01)
-            out["result"] = torch.ones(3) * 2
-    assert len(timer.times) == 3 and all(t >= 0.01 for t in timer.times)
-    assert abs(timer.edges_per_s - 4000 / timer.mean_s) < 1e-6
-    assert profiling.StepTimer().edges_per_s == 0.0
     m = profiling.AverageMeter()
     m.update(2.0, n=3)
     m.update(4.0)
@@ -81,6 +73,11 @@ def test_train_cli_profile_dir(tmp_path, capsys):
     assert set(line["builds"]) == {"mi_knn", "csv_float"}
     text = (prof / profiling.TRACE_FILE).read_text()
     assert "mgtpu::segment_spmm_csr" in text
+    spans = {e["name"] for e in json.loads(text)["traceEvents"]
+             if e.get("cat") == "port_span"}
+    assert {"fold.epoch", "fold.plan", "step.train", "fold.loss_readback",
+            "fold.evaluate", "eval.batch_in", "step.eval", "eval.readback",
+            "kernel.K1"} <= spans, spans
 
 
 def test_warm_experiment_builds_data_libraries(tmp_path, monkeypatch):
