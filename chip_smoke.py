@@ -59,6 +59,12 @@ each:
            (max abs error must be 0), with its ms, plain ms, bound and the
            scatter_reduce amax library call; k1_bwd also times K1 as the
            backward of the two edge gathers (src_gather, dst_gather)
+  pathway  PW, the pathway contraction's forward and backward kernels, at
+           kirc's (G 25,015, S 438, K 3, F 2,048) and gbm's (K 2, F 1,024)
+           shapes, bf16 and f32: against the plain versions (the forward
+           and dP within 1e-4 x max(1, max|plain|), dx equal, two calls
+           equal bit for bit) and the dense form's dx (equal); ms beside
+           the byte bound, the plain version's and the dense cuBLAS form's
   dma_gather  P1, tools/bench_dma_gather.py's row-gather probe, at the
            tool's shapes (x3 (15,408, 16, 128), 165,888 gathered rows,
            chunks of 256; inputs from RandomState(0) as the tool makes
@@ -425,6 +431,7 @@ from multilevel_gnn_tpu_torch.models.multilevel_gnn import MultilevelGNN
 from multilevel_gnn_tpu_torch.ops import spmm
 from multilevel_gnn_tpu_torch.ops.kernels import build
 from multilevel_gnn_tpu_torch.ops.kernels import dma_gather as p1
+from multilevel_gnn_tpu_torch.ops.kernels import pathway as pw
 from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
@@ -450,6 +457,8 @@ SYMBOLS = {
     "segment_max_csr": ("segment_max_csr_kernel",),
     "sorted_segment_sum": ("sorted_segment_sum_kernel",),
     "dma_row_gather": ("gather_chunks_kernel", "add_partials_kernel"),
+    "pathway_contract_fwd": ("pathway_fwd_kernel", "pathway_add_parts_kernel"),
+    "pathway_contract_bwd": ("pathway_bwd_kernel",),
 }
 
 N_PATIENTS = 123  # 4 batches of 32, the last one padded
@@ -1123,6 +1132,91 @@ def kernel_zoo(graph, B, C, final, heads, gen):
     return out
 
 
+# kirc's and gbm's pathway contraction: G PCA rows in 3 x 146 slots, the
+# benchmark's synthetic fold's slot ids (sorted, 35-81 rows a slot)
+PW_SHAPES = (("kirc", 3, 64 * 32), ("gbm", 2, 32 * 32))
+PW_G, PW_S = 25_015, 438
+
+
+def pathway_phase():
+    """PW, the pathway contraction's kernels, at kirc's (K 3, F 2,048) and
+    gbm's (K 2, F 1,024) shapes, bf16 and f32: each against its plain
+    version (the forward and dP within TOL_F32 x max(1, max|plain|), dx
+    equal, two calls equal bit for bit), one launch a call, and its time
+    beside its byte bound (x and P read and the output written once; the
+    backward's cotangent read once), the plain version's time and that of
+    the dense cuBLAS form the port ran before ("library": the slot one-hot,
+    its copy weighted by P, x in f32 and the (K*S, G) @ (G, F) product;
+    backward: the K products for dx, the f32 product for dW and its
+    reduction through the one-hot)."""
+    ids = np.sort(np.random.RandomState(0).randint(0, PW_S, PW_G))
+    plan = pw.SlotPlan.build(ids, PW_S).to("cuda")
+    seg = torch.as_tensor(ids, device="cuda")
+    out = {}
+    for name, K, F in PW_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(K * F)
+            x = torch.randn(PW_G, F, generator=g, device="cuda").to(dtype)
+            p = torch.randn(PW_G, K, generator=g, device="cuda")
+            gout = torch.randn(K * PW_S, F, generator=g, device="cuda")
+            ds = x.element_size()
+            fwd_bytes = PW_G * F * ds + PW_G * K * 4 + K * PW_S * F * 4
+            bwd_bytes = 2 * PW_G * F * ds + 2 * PW_G * K * 4 + K * PW_S * F * 4
+            f0, b0 = pw.FWD_KERNEL.launches, pw.BWD_KERNEL.launches
+            o1, o2 = pw.pathway_fwd(x, p, plan), pw.pathway_fwd(x, p, plan)
+            (dx1, dp1), (dx2, dp2) = (pw.pathway_bwd(x, p, gout, plan) for _ in range(2))
+            torch.cuda.synchronize()
+            launches = (pw.FWD_KERNEL.launches - f0, pw.BWD_KERNEL.launches - b0)
+            ro = pw.pathway_fwd_plain(x, p, plan)
+            rdx, rdp = pw.pathway_bwd_plain(x, p, gout, plan)
+            errs = {"out": err_of(o1, ro), "dp": err_of(dp1, rdp)}
+            ok = (launches == (2, 2) and torch.equal(dx1, rdx)
+                  and all(e <= TOL_F32 * max(1.0, m) for e, m in errs.values())
+                  and torch.equal(o1, o2) and torch.equal(dx1, dx2) and torch.equal(dp1, dp2))
+            M = (seg[None, :] == torch.arange(PW_S, device="cuda")[:, None]).float()
+
+            def lib_fwd():
+                W = M[None] * p.T[:, None, :]
+                return W.reshape(K * PW_S, PW_G) @ x.float()
+
+            W = M[None] * p.T[:, None, :]
+
+            def lib_bwd():
+                gk = gout.reshape(K, PW_S, -1)
+                dx = None
+                for k in reversed(range(K)):
+                    d = (W[k].T @ gk[k]).to(dtype)
+                    dx = d if dx is None else dx + d
+                dW = (gout @ x.float().T).reshape(K, PW_S, PW_G)
+                return dx, (dW * M[None]).sum(1)
+
+            lf, lb = lib_fwd(), lib_bwd()
+            # the dense form's dx, bit for bit; its out and dP, f32 sum order
+            dense = {"dx_equal": torch.equal(lb[0], dx1), "out_err": err_of(lf, o1)[0],
+                     "dp_err": err_of(lb[1].T, dp1)[0]}
+            ok = ok and dense["dx_equal"]
+            del lf, lb
+            row = {"shape": name, "dtype": str(dtype).split(".")[-1], "K": K, "F": F}
+            for side, fn, nbytes, plain, lib in (
+                    ("fwd", lambda: pw.pathway_fwd(x, p, plan), fwd_bytes,
+                     lambda: pw.pathway_fwd_plain(x, p, plan), lib_fwd),
+                    ("bwd", lambda: pw.pathway_bwd(x, p, gout, plan), bwd_bytes,
+                     lambda: pw.pathway_bwd_plain(x, p, gout, plan), lib_bwd)):
+                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ms, source = kernel_ms(fn, b_ms)
+                row[side] = {"ms": ms, "source": source, "bound_ms": b_ms,
+                             "bound_share": b_ms / ms, "plain_ms": cuda_ms(plain),
+                             "library_ms": device_ms(lib)}
+            del W, M
+            row.update({"max_abs_err_vs_plain": {k: e for k, (e, _) in errs.items()},
+                        "vs_dense": dense, "ok": ok})
+            emit({"phase": "pathway", **row})
+            if not ok:
+                raise AssertionError(f"pathway {name} {dtype}: {row}")
+            out[(name, row["dtype"])] = row
+    return out
+
+
 def launch_counts():
     return {k.name: k.launches for k in build.REGISTRY.values()}
 
@@ -1135,6 +1229,13 @@ def want_launches(nonzero=None):
     if unknown:
         raise KeyError(f"not a registered kernel: {sorted(unknown)}")
     return {name: nonzero.get(name, 0) for name in build.REGISTRY}
+
+
+def pw_launches(fwd=0, bwd=0):
+    """The pathway contraction's PW launches as a launch dict's entries:
+    a model forward outside torch.vmap launches its forward once, a train
+    step its backward once more; under vmap (the stacked step) neither."""
+    return {pw.FWD_KERNEL.name: fwd, pw.BWD_KERNEL.name: bwd}
 
 
 def zero_launches():
@@ -1199,9 +1300,10 @@ def profile_serve(model, ctx, batch):
     emit({"phase": "serve_paths", "ms_per_batch_median": med, "turns": 10,
           "launches": launches, "gap_share": 1 - busy / med["windowed"]})
     n = len(t["composed"])
-    if (launches["composed"] != want_launches({k1.KERNEL.name: 2 * n})
+    if (launches["composed"] != want_launches({k1.KERNEL.name: 2 * n, **pw_launches(n)})
             or launches["windowed"] != want_launches({k1.KERNEL.name: 2 * n,
-                                                      k2.KERNEL.name: 2 * n})):
+                                                      k2.KERNEL.name: 2 * n,
+                                                      **pw_launches(n)})):
         raise AssertionError(f"serve_paths launch counts {launches}")
 
 
@@ -1467,16 +1569,19 @@ def conv_launches(conv, plan):
     layer (a_src, a_dst, the denominators, the messages) and the PCA
     gather's.  sage / gcn / gin: K2 a layer with the K1 residual, and in
     the backward K2's transpose with K1 over tres and res_csc, and the PCA
-    gather's K1."""
+    gather's K1.  Every conv: the pathway contraction's PW forward a batch,
+    and its backward a step."""
+    batch, step = pw_launches(1), pw_launches(1, 1)
     if conv in ("mr", "edge"):
-        return (want_launches({k3.KERNEL.name: 2}),
-                want_launches({k3.KERNEL.name: 2, k1.KERNEL.name: 5}))
+        return (want_launches({k3.KERNEL.name: 2, **batch}),
+                want_launches({k3.KERNEL.name: 2, k1.KERNEL.name: 5, **step}))
     if conv == "gat":
-        return want_launches({k1.KERNEL.name: 4}), want_launches({k1.KERNEL.name: 13})
+        return (want_launches({k1.KERNEL.name: 4, **batch}),
+                want_launches({k1.KERNEL.name: 13, **step}))
     res, tres = int(plan.n_res > 0), int(plan.n_tres > 0)
-    return (want_launches({k1.KERNEL.name: 2 * res, k2.KERNEL.name: 2}),
+    return (want_launches({k1.KERNEL.name: 2 * res, k2.KERNEL.name: 2, **batch}),
             want_launches({k1.KERNEL.name: 2 * res + 2 * (tres + res) + 1,
-                           k2.KERNEL.name: 4}))
+                           k2.KERNEL.name: 4, **step}))
 
 
 def serve_conv(conv, model, ctx, n_batches):
@@ -1639,8 +1744,8 @@ def pca_vs_plain(phase, m, ctx, batch, counted):
 def options_phase(cfg, ctx, batch):
     """Each option of OPTIONS on the sage path of the GBM fold: one eval
     forward with kernels against plain versions (forward_vs_plain's
-    limits), launches counted over one eval_step (K2 2 and the K1 residual
-    2, as sage); then, but for the PCA reductions, one step's gradients
+    limits), launches counted over one eval_step (K2 2, the K1 residual 2
+    and PW's forward, as sage; no PW for the PCA reductions); then, but for the PCA reductions, one step's gradients
     against plain versions (TOL_GRAD) and one train_step, counted (sage's
     launches a step).  The PCA reductions' forward ms (a Python loop over
     the 438 slots' SVDs or QRs in both packages)."""
@@ -1676,7 +1781,9 @@ def options_phase(cfg, ctx, batch):
             probs, eval_launches, ms = counted()
         row = {"phase": f"options_{name}_counts", "trunk": trunk, "eval_launches": eval_launches,
                "finite": bool(torch.isfinite(probs).all())}
-        ok = row["finite"] and eval_launches == per_batch
+        # the PCA reductions contract no learnable PCA: no PW launch
+        ok = row["finite"] and eval_launches == (
+            {**per_batch, **pw_launches()} if pca else per_batch)
         if pca:
             # the counted call, after the plain versions' forward: pca_svd's
             # 438 slots of batched SVDs take seconds on an H100
@@ -2426,7 +2533,8 @@ def export_save(model, ctx, batch, root, phase="export", want=None):
     np.savez(f"{out}.npz", x=batch.x.cpu().numpy(), age=batch.age.cpu().numpy())
     return {"phase": phase, "dir": out, "inputs": f"{out}.npz", "live": live.cpu().numpy(),
             "live_launches": live_launches,
-            "want": want or want_launches({k1.KERNEL.name: 2, k2.KERNEL.name: 2}),
+            "want": want or want_launches({k1.KERNEL.name: 2, k2.KERNEL.name: 2,
+                                           **pw_launches(1)}),
             "line": {"phase": phase, "gnn_name": model.cfg.gnn_name, "n_nodes": n_nodes,
                      "n_edges": ctx.graph.n_edges, "batch": B, "export_s": export_s,
                      "artifact_bytes": _dir_bytes(out), "n_tensors": meta["n_tensors"],
@@ -2545,8 +2653,9 @@ def expected_step_launches(ctx, n_layers):
     """Kernel launches of one sage train step from the fold's plans: per
     layer and graph, K2 forward and transpose plus K1 over each non-empty
     residual plan on a windowed graph, K1 over csr and csc on a composed
-    one; and the PCA gather's backward (K1)."""
-    want = want_launches({k1.KERNEL.name: 1})
+    one; the PCA gather's backward (K1); the pathway contraction's PW
+    forward and backward."""
+    want = want_launches({k1.KERNEL.name: 1, **pw_launches(1, 1)})
     for g in (ctx.graph, ctx.graph2):
         if g is None:
             continue
@@ -3499,8 +3608,9 @@ def pathcnn_vs_cpu():
 def pathcnn_phase(cfg, ctx):
     """PathCNN at gbm.yaml's widths on the GBM fold, with learnable PCA on
     the PCA-row values (G = 25,015) and on the precomputed pathway attrs:
-    serving the N_PATIENTS and PRETRAIN_STEPS train steps, each counted (no
-    port kernel: the contraction is the dense pathway product)."""
+    serving the N_PATIENTS and PRETRAIN_STEPS train steps, each counted (with
+    learnable PCA the pathway contraction's PW forward a batch and backward
+    a step; no other port kernel)."""
     from multilevel_gnn_tpu_torch.models.pathcnn import PathCNN
 
     n, G = ctx.graph.n_nodes, ctx.num_pca_rows
@@ -3525,8 +3635,9 @@ def pathcnn_phase(cfg, ctx):
             lambda: losses.append(train_step(model, opt, batch, ctx, cw, gen)), PRETRAIN_STEPS)
         kms, n_k, rows = profiled(lambda: train_step(model, opt, batch, ctx, cw, gen))
         losses = [float(v) for v in losses]
-        ok = ok and serve == zero_counts() and per_step == zero_counts() and bool(
-            np.isfinite(losses).all())
+        n_pw = int(learnable)
+        ok = ok and serve == {**zero_counts(), **pw_launches(4 * n_pw)} and per_step == {
+            **zero_counts(), **pw_launches(n_pw, n_pw)} and bool(np.isfinite(losses).all())
         emit({"phase": name, "patients": N_PATIENTS, "serve_ms_per_batch": dt * 1e3 / 4,
               "eval_step_ms": eval_ms, "eval_kernel_ms": eval_kms,
               "launches_serve": serve, "step_ms": ms, "step_ms_median": float(np.median(ms)),
@@ -3763,7 +3874,8 @@ def pretrain_protocol_phase(small_root):
     res = cli.main(base + ["--set", "model=pathcnn", *sets])
     sync("cuda")
     pl = launch_counts()
-    ok = bool(pl == zero_counts() and np.isfinite(res["auc"][2]))
+    ok = bool({**pl, **pw_launches()} == zero_counts() and pl[pw.FWD_KERNEL.name] > 0
+              and np.isfinite(res["auc"][2]))
     emit({"phase": "pathcnn_protocol", "pooled_auc": res["auc"][2], "launches": pl,
           "wall_s": res["wall_time_s"], "ok": ok})
     if not ok:
@@ -3915,14 +4027,16 @@ def fp_state(units, cfg):
 
 
 def fp_step_phase(units, want=None, phase="fold_parallel_step", rounds=2,
-                  tol=TOL_GRAD["bf16"]):
+                  tol=TOL_GRAD["bf16"], pathway=True):
     """One stacked train step at U units (the sage bf16 units by default)
     against the U units' own steps: per-unit gradients (the same dropout
     masks) within ``tol`` (relative to each parameter's largest gradient;
     TOL_GRAD's bf16 limit), launches ``want`` a stacked step (K1 7 / K2 4);
     CUDA-event ms, kernel ms, gap share and peak memory of a stacked step
     against a sequence of the U units' steps, each in turns (fp_compare,
-    ``rounds``)."""
+    ``rounds``).  pathway: the model runs the pathway contraction, so each
+    unit's own step launches PW (forward and backward), the stacked step
+    none (its dense form under torch.vmap)."""
     from multilevel_gnn_tpu_torch.train.step import stacked_train_step
 
     cfg = units[0][0]
@@ -3957,7 +4071,8 @@ def fp_step_phase(units, want=None, phase="fold_parallel_step", rounds=2,
         for i, u in enumerate(units):
             train_step(u[1], opts[i], u[4], u[3], cw1, gens[i])
 
-    out = fp_compare(stacked, sequential, want, len(units), rounds)
+    own = {**want, **pw_launches(int(pathway), int(pathway))}
+    out = fp_compare(stacked, sequential, want, len(units), rounds, own)
     ok = worst <= tol and one == want and out["ok"]
     emit({"phase": phase, "units": len(units), "launches_one_step": one,
           "grad_max_rel_err": worst, "tol": tol,
@@ -3967,11 +4082,13 @@ def fp_step_phase(units, want=None, phase="fold_parallel_step", rounds=2,
     return out["launches_stacked"]
 
 
-def fp_compare(stacked, sequential, want, n_units, rounds=2):
+def fp_compare(stacked, sequential, want, n_units, rounds=2, own=None):
     """CUDA-event ms (2 * rounds * (FP_STEPS // 4 + 1) calls of each,
     stacked and sequential in turns), kernel ms and gap share (profiler, 3
     calls) and peak memory of one stacked call against one sequence of the
-    units' own calls; the stacked call's launches must equal ``want``."""
+    units' own calls; the stacked call's launches must equal ``want``, a
+    unit's own call's ``own`` (``want`` where not given)."""
+    own = want if own is None else own
     ms = {"stacked": [], "sequential": []}
     per = {}
     for _ in range(rounds):
@@ -3998,7 +4115,7 @@ def fp_compare(stacked, sequential, want, n_units, rounds=2):
             "launches_stacked": per["stacked"], "launches_sequential": per["sequential"],
             "launches_expected": want,
             "ok": per["stacked"] == want and per["sequential"] == {
-                k: v * n_units for k, v in want.items()}}
+                k: v * n_units for k, v in own.items()}}
 
 
 def fp_serve_phase(units):
@@ -4019,7 +4136,8 @@ def fp_serve_phase(units):
     want = want_launches({k1.KERNEL.name: 2, k2.KERNEL.name: 2})
     out = fp_compare(
         lambda: stacked_eval_step(st["template"], st["params"], st["batch"], st["sctx"]),
-        lambda: [eval_step(u[1], u[4], u[3]) for u in units], want, len(units))
+        lambda: [eval_step(u[1], u[4], u[3]) for u in units], want, len(units),
+        own={**want, **pw_launches(1)})
     ok = (errs["bf16"] <= TOL_FP_PROB["bf16"] and errs["f32"] <= TOL_FP_PROB["f32"]
           and out["ok"])
     emit({"phase": "fold_parallel_serve", "units": len(units), "prob_max_abs_err": errs,
@@ -4304,9 +4422,9 @@ def fpd_step_phases(folds, cohort):
     # a step: K3 once a layer; K1 as each layer's gather_src backward and once
     # as the edge-id lookup's backward; a batch: K3 once a layer
     step = fp_step_phase(units, want_launches({k1.KERNEL.name: L + 1, k3.KERNEL.name: L}),
-                         "fold_parallel_deepergcn_step", rounds=1)
+                         "fold_parallel_deepergcn_step", rounds=1, pathway=False)
     serve = fp_serve_units(units, want_launches({k3.KERNEL.name: L}),
-                           "fold_parallel_deepergcn_serve", rounds=1)
+                           "fold_parallel_deepergcn_serve", rounds=1, pathway=False)
     del units
     torch.cuda.empty_cache()
     return serve, step
@@ -4325,18 +4443,20 @@ def fp_eval_errs(units):
             max(abs(float(loss[i]) - float(r[1])) for i, r in enumerate(ref)))
 
 
-def fp_serve_units(units, want, phase, rounds=2):
+def fp_serve_units(units, want, phase, rounds=2, pathway=True):
     """One stacked eval batch of the units against their own eval_steps:
     probabilities within TOL_FP_PROB of the units' trunk, launches ``want``
     a stacked batch; ms, gap share and peak memory against the sequence of
-    U eval_steps (fp_compare)."""
+    U eval_steps (fp_compare); pathway: as fp_step_phase's, a PW forward
+    in each unit's own eval_step."""
     from multilevel_gnn_tpu_torch.train.step import stacked_eval_step
 
     st, err, err_loss = fp_eval_errs(units)
     tol = TOL_FP_PROB["bf16" if units[0][0].compute_dtype else "f32"]
     out = fp_compare(
         lambda: stacked_eval_step(st["template"], st["params"], st["batch"], st["sctx"]),
-        lambda: [eval_step(u[1], u[4], u[3]) for u in units], want, len(units), rounds)
+        lambda: [eval_step(u[1], u[4], u[3]) for u in units], want, len(units), rounds,
+        {**want, **pw_launches(int(pathway))})
     ok = err <= tol and out["ok"]
     emit({"phase": phase, "units": len(units), "prob_max_abs_err": err,
           "loss_max_abs_err": err_loss, "tol": tol, **out, "ok": ok})
@@ -5343,6 +5463,7 @@ def run(stack) -> int:
     p1_path, r_p1, r_p1_readings = dma_gather_phase(
         {d: r1[("all_edges", d)]["ms"] for d in ("bfloat16", "float32")},
         build_s[p1.KERNEL.name], graph, p1.dma_row_gather_ordered)
+    pathway_phase()
 
     X, Y, ages = patients(graph.n_nodes)
     idx = np.arange(N_PATIENTS)
@@ -5392,7 +5513,8 @@ def run(stack) -> int:
                                                     tr["cw"], tr["per_step"])
     # the composed path: K1 over csr (2 layers), csc (2) and the PCA gather
     profile_train(tr["model"], composed_ctx(ctx), tr["batch"], tr["cw"],
-                  want_launches({k1.KERNEL.name: 5}), phase="profile_train_composed")
+                  want_launches({k1.KERNEL.name: 5, **pw_launches(1, 1)}),
+                  phase="profile_train_composed")
     del tr
     torch.cuda.empty_cache()
     repairs_phase(model, ctx, train_kernel_ms)

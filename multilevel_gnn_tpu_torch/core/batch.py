@@ -9,6 +9,7 @@ import torch
 
 from multilevel_gnn_tpu_torch.core.device import resolve_device
 from multilevel_gnn_tpu_torch.core.graph import Graph, StackedGraph, stack_graphs
+from multilevel_gnn_tpu_torch.ops.kernels.pathway import SlotPlan
 from multilevel_gnn_tpu_torch.ops.kernels.segment_sum import CSRPlan
 
 
@@ -52,7 +53,11 @@ class FoldContext:
     adjacency (batch.py:75).  data: on a data rank of a mesh, the rank's
     parallel/comm.py:DataShard (set by parallel/mesh.py:DataParallel for
     one forward), which the batch-coupled statistics read; None
-    elsewhere."""
+    elsewhere.  slot_plan: the pathway contraction's SlotPlan over
+    raw_indice and the 3 * n_pathways slots, built once a fold (a stacked
+    context's view keeps unit 0's, which the vmapped step does not read);
+    None where the context was made without it, and then the contraction
+    builds one a call."""
 
     graph: Graph
     gene_pca_match: torch.Tensor
@@ -67,6 +72,7 @@ class FoldContext:
     edge_id_gather: Optional[CSRPlan] = None
     pathway_adj: Optional[torch.Tensor] = None
     data: Optional[object] = None
+    slot_plan: Optional[SlotPlan] = None
 
     @property
     def num_pca_rows(self) -> int:
@@ -89,7 +95,8 @@ def make_fold_context(
     edge_vocab: Optional[int] = None,
 ) -> FoldContext:
     """Fold context on ``device`` (batch.py:82), with the gather_rows
-    backward plan built once per fold.  graph must already be on that
+    backward plan and the pathway contraction's slot plan built once per
+    fold.  graph must already be on that
     device (Graph.with_sorted_meta).  edge_vocab: the edge-id table's row
     count; given, the edge ids (int(last edge-attr column) clipped to
     [0, edge_vocab), deepergcn.py:158-170) and their lookup plan are
@@ -131,6 +138,7 @@ def make_fold_context(
         ),
         edge_ids=edge_ids,
         edge_id_gather=edge_id_gather,
+        slot_plan=SlotPlan.build(raw_indice, 3 * n_pathways).to(dev),
     )
 
 

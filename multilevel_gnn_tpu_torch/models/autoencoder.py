@@ -94,7 +94,7 @@ class AutoEncoder(MultilevelGNN):
         h = self.gnn_stack(h, x, ctx, generator, apply_value_mask=False)
         xg = self.gather_pca_rows(h, ctx, drop_slot0=True)
         p = self.learnable_pca_params * ctx.info_mask
-        out = pathway_contract(xg, p, ctx.raw_indice, 3 * cfg.pathway_num)
+        out = pathway_contract(xg, p, ctx.raw_indice, 3 * cfg.pathway_num, ctx.slot_plan)
         if cfg.decoder_type == "flatten":
             B, C, _, K = out.shape
             return out.reshape(B, C, cfg.pathway_num, 3 * K)

@@ -362,7 +362,7 @@ class MultilevelGNN(nn.Module):
             p = pca * ctx.info_mask
         else:
             p = pca
-        out = pathway_contract(xg, p, ctx.raw_indice, 3 * cfg.pathway_num)
+        out = pathway_contract(xg, p, ctx.raw_indice, 3 * cfg.pathway_num, ctx.slot_plan)
         image = slots_to_image(out, cfg.pathway_num)
         if cfg.reorder_pathway:
             image = image.index_select(2, ctx.reorder_idxs)

@@ -85,7 +85,8 @@ class PathCNN(nn.Module):
             return batch.raw_data.reshape(-1, 1, P, 3 * K)
         pca = self.learnable_pca_params
         p = pca * ctx.info_mask if cfg.mutual_info_mask else pca
-        out = pathway_contract(batch.raw_data.T[..., None], p, ctx.raw_indice, 3 * P)
+        out = pathway_contract(batch.raw_data.T[..., None], p, ctx.raw_indice, 3 * P,
+                               ctx.slot_plan)
         return slots_to_image(out, P)
 
     def forward(

@@ -3,7 +3,7 @@ them; each kernel module registers its kernel and its ``mgtpu`` ops when
 it is imported."""
 import importlib
 
-MODULES = ("segment_sum", "segment_max", "windowed", "dma_gather")
+MODULES = ("segment_sum", "segment_max", "windowed", "dma_gather", "pathway")
 
 
 def import_all() -> None:

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point.  At first
-use it is compiled for ``sm_90a`` into ``_build/`` beside this file (listed
-in .gitignore), under a name keyed by a hash of its source and flags, and
-loaded with ctypes.  ``build_all`` compiles every kernel at once, one nvcc
-process per source, all started together.  A failed build raises; nothing
+Each kernel is a plain C entry point of one ``csrc/*.cu`` file (a file may
+hold several kernels' entry points).  At first use the file is compiled for
+``sm_90a`` into ``_build/`` beside this file (listed in .gitignore), under a
+name keyed by the file's name and a hash of its source and flags, and loaded
+with ctypes.  ``build_all`` compiles every kernel at once, one nvcc process
+per source, all started together.  A failed build raises; nothing
 falls back to a plain PyTorch version.
 """
 from __future__ import annotations
@@ -63,7 +64,7 @@ class Kernel:
     def _so_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def _load(self, so: Path) -> None:
         lib = ctypes.CDLL(str(so))
@@ -113,11 +114,16 @@ def build_all(kernels: Optional[List[Kernel]] = None) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     times: Dict[str, float] = {}
+    by_so: Dict[Path, List[Kernel]] = {}  # the kernels each new library holds
     for k in kernels:
         so = k._so_path()
         if so.exists():
             times[k.name] = 0.0
             continue
+        if so in by_so:
+            by_so[so].append(k)
+            continue
+        by_so[so] = [k]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
         t0 = time.perf_counter()
@@ -127,14 +133,15 @@ def build_all(kernels: Optional[List[Kernel]] = None) -> Dict[str, float]:
         procs.append((k, p, tmp, so, t0))
     for k, p, tmp, so, t0 in procs:
         out, err = p.communicate()
-        times[k.name] = time.perf_counter() - t0
         if p.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {k.source_rel} (rc {p.returncode}):\n"
                 f"{out}\n{err}"
             )
-        k.ptxas_log = err
         os.replace(tmp, so)
+        for other in by_so[so]:
+            times[other.name] = time.perf_counter() - t0
+            other.ptxas_log = err
     for k in kernels:
         if k._fn is None:
             k._load(k._so_path())

@@ -19,10 +19,14 @@
   kernel.K1           ops/kernels/segment_sum.py: the K1 op's call, from
                       its torch.library dispatch to the launch
   kernel.K2           ops/kernels/windowed.py: the same for K2
+  kernel.PW.fwd       ops/kernels/pathway.py: the same for the pathway
+  kernel.PW.bwd       contraction's forward and backward (PW)
   ==================  ===================================================
 
   The counter ``host_syncs`` counts the port's own blocking read-backs of
-  device values: evaluate's three a batch and run_fold's one an epoch.
+  device values: evaluate's three a batch and run_fold's one an epoch;
+  ``pathway.dense_vmap`` counts the pathway contractions that took the
+  dense route under torch.vmap (ops/pathway.py), one a vmapped call.
 - ``trace(log_dir)``: a torch.profiler capture of the CPU and CUDA
   activities inside the block, written into log_dir as a Chrome trace
   (Perfetto or chrome://tracing open it), where the JAX package writes a

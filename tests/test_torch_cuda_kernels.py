@@ -55,6 +55,14 @@ calls equal bit for bit; an empty src gives zeros.  P1 equal bit for bit
 to ``dma_row_gather_ordered`` (its order of additions) at the tool's
 shapes, E = 0, E < te, a short last chunk, fewer chunks than SMs, te = 1,
 te = 1,024 and te not a multiple of a ring slot's rows, bf16 and f32.
+PW (the pathway contraction's kernels) against their plain versions at
+kirc's shapes (G 25,015, S 438, K 3, F 2,048), gbm's (K 2, F 1,024),
+PathCNN's (F = B = 64), off the vector path (F 20) and with a slot of 1,000
+rows (eight chunks), bf16 and f32: the forward and dP within TOL[f32], dx
+equal, two calls equal bit for bit; pathway_contract on the card building
+neither the one-hot nor its weighted copy, and the launches of a train
+step (PW forward 1, backward 1, K1 7, K2 4) and of an eval batch (PW
+forward 1, K1 2, K2 2).
 
 Tolerance: max|kernel - plain| <= tol * max(1, max|plain|), tol = 1e-4 for
 f32 (sum order) and 2e-3 for bf16 (an entry's bf16 rounding can differ when
@@ -68,6 +76,7 @@ import pytest
 import torch
 
 from multilevel_gnn_tpu_torch.ops.kernels import dma_gather as p1
+from multilevel_gnn_tpu_torch.ops.kernels import pathway as pw
 from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
@@ -630,7 +639,7 @@ def _on(dev, a):
 def test_ops_opcheck_and_plain_on_cuda(dev, name):
     """torch.library.opcheck of each mgtpu op on CUDA tensors (schema, fake
     function, dispatch), and the CUDA kernel against the plain version on
-    the same inputs (K3 equal)."""
+    the same inputs (K3 and PW's dx equal)."""
     _, op, args, _ = op_case(name)
     args = tuple(_on(dev, a) for a in args)
     torch.library.opcheck(op, tuple(a.clone() if isinstance(a, torch.Tensor) else a
@@ -642,6 +651,11 @@ def test_ops_opcheck_and_plain_on_cuda(dev, name):
     torch.cuda.synchronize()
     if name.startswith("k3"):
         assert torch.equal(got.cpu(), ref)
+    elif name.startswith("pw_bwd"):  # dx equal, dP to f32's sum order
+        assert torch.equal(got[0].cpu(), ref[0])
+        _close(got[1].cpu(), ref[1], torch.float32)
+    elif name.startswith("pw"):
+        _close(got.cpu(), ref, torch.float32)
     else:
         dtype = cpu_args[0].dtype if not name.startswith("k1_acc") else cpu_args[1].dtype
         _close(got.cpu(), ref, dtype)
@@ -866,7 +880,8 @@ def test_stacked_step_matches_unit_steps(dev, dtype):
     TOL's limits of the largest, K1 / K2 launched as often as in one
     unit's own train step: K2 a layer forward and backward (4), K1 a
     layer over the residual (2) and over tres and res_csc (4), and once
-    for the PCA gather's backward.  The folds have 1,200 node slots
+    for the PCA gather's backward; PW in the unit's own step only (the
+    stacked step's pathway contraction takes the dense form).  The folds have 1,200 node slots
     (node_num 400), two 1,024-row windows, so their plans have residual
     and tres edges; at 900 slots (one window) they had none, and K1 ran
     once.  TF32 is as torch leaves it (cuDNN's on): the head's
@@ -913,7 +928,9 @@ def test_stacked_step_matches_unit_steps(dev, dtype):
     counts = counted(lambda: S.stacked_train_step(
         copy.deepcopy(models[0]), params, opt, batch, sctx, cw, gens))
     assert counts[k1.KERNEL.name] == 7 and counts[k2.KERNEL.name] == 4, counts
-    assert counts == own, (counts, own)
+    # the pathway contraction: PW in a unit's own step, the dense form under vmap
+    assert own[pw.FWD_KERNEL.name] == 1 and own[pw.BWD_KERNEL.name] == 1, own
+    assert counts == {**own, pw.FWD_KERNEL.name: 0, pw.BWD_KERNEL.name: 0}, (counts, own)
     tol = TOL[torch.bfloat16 if dtype else torch.float32] * 35
     for u, m in enumerate(models):
         m.train()
@@ -980,3 +997,90 @@ def test_p1_empty_src(dev):
     out = p1.dma_row_gather(x3, torch.empty(0, dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros(8, 128, device=dev))
+
+
+# ---- PW: the pathway contraction (ops/kernels/pathway.py)
+
+def _slot_ids(kind, G=25_015, S=438, seed=0):
+    rng = np.random.RandomState(seed)
+    if kind == "kirc":  # the benchmark's synthetic fold: sorted, 35-81 rows a slot
+        return np.sort(rng.randint(0, S, G))
+    ids = rng.randint(0, S - 3, G)  # the last three slots empty
+    ids[rng.choice(G, 1000, replace=False)] = 5  # 1,000+ rows: eight chunks
+    return ids
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,F,kind", [(3, 2048, "kirc"), (2, 1024, "kirc"), (3, 64, "kirc"),
+                                      (4, 20, "long"), (1, 2056, "long")])
+def test_pw_matches_plain(dev, dtype, K, F, kind):
+    ids = _slot_ids(kind)
+    G, S = len(ids), 438
+    plan = pw.SlotPlan.build(ids, S).to(dev)
+    assert (plan.n_parts > 0) == (kind == "long")
+    g = torch.Generator(device=dev).manual_seed(K * F)
+    x = torch.randn(G, F, generator=g, device=dev).to(dtype)
+    p = torch.randn(G, K, generator=g, device=dev)
+    gout = torch.randn(K * S, F, generator=g, device=dev)
+    f0, b0 = pw.FWD_KERNEL.launches, pw.BWD_KERNEL.launches
+    out = pw.pathway_fwd(x, p, plan)
+    dx, dp = pw.pathway_bwd(x, p, gout, plan)
+    out2 = pw.pathway_fwd(x, p, plan)
+    dx2, dp2 = pw.pathway_bwd(x, p, gout, plan)
+    torch.cuda.synchronize()
+    assert (pw.FWD_KERNEL.launches - f0, pw.BWD_KERNEL.launches - b0) == (2, 2)
+    _close(out, pw.pathway_fwd_plain(x, p, plan), torch.float32)
+    rdx, rdp = pw.pathway_bwd_plain(x, p, gout, plan)
+    assert dx.dtype == dtype and torch.equal(dx, rdx), float((dx.float() - rdx.float()).abs().max())
+    _close(dp, rdp, torch.float32)
+    for a, b in ((out, out2), (dx, dx2), (dp, dp2)):
+        assert torch.equal(a, b)
+
+
+def test_pw_route_and_launches(dev, monkeypatch):
+    """pathway_contract on the card: the PW kernels, neither the one-hot nor
+    its weighted copy (slot_onehot and the dense Function refuse here);
+    then a train step and an eval batch of a small windowed fold, counted."""
+    from multilevel_gnn_tpu_torch.data.synthetic import make_gbm_scale_setup
+    from multilevel_gnn_tpu_torch.ops import pathway as pathway_ops
+    from multilevel_gnn_tpu_torch.ops.kernels import build
+    from multilevel_gnn_tpu_torch.train import step as S
+
+    def refuse(*a, **k):
+        raise AssertionError("the dense form ran outside torch.vmap")
+
+    monkeypatch.setattr(pathway_ops, "slot_onehot", refuse)
+    monkeypatch.setattr(pathway_ops._Contract, "apply", refuse)
+    cfg, model, graph, ctx, batch = make_gbm_scale_setup(
+        node_num=400, n_pathways=12, batch=8, gene_rows=900, topology="cohort",
+        windowed=True, device=dev, compute_dtype="bfloat16", spmm_bf16=True, seed=0,
+        topo_seed=0)
+    assert ctx.slot_plan is not None and ctx.slot_plan.slot_ptr.is_cuda
+
+    def counted(fn):
+        for k in build.REGISTRY.values():
+            k.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return {n: c for n, c in ((k.name, k.launches) for k in build.REGISTRY.values()) if c}
+
+    cw = torch.tensor([1.0, 1.5], device=dev)
+    step = counted(lambda: S.train_step(model, S.make_optimizer(model, cfg, 4), batch, ctx,
+                                        cw, torch.Generator(device=dev).manual_seed(7)))
+    assert step == {k1.KERNEL.name: 7, k2.KERNEL.name: 4, pw.FWD_KERNEL.name: 1,
+                    pw.BWD_KERNEL.name: 1}, step
+    ev = counted(lambda: S.eval_step(model, batch, ctx))
+    assert ev == {k1.KERNEL.name: 2, k2.KERNEL.name: 2, pw.FWD_KERNEL.name: 1}, ev
+
+
+def test_pw_refuses_other_k(dev):
+    """The kernels are built for 1 to 4 PCA columns; a CUDA tensor with
+    another K raises before any launch (the CPU's plain version takes any)."""
+    plan = pw.SlotPlan.build(np.arange(40) % 6, 6).to(dev)
+    x = torch.randn(40, 16, device=dev)
+    before = pw.FWD_KERNEL.launches
+    with pytest.raises(ValueError, match="PCA columns"):
+        pw.pathway_fwd(x, torch.randn(40, 5, device=dev), plan)
+    assert pw.FWD_KERNEL.launches == before
+    out = pw.pathway_fwd(x.cpu(), torch.randn(40, 5), pw.SlotPlan.build(np.arange(40) % 6, 6))
+    assert out.shape == (30, 16)

@@ -22,7 +22,8 @@ gat, mr, pca_lowrank, dense_gnn, the clip with StepLR and warmup, the
 bf16 trunk) against the sequential protocol too.
 
 Also: the first stacked step's per-unit gradients against each unit's own
-train step; the ragged-trim warning; the ValueError on folds that do not
+train step; the pathway contraction's dense route under vmap, counted once
+a stacked step (``pathway.dense_vmap``) and never in a unit's own step; the ragged-trim warning; the ValueError on folds that do not
 stack (one composed among windowed); and the CLI's --fold-parallel (no value parses to 0, --pretrain exits 2,
 the protocol's JSON line).
 
@@ -296,6 +297,36 @@ def test_first_stacked_step_gradients_match_units():
             ref = p.grad if p.grad is not None else torch.zeros_like(p)
             err = float((grads[k][i] - ref).abs().max())
             assert err <= 1e-5 * float(ref.abs().max()), (i, k, err)
+
+
+def test_stacked_step_counts_the_dense_pathway_route():
+    """Under torch.vmap the pathway contraction takes its dense route over
+    each unit's own slot ids and counts it, once a stacked step; a unit's
+    own step takes its fold's slot plan and counts nothing."""
+    from multilevel_gnn_tpu_torch.core.batch import stack_contexts
+    from multilevel_gnn_tpu_torch.utils.profiling import recording
+
+    cfg = _cfg()
+    cohort = _cohort(cfg)
+    units = _step_setup(cfg, cohort, [(0, 0), (0, 1)])
+    sctx = stack_contexts([u["ctx"] for u in units])
+    params = S.stack_params([u["model"] for u in units])
+    fcfg = units[0]["cfg"]
+    opt = S.Optimizer(list(params.values()), fcfg, 4, units=2)
+    gens = UnitGenerators(torch.Generator().manual_seed(u["seed"]) for u in units)
+    batch = Batch(*(torch.stack([getattr(u["batch"], f) for u in units])
+                    for f in ("x", "y", "age", "sample_mask")))
+    cw = torch.stack([u["cw"] for u in units])
+    with recording() as rec:
+        S.stacked_train_step(copy.deepcopy(units[0]["model"]), params, opt, batch, sctx,
+                             cw, gens)
+    assert rec.counts.get("pathway.dense_vmap") == 1, rec.counts
+    u = units[0]
+    with recording() as rec:
+        loss, _ = S.make_loss_fn(fcfg)(u["model"], u["batch"], u["ctx"], u["cw"],
+                                       torch.Generator().manual_seed(u["seed"]))
+        loss.backward()
+    assert "pathway.dense_vmap" not in rec.counts, rec.counts
 
 
 def _ragged_cfg():

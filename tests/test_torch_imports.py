@@ -83,10 +83,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
 def test_kernel_sources_shipped():
     from multilevel_gnn_tpu_torch.ops.kernels import build
     from multilevel_gnn_tpu_torch.ops.kernels import dma_gather, segment_max, segment_sum, windowed  # noqa
+    from multilevel_gnn_tpu_torch.ops.kernels import pathway  # noqa
 
     assert set(build.REGISTRY) == {
         "segment_spmm_csr", "windowed_tile_spmm", "segment_max_csr",
-        "sorted_segment_sum", "dma_row_gather"}
+        "sorted_segment_sum", "dma_row_gather", "pathway_contract_fwd",
+        "pathway_contract_bwd"}
     for k in build.REGISTRY.values():
         assert k.source.is_file(), k.source
         text = k.source.read_text()

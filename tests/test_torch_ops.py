@@ -1,4 +1,4 @@
-"""K1-K4 and P1 as torch.library custom ops (namespace mgtpu) on the CPU.
+"""K1-K4, P1 and PW as torch.library custom ops (namespace mgtpu) on the CPU.
 
 ``torch.library.opcheck`` runs each op's schema, fake (meta) function and
 dispatch tests on CPU tensors at small shapes, and each op's CPU result
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from multilevel_gnn_tpu_torch.ops.kernels import dma_gather as p1
+from multilevel_gnn_tpu_torch.ops.kernels import pathway as pw
 from multilevel_gnn_tpu_torch.ops.kernels import segment_max as k3
 from multilevel_gnn_tpu_torch.ops.kernels import segment_sum as k1
 from multilevel_gnn_tpu_torch.ops.kernels import windowed as k2
@@ -69,6 +70,21 @@ def op_cases():
         rows = torch.as_tensor(rng.randint(0, 64, 500).astype(np.int32))
         cases.append((f"p1_{dtype}", p1.dma_row_gather_op, (x3, rows, 8),
                       p1.dma_row_gather_plain(x3, rows)))
+        # PW: a slot of two chunks, empty slots, rows of no slot (-1)
+        prng = np.random.RandomState(5)
+        ids = np.concatenate([np.full(150, 4), prng.randint(-1, 10, 250)])
+        prng.shuffle(ids)
+        splan = pw.SlotPlan.build(ids, 12)
+        assert splan.n_parts == 2
+        xp = torch.as_tensor(prng.randn(400, 24).astype(np.float32)).to(dtype)
+        pp = torch.as_tensor(prng.randn(400, 3).astype(np.float32))
+        gout = torch.as_tensor(prng.randn(36, 24).astype(np.float32))
+        cases.append((f"pw_fwd_{dtype}", pw.pathway_contract_fwd_op,
+                      (xp, pp) + splan.fwd_args + (splan.n_parts,),
+                      pw.pathway_fwd_plain(xp, pp, splan)))
+        cases.append((f"pw_bwd_{dtype}", pw.pathway_contract_bwd_op,
+                      (xp, pp, gout) + splan.bwd_args,
+                      pw.pathway_bwd_plain(xp, pp, gout, splan)))
     return cases
 
 
@@ -92,13 +108,18 @@ def test_op_equals_plain_cpu(name):
     got = op(*args)
     if got is None:  # the mutating K1 form: the result is its first argument
         got = args[0]
+    if isinstance(got, tuple):  # PW's backward: dx in x's dtype, dP in f32
+        assert [t.dtype for t in got] == [args[0].dtype, torch.float32]
+        assert all(torch.equal(t, r) for t, r in zip(got, ref)), name
+        return
     assert got.dtype == torch.float32
     assert torch.equal(got, ref), name
 
 
 def test_ops_registered_in_namespace():
     for name in ("segment_spmm_csr", "segment_spmm_csr_acc", "windowed_tile_spmm",
-                 "segment_max_csr", "sorted_segment_sum", "dma_row_gather"):
+                 "segment_max_csr", "sorted_segment_sum", "dma_row_gather",
+                 "pathway_contract_fwd", "pathway_contract_bwd"):
         op = getattr(torch.ops.mgtpu, name).default
         schema = op._schema
         # tensors and ints only
